@@ -1,0 +1,26 @@
+"""PyTorch/CUDA port of ``repro`` (ERIS), module for module.
+
+Each subpackage mirrors its counterpart in ``repro``; the port imports
+torch, numpy and the standard library only.  Entry points run on the
+CUDA card unless the caller passes ``device="cpu"``: without a card
+they raise rather than carry on on the host (:func:`resolve_device`).
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the CUDA card and raises when there is none; any
+    explicit device (``"cpu"`` for the tests) is taken as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device (torch.cuda.is_available() is False); "
+                "pass device='cpu' to run the plain-torch path on the host")
+        return torch.device("cuda")
+    return torch.device(device)

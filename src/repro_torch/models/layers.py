@@ -1,0 +1,76 @@
+"""Single-device layers of the serving path: RMS norm, rotary embedding
+and query-chunked causal GQA attention (``repro/models/layers.py``).
+
+Plain torch throughout: the reference leaves these to XLA, the port to
+PyTorch's eager kernels.  ``causal_attention`` deliberately does not
+call ``scaled_dot_product_attention`` -- it is the same materialized
+softmax as the reference, chunked over queries.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    # Rounding order matters for bf16 parity: the variance is taken in
+    # f32, rsqrt is cast to x's dtype BEFORE the multiply, then * scale.
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """Rotary embedding.  x: (..., S, H, hd), positions: (..., S).
+
+    Rotates the two concatenated HALVES ``x[..., :hd/2]`` and
+    ``x[..., hd/2:]`` against each other -- not interleaved even/odd
+    pairs, which would give other numbers from the same weights."""
+    hd = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, hd, 2, dtype=torch.float32,
+                                    device=x.device) / hd)
+    angles = positions[..., None].float() * freqs       # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]               # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def _attend_block(q, k, v, qpos, kpos, window, scores_f32=True):
+    """q: (B, Cq, KV, G, hd); k/v: (B, Skv, KV, hd); returns (B,Cq,KV,G,hd).
+    Causal + optional sliding-window masking by absolute positions."""
+    scale = q.shape[-1] ** -0.5
+    sdt = torch.float32 if scores_f32 else q.dtype
+    neg = -1e30 if scores_f32 else -6e4
+    # the scale is rounded to the score dtype first, as the reference does
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).to(sdt) * \
+        torch.tensor(scale, dtype=sdt, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = scores.masked_fill(~mask, neg)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+
+
+def causal_attention(q, k, v, *, q_offset: int = 0,
+                     window: Optional[int] = None, chunk: int = 512,
+                     scores_f32: bool = True):
+    """Query-chunked causal GQA attention.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); H = KV * G.
+    Query i has absolute position q_offset + i; key j has position j.
+    Each query row depends only on its own chunk's scores, so the
+    reference's zero-padding of the last chunk is a no-op here.
+    """
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for c0 in range(0, Sq, chunk):
+        qi = qg[:, c0:c0 + chunk]
+        qpos = q_offset + c0 + torch.arange(qi.shape[1], device=q.device)
+        outs.append(_attend_block(qi, k, v, qpos, kpos, window, scores_f32))
+    return torch.cat(outs, 1).reshape(B, Sq, H, hd)

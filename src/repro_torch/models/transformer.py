@@ -1,0 +1,263 @@
+"""Decoder: parameter spec / init / prefill forward / paged decode
+(the serving subset of ``repro/models/transformer.py``).
+
+Parameters keep the reference's layout: every per-layer weight is
+stacked along a leading L axis, so converting a JAX checkpoint is a
+leaf-for-leaf copy (``repro_torch.convert``).  The reference scans the
+layer axis with ``lax.scan``; here a Python loop walks it.
+
+Families: the dense decoder (and ``audio``, whose language model is the
+same dense stack).  moe, hybrid, ssm and vlm come with the slice that
+ports the rest of the model zoo; training (``mode="train"`` with the
+flash-attention kernels) with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+_FAMILIES = ("dense", "audio")
+
+# the dtypes the paged kernel takes, for params and for the cache
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _require_family(cfg: ModelConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
+            f"port serves {_FAMILIES}; moe/hybrid/ssm/vlm come with the "
+            f"slice that ports the rest of the model zoo")
+
+
+# ============================================================ param spec
+def param_spec(cfg: ModelConfig) -> dict:
+    """Shapes of every parameter, as the reference's ``param_spec``."""
+    _require_family(cfg)
+    D, V, Lyr = cfg.d_model, cfg.vocab, cfg.n_layers
+    F_, Q, KV, hd = cfg.d_ff, cfg.q_dim, cfg.kv_dim, cfg.hd
+    blk: dict[str, tuple] = {"ln1": (Lyr, D), "ln2": (Lyr, D),
+                             "wq": (Lyr, D, Q), "wk": (Lyr, D, KV),
+                             "wv": (Lyr, D, KV), "wo": (Lyr, Q, D)}
+    if cfg.qkv_bias:
+        blk.update(bq=(Lyr, Q), bk=(Lyr, KV), bv=(Lyr, KV))
+    if cfg.qk_norm:
+        blk.update(q_norm=(Lyr, hd), k_norm=(Lyr, hd))
+    blk.update(w_gate=(Lyr, D, F_), w_up=(Lyr, D, F_), w_down=(Lyr, F_, D))
+    spec = {"embed": (V, D), "ln_f": (D,), "blocks": blk}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = (D, V)
+    return spec
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: DeviceLike = None) -> dict:
+    """Random params at the config's width, made on ``device``.
+
+    Norm scales are ones, biases zeros, and every matrix N(0, 1) scaled by
+    fan_in**-0.5 (fan_in = the second-to-last dim), as the reference.
+    Leaf i draws from its own generator seeded with (seed, i), the
+    counterpart of ``fold_in(key, i)``: a leaf's values do not depend on
+    the shapes of the others.  The draws are torch's, not JAX's."""
+    device = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
+
+    def one(idx, name, shape):
+        if name.startswith(("ln", "q_norm", "k_norm")):
+            return torch.ones(shape, dtype=dtype, device=device)
+        if name.startswith("b"):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed * 1_000_003 + idx)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (w * fan_in ** -0.5).to(dtype)
+
+    params: dict = {}
+    idx = 0
+    for name, shape in param_spec(cfg).items():
+        if name == "blocks":
+            params["blocks"] = {}
+            for bn, bshape in shape.items():
+                params["blocks"][bn] = one(idx, bn, bshape)
+                idx += 1
+        else:
+            params[name] = one(idx, name, shape)
+            idx += 1
+    return params
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {n: t[i] for n, t in params["blocks"].items()}
+
+
+def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ================================================================= blocks
+def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions):
+    B, S = h.shape[:2]
+    q = h @ lp["wq"]
+    k = h @ lp["wk"]
+    v = h @ lp["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    return (L.rope(q, positions, cfg.rope_theta),
+            L.rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn(cfg: ModelConfig, lp: dict, x, positions, window):
+    """Prefill attention.  As in the reference, prefill goes through the
+    plain chunked ``causal_attention``; the flash kernel serves only
+    ``mode="train"``.  Returns (x_out, {"k", "v"}) -- the per-layer cache."""
+    B, S = x.shape[:2]
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, h, positions)
+    out = L.causal_attention(
+        q, k, v, window=window, chunk=cfg.attn_chunk,
+        scores_f32=cfg.attn_scores_f32 and not cfg.bf16_residency)
+    y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"]
+    return x + y, {"k": k, "v": v}
+
+
+def _gated_mlp(h, w_gate, w_up, w_down):
+    return (F.silu(h @ w_gate) * (h @ w_up)) @ w_down
+
+
+def _ffn(cfg: ModelConfig, lp: dict, x):
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _block(cfg: ModelConfig, lp: dict, x, positions, window):
+    x, kv = _attn(cfg, lp, x, positions, window)
+    return _ffn(cfg, lp, x), {"kv": kv}
+
+
+# ================================================================ forward
+def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+    """Token embedding (forward only)."""
+    _require_family(cfg)
+    return params["embed"][tokens.long()]
+
+
+@torch.no_grad()
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            mode: str = "prefill", window: Optional[int] = None):
+    """Full-sequence forward.  Returns (logits, caches, aux); caches holds
+    the per-layer K/V stacked as (L, B, S, KV, hd) under ``["kv"]``."""
+    if mode != "prefill":
+        raise NotImplementedError(
+            f"forward(mode={mode!r}): only prefill is ported; training "
+            f"comes with the training slice")
+    x = embed_inputs(params, cfg, tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, cache = _block(cfg, _layer(params, i), x, positions, window)
+        ks.append(cache["kv"]["k"])
+        vs.append(cache["kv"]["v"])
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = x @ _head(params, cfg)
+    caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return logits, caches, {"load_balance": torch.zeros((), device=x.device)}
+
+
+# ========================================================== paged decode
+# The serving engine's cache is a global pool of fixed-size blocks
+# (serve/cache.py); each request owns a block table.  Every row of the
+# decode step carries its OWN absolute position, K/V write through the
+# block table, and attention reads through it (the CUDA kernel in
+# kernels/paged_attention, or its plain torch version).
+
+def paged_families() -> tuple:
+    """Families the paged decode path serves in the port."""
+    return _FAMILIES
+
+
+def init_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: DeviceLike = None) -> dict:
+    """Per-layer stacked K/V block pools: (L, N, KV, bs, hd)."""
+    if cfg.family not in paged_families():
+        raise ValueError(
+            f"paged KV cache supports families {paged_families()}, not "
+            f"{cfg.family!r}")
+    device = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads, block_size, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _attn_paged(cfg: ModelConfig, lp: dict, x, positions, k_pool, v_pool,
+                block_tables, ctx_lens, window, use_kernel: bool):
+    """One layer's attention against its (N, KV, bs, hd) pools.  x: (B, 1,
+    D); positions/ctx_lens: (B, 1)/(B,) -- the new token's absolute
+    position.  Writes the new K/V into the pools IN PLACE, then attends."""
+    B = x.shape[0]
+    bs = k_pool.shape[2]
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, h, positions)
+    # Write, then attend with ctx + 1: logical position ctx_lens[b] lives
+    # at (block_tables[b, ctx // bs], ctx % bs).  Inactive slots (ctx 0,
+    # table all scratch) all write to scratch block 0 at offset 0; those
+    # duplicate indices are harmless because no live row reads scratch,
+    # and accumulate=True would be wrong (it sums the duplicates).
+    # pool[pages, :, offs] puts the advanced dims in front: (B, KV, hd).
+    rows = torch.arange(B, device=x.device)
+    pages = block_tables[rows, (ctx_lens // bs).long()].long()
+    offs = (ctx_lens % bs).long()
+    k_pool[pages, :, offs] = k[:, 0].to(k_pool.dtype)
+    v_pool[pages, :, offs] = v[:, 0].to(v_pool.dtype)
+    fn = pa.paged_attention if use_kernel else pa.paged_attention_ref
+    out = fn(q[:, 0].contiguous(), k_pool, v_pool, block_tables,
+             ctx_lens + 1, window=window)
+    y = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
+    return x + y
+
+
+@torch.no_grad()
+def paged_decode_step(params: dict, cfg: ModelConfig, pools: dict,
+                      block_tables: torch.Tensor,
+                      context_lens: torch.Tensor, tokens: torch.Tensor,
+                      window: Optional[int] = None,
+                      use_kernel: bool = True):
+    """One decode step for a batch of requests at DIFFERENT positions.
+
+    tokens: (B, 1) -- each row's newest token
+    context_lens: (B,) int32 -- tokens already cached per row (the new
+        token's absolute position); inactive rows pass 0 with a
+        scratch-block table and produce garbage logits that the engine
+        masks out
+    pools: ``init_paged_pools`` dict; block_tables: (B, P) int32
+
+    The reference returns new pools (JAX donates the old ones to jit);
+    here the pools are updated in place and the same dict is returned.
+    ``use_kernel`` selects :func:`paged_attention` (the CUDA kernel on a
+    CUDA tensor) over its plain version.  Returns (logits (B, 1, V), pools).
+    """
+    x = embed_inputs(params, cfg, tokens)
+    positions = context_lens[:, None]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        x = _attn_paged(cfg, lp, x, positions, pools["k"][i], pools["v"][i],
+                        block_tables, context_lens, window, use_kernel)
+        x = _ffn(cfg, lp, x)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x @ _head(params, cfg), pools

@@ -1,0 +1,85 @@
+"""Token selection: temperature / top-k / top-p sampling and greedy
+(``repro/serve/sampling.py``; ``beam_search`` is not ported yet).
+
+``sample`` is row-wise: temperature/top_k/top_p come in as per-row
+tensors, so one decode step serves every request's sampling settings at
+once, and each row draws from its own uniform.  The uniforms come from a
+counter-based stream keyed on (request seed, token index) through the
+murmur3 hash of ``kernels/common``: a request's token stream depends only
+on its own seed and history, never on its batch or slot, which is what
+makes batched output token-identical to solo output.
+
+The reference keys its draws with threefry (``fold_in(PRNGKey(seed),
+i)``) and draws with the Gumbel-max trick; this stream is another one.
+Greedy requests match the reference exactly; sampled requests match it
+in distribution only.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels.common import hash_u32, uniform_from_index
+
+NEG_INF = -1e30
+_MASK = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """temperature == 0 selects greedy; top_k == 0 / top_p == 1 disable
+    the respective filters."""
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+
+    def __post_init__(self):
+        if self.temperature < 0:
+            raise ValueError(f"SamplingParams.temperature must be >= 0, "
+                             f"got {self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"SamplingParams.top_k must be >= 0, "
+                             f"got {self.top_k}")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"SamplingParams.top_p must be in (0, 1], "
+                             f"got {self.top_p}")
+
+
+def token_uniforms(seeds: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """U[0, 1) for token ``indices[b]`` of the stream ``seeds[b]`` (int64
+    tensors).  Both 32-bit halves of the seed key the stream."""
+    seeds = seeds.to(torch.int64)
+    stream = hash_u32((seeds & _MASK) ^ hash_u32((seeds >> 32) & _MASK))
+    return uniform_from_index(indices, stream)
+
+
+def sample(u: torch.Tensor, logits: torch.Tensor, temperature: torch.Tensor,
+           top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row token selection.  u: (B,) uniforms in [0, 1); logits:
+    (B, V); temperature/top_k/top_p: (B,).  Order of the filters, as the
+    reference: temperature scale -> top-k -> top-p on the sorted
+    probabilities -> categorical draw; temperature 0 short-circuits to the
+    argmax (the first maximum).  Returns (B,) int32."""
+    B, V = logits.shape
+    greedy = logits.argmax(-1)
+    scaled = logits.float() / temperature.float().clamp_min(1e-6)[:, None]
+    sorted_logits, order = torch.sort(scaled, dim=-1, descending=True,
+                                      stable=True)
+    ranks = torch.arange(V, device=logits.device)[None, :]
+    # top-k: keep sorted positions < k (k == 0 disables)
+    k_eff = torch.where(top_k > 0, top_k.clamp(1, V), V)
+    keep = ranks < k_eff[:, None]
+    # top-p: keep the smallest prefix of the sorted distribution whose
+    # mass reaches p (the first token always survives: cum - prob == 0)
+    probs = torch.softmax(sorted_logits.masked_fill(~keep, NEG_INF), -1)
+    cum = probs.cumsum(-1)
+    keep &= (cum - probs) < top_p[:, None]
+    # inverse-CDF draw in sorted order: the first rank whose cumulative
+    # mass exceeds u * total; filtered ranks add no mass and never win
+    cdf = torch.softmax(sorted_logits.masked_fill(~keep, NEG_INF),
+                        -1).cumsum(-1)
+    target = u.to(cdf)[:, None] * cdf[:, -1:]
+    pick = (cdf <= target).sum(-1).clamp_max(V - 1)
+    drawn = order.gather(-1, pick[:, None])[:, 0]
+    return torch.where(temperature <= 0, greedy, drawn).to(torch.int32)
