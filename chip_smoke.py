@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``): builds its
-CUDA kernel, holds it to its plain torch version, and serves
-eris-gptneo-1.3b at full width on one NVIDIA card.
+CUDA kernels, holds each to its plain torch version, serves
+eris-gptneo-1.3b at full width, and runs ERIS rounds of it at full width,
+on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -9,7 +10,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. device -- needs ``torch.cuda.is_available()``; prints the card's name
    and power limit as nvidia-smi gives them.
-2. build -- compiles every kernel of the serving path from
+2. build -- compiles every kernel source under
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
    source, started together) and prints the seconds.
 3. kernel vs plain version -- ``paged_attention`` against
@@ -28,7 +29,30 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    variant in f32 on the card and on the host and compares the tokens.
    A torch.profiler breakdown of three decode steps says where the
    step's time goes.
-5. prints the ``{"kernels": [...]}`` line, then, last, the
+5. wire kernels vs plain versions -- ``dsc_update``, ``quantize``,
+   ``dequantize`` and ``dsc_quantize`` against ``kernels/ref.py`` at
+   n = 3 * 2**20 + 77 and 2**24, g in f32 and bf16, p = 0.25 and 1, index
+   bases 0 and 2**32 - 4096 (straddling the wrap), with a zero block and a
+   ragged tail: codes, scales, v and s' must be bit-identical.  Then each
+   kernel is timed at the ERIS round's per-client n (1,816,565,760) beside
+   its byte bound, and each plain version on a 2**26 window.
+6. the ERIS round -- ``FLRun`` on eris-gptneo-1.3b at full width (bf16
+   params from ``--seed``, flash_attention off, K = 4, A = 8, lr 0.1,
+   4 x 64 random tokens a client), two rounds in each of three
+   configurations: DSC on the int8 wire through the fused kernel, DSC
+   through ``dsc_update``, and the int8 wire alone.  Asserts finite client
+   losses, x and s_agg after every round, K launches a round of each
+   kernel of the configuration, and replays client 3's round-2
+   compression (index base 3 * n_pad, past 2**32) on a 2**24 window
+   through the kernel and the plain version.  Prints each round's time
+   split (client gradients, compression, aggregation + server, from CUDA
+   events) and the peak device memory, and a torch.profiler breakdown of
+   one more round of the first configuration.
+7. small input -- the fused configuration on eris-gptneo-1.3b's smoke
+   variant in f32, two rounds on the card and on the host with the same
+   seeds: a host-made gradient compressed on both gives the same codes,
+   scales and s', and x agrees to 1e-4 relative norm.
+8. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -36,27 +60,57 @@ Builds go to ``build/kernels/`` (listed in .gitignore).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
+import math
+import os
 import pathlib
 import subprocess
 import sys
 import time
 
-import torch
+# the ERIS round allocates and frees 3.6-7.3 GB vectors of several sizes
+# (bf16 and f32, n and n padded); with fixed segments the cache strands
+# gigabytes between them, so let segments grow (set before torch starts)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import fl  # noqa: E402
+from repro_torch.core.compressors import RandP  # noqa: E402
+from repro_torch.core.pipeline import DSCCompress, Int8Wire  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import dsc_quantize as dq  # noqa: E402
+from repro_torch.kernels import dsc_update as du  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import quantize as qz  # noqa: E402
+from repro_torch.kernels import ref as wire_ref  # noqa: E402
+from repro_torch.launch import fl_train  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.serve import SamplingParams, ServeEngine, pages_for  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
-KERNELS = ("paged_attention",)   # every kernel of the serving path
+# every kernel of the port: (name, wrapper, source, the TPU kernel it replaces)
+KERNELS = (
+    ("paged_attention", pa.paged_attention, "paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:52"),
+    ("dsc_update", du.dsc_update, "dsc_update.cu",
+     "src/repro/kernels/dsc_update.py:30"),
+    ("quantize", qz.quantize, "quantize.cu",
+     "src/repro/kernels/quantize.py:35"),
+    ("dequantize", qz.dequantize, "quantize.cu",
+     "src/repro/kernels/quantize.py:52"),
+    ("dsc_quantize", dq.dsc_quantize, "dsc_quantize.cu",
+     "src/repro/kernels/dsc_quantize.py:36"),
+)
+WIRE = {name: fn for name, fn, _, _ in KERNELS[1:]}
 
 # kernel vs plain version: f32 agrees to summation order; with bf16 pools
 # the plain version rounds its softmax weights to bf16 before the PV
@@ -106,10 +160,10 @@ def device_phase() -> torch.device:
 def build_phase() -> None:
     phase("2 build")
     t0 = time.monotonic()
-    seconds = _build.build(KERNELS)
-    print(f"built {list(KERNELS)} in {time.monotonic() - t0:.2f} s "
+    seconds = _build.build()
+    print(f"built {_build.sources()} in {time.monotonic() - t0:.2f} s "
           f"(per source: {json.dumps(seconds)})")
-    for name in KERNELS:
+    for name in _build.sources():
         log = _build.library_path(name).with_name(
             _build.library_path(name).name + ".log")
         if log.exists():
@@ -416,6 +470,451 @@ def small_input_phase(dev, seed):
           f"on the host")
 
 
+# ---------------------------------------------------------------- phase 5
+FULL_N = 1_816_565_760          # eris-gptneo-1.3b's parameters: one client
+WINDOW = 1 << 26                # the plain versions' timing window
+WRAP = 2**32 - 4096             # an index base that straddles 2**32
+GAMMA = 0.37
+
+
+def _same(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The kernel's output must equal the plain version's bit for bit;
+    returns the largest absolute difference (0.0)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: kernel gives {got.dtype} {tuple(got.shape)}, plain "
+          f"version {want.dtype} {tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    check(torch.equal(got, want),
+          f"{what}: kernel differs from the plain version "
+          f"({int((got != want).sum())} of {got.numel()} differ, max abs "
+          f"err {err:.3e})")
+    return err
+
+
+def wire_cases(dev, seed) -> float:
+    """Each wire kernel against its plain version, bit for bit, at ragged
+    and block-aligned n, f32 and bf16 g, p = 0.25 and 1, and index bases
+    0 and 2**32 - 4096; the first full block is zeros, the last is ragged.
+    Returns the largest absolute error seen (0.0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    worst, cases = 0.0, 0
+    for n in (3 * 2**20 + 77, 2**24):
+        for gdt in (torch.float32, torch.bfloat16):
+            g = torch.randn(n, generator=gen, device=dev).to(gdt)
+            s = 0.3 * torch.randn(n, generator=gen, device=dev)
+            g[256:512] = 0.0                           # a zero block
+            s[256:512] = 0.0
+            for base in (0, WRAP):
+                tag = f"n={n} g={str(gdt)[6:]} base={base}"
+                for p in (0.25, 1.0):
+                    v, s1 = du.dsc_update(g, s, seed + 1, p=p, gamma=GAMMA,
+                                          index_base=base)
+                    rv, rs1 = wire_ref.dsc_update_ref(
+                        g, s, seed + 1, p=p, gamma=GAMMA, index_base=base)
+                    worst = max(worst, _same(f"dsc_update v {tag}", v, rv),
+                                _same(f"dsc_update s' {tag}", s1, rs1))
+                    q, sc, s2 = dq.dsc_quantize(g, s, seed + 2, seed + 3,
+                                                p=p, gamma=GAMMA,
+                                                index_base=base)
+                    rq, rsc, rs2 = wire_ref.dsc_quantize_ref(
+                        g, s, seed + 2, seed + 3, p=p, gamma=GAMMA,
+                        index_base=base)
+                    worst = max(worst, _same(f"dsc_quantize q {tag}", q, rq),
+                                _same(f"dsc_quantize scales {tag}", sc, rsc),
+                                _same(f"dsc_quantize s' {tag}", s2, rs2))
+                    check(float(sc[1]) == 0.0 and not bool(q[256:512].any())
+                          and not bool(q[n:].any()),
+                          f"dsc_quantize {tag}: a zero block or the padded "
+                          f"tail moved")
+                    cases += 2
+                q, sc = qz.quantize(g, seed + 4, index_base=base)
+                rq, rsc = wire_ref.quantize_ref(g, seed + 4, index_base=base)
+                worst = max(worst, _same(f"quantize q {tag}", q, rq),
+                            _same(f"quantize scales {tag}", sc, rsc),
+                            _same(f"dequantize {tag}", qz.dequantize(q, sc),
+                                  wire_ref.dequantize_ref(q, sc)))
+                check(float(sc[1]) == 0.0 and not bool(q[n:].any()),
+                      f"quantize {tag}: a zero block or the tail moved")
+                cases += 2
+            # in place: s' written over s, as the round does
+            s_in = s.clone()
+            q, sc, s3 = dq.dsc_quantize(g, s_in, 1, 2, p=0.25, gamma=GAMMA,
+                                        out=s_in)
+            rq, rsc, rs3 = wire_ref.dsc_quantize_ref(g, s, 1, 2, p=0.25,
+                                                     gamma=GAMMA)
+            check(s3 is s_in, "dsc_quantize(out=s) did not write into s")
+            worst = max(worst, _same("dsc_quantize in place", s3, rs3))
+    torch.cuda.synchronize()
+    print(f"  {cases} kernel calls bit-identical to their plain versions "
+          f"(codes, scales, v, s'), zero block and ragged tail unmoved, "
+          f"across the 2**32 index wrap; max abs err {worst:.3e}")
+    return worst
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``, by CUDA events over ``reps``
+    calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+# scalar operations a coordinate, counted from each kernel's arithmetic
+# (a draw is 13: index, seed, the hash's 8, shift, convert, scale), all
+# taken at the f32 rate: the card lists no separate integer rate
+OPS_PER_COORD = {"dsc_update": 13 + 5, "quantize": 13 + 10,
+                 "dequantize": 2, "dsc_quantize": 2 * 13 + 5 + 10 + 2}
+
+
+def wire_timing(dev, seed) -> dict:
+    """Each wire kernel at the round's per-client n with an f32 g, and its
+    plain version on a 2**26-coordinate window (its int64 index tensor
+    does not fit at full width), beside the kernel's bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    n = FULL_N
+    n_pad = qz.padded(n)
+    nb = n_pad // wire_ref.QBLOCK
+    g = torch.randn(n, generator=gen, device=dev)
+    s = 0.3 * torch.randn(n, generator=gen, device=dev)
+    gw, sw = g[:WINDOW], s[:WINDOW]
+    q, sc = qz.quantize(g, 5)
+    qw, scw = q[:WINDOW], sc[:WINDOW // wire_ref.QBLOCK]
+    calls = {
+        "dsc_update": (
+            lambda: du.dsc_update(g, s, 1, p=0.25, gamma=GAMMA, out=s),
+            lambda: du.dsc_update(gw, sw, 1, p=0.25, gamma=GAMMA, out=sw),
+            lambda: wire_ref.dsc_update_ref(gw, sw, 1, p=0.25, gamma=GAMMA),
+            16 * n),
+        "quantize": (
+            lambda: qz.quantize(g, 5), lambda: qz.quantize(gw, 5),
+            lambda: wire_ref.quantize_ref(gw, 5),
+            4 * n + n_pad + 4 * nb),
+        "dequantize": (
+            lambda: qz.dequantize(q, sc), lambda: qz.dequantize(qw, scw),
+            lambda: wire_ref.dequantize_ref(qw, scw),
+            n_pad + 4 * nb + 4 * n_pad),
+        "dsc_quantize": (
+            lambda: dq.dsc_quantize(g, s, 1, 2, p=0.25, gamma=GAMMA, out=s),
+            lambda: dq.dsc_quantize(gw, sw, 1, 2, p=0.25, gamma=GAMMA,
+                                    out=sw),
+            lambda: wire_ref.dsc_quantize_ref(gw, sw, 1, 2, p=0.25,
+                                              gamma=GAMMA),
+            8 * n + n_pad + 4 * nb + 4 * n),
+    }
+    out = {}
+    for name, (full, window, plain, nbytes) in calls.items():
+        ms = _event_ms(full, 3)
+        window_ms = _event_ms(window, 5)
+        plain_ms = _event_ms(plain, 2)
+        b = _bound(nbytes, OPS_PER_COORD[name] * n)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, window_ms=window_ms, **b)
+        print(f"  {name:12s} n={n}: kernel {ms:.3f} ms "
+              f"({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
+              f"{100 * b['bound_ms'] / ms:.1f}% of its bound "
+              f"{b['bound_ms']:.3f} ms by {b['bound_by']}); on the 2**26 "
+              f"window kernel {window_ms:.3f} ms, plain version "
+              f"{plain_ms:.3f} ms")
+    del g, s, q, sc
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+K_CLIENTS, A_AGGS, LR, BATCH, SEQ = 4, 8, 0.1, 4, 64
+FL_CONFIGS = (
+    # (name, FLConfig fields, kernels each client launches once)
+    ("dsc-int8-fused", dict(use_dsc=True, compressor=RandP(p=0.25),
+                            int8_wire=True, compress_impl="fused"),
+     ("dsc_quantize", "dequantize")),
+    ("dsc-pallas", dict(use_dsc=True, compressor=RandP(p=0.25),
+                        compress_impl="pallas"),
+     ("dsc_update",)),
+    ("int8", dict(int8_wire=True), ("quantize", "dequantize")),
+)
+REPLAY_CLIENT, REPLAY_ROUND, REPLAY_N = 3, 1, 1 << 24
+
+
+class TimedStage:
+    """A compress stage with CUDA events around each client's apply; for
+    the replayed (round, client) it also keeps a window of the stage's
+    input, shift and output."""
+
+    def __init__(self, stage, events: list, capture: dict):
+        self.stage, self.events, self.capture = stage, events, capture
+
+    def apply(self, seeds, state, v, k):
+        grab = self.capture.get("round") == REPLAY_ROUND and \
+            k == REPLAY_CLIENT
+        lo, hi = self.capture["window"]
+        if grab:
+            self.capture["g"] = v[lo:hi].clone()
+            if state.dsc is not None:
+                self.capture["s"] = state.dsc.s_clients[k][lo:hi].clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.stage.apply(seeds, state, v, k)
+        end.record()
+        self.events.append((start, end))
+        if grab:
+            self.capture["out"] = out[lo:hi].clone()
+            if state.dsc is not None:
+                self.capture["s_after"] = \
+                    state.dsc.s_clients[k][lo:hi].clone()
+        return out
+
+
+def _replay(stage, seeds, capture, n) -> None:
+    """Client 3's round-2 compression, on a 2**24 window at index base
+    3 * n_pad + lo (past 2**32), through the kernel and through the plain
+    version: codes (or v) and s' bit for bit, and both equal to what the
+    round transmitted."""
+    lo, _ = capture["window"]
+    g, out = capture["g"], capture["out"]
+    inner = stage.stage
+    if isinstance(inner, DSCCompress) and inner.impl == "fused":
+        base = REPLAY_CLIENT * qz.padded(n) + lo
+        args = (seeds.comp_mask, seeds.comp_round)
+        kw = dict(p=inner.p, gamma=inner.gamma, index_base=base)
+        q, sc, s_new = dq.dsc_quantize(g, capture["s"].clone(), *args, **kw)
+        rq, rsc, rs = wire_ref.dsc_quantize_ref(g, capture["s"], *args, **kw)
+        _same("replay codes", q, rq)
+        _same("replay scales", sc, rsc)
+        _same("replay s'", s_new, rs)
+        _same("replay s' vs the round", rs, capture["s_after"])
+        _same("replay wire value vs the round",
+              wire_ref.dequantize_ref(rq, rsc)[:g.numel()], out)
+    elif isinstance(inner, DSCCompress):
+        base = REPLAY_CLIENT * qz.padded(n, du.LANES) + lo
+        kw = dict(p=inner.p, gamma=inner.gamma, index_base=base)
+        v, s_new = du.dsc_update(g, capture["s"].clone(), seeds.comp, **kw)
+        rv, rs = wire_ref.dsc_update_ref(g, capture["s"], seeds.comp, **kw)
+        _same("replay v", v, rv)
+        _same("replay s'", s_new, rs)
+        _same("replay v vs the round", rv, out)
+        _same("replay s' vs the round", rs, capture["s_after"])
+    else:
+        check(isinstance(inner, Int8Wire), f"no replay for {inner}")
+        base = REPLAY_CLIENT * qz.padded(n) + lo
+        q, sc = qz.quantize(g, seeds.wire, index_base=base)
+        rq, rsc = wire_ref.quantize_ref(g, seeds.wire, index_base=base)
+        _same("replay codes", q, rq)
+        _same("replay scales", sc, rsc)
+        _same("replay wire value vs the round",
+              wire_ref.dequantize_ref(rq, rsc)[:g.numel()], out)
+    torch.cuda.synchronize()
+    print(f"  replayed client {REPLAY_CLIENT}'s round-{REPLAY_ROUND + 1} "
+          f"compression on [{lo}, {lo + g.numel()}) at index base {base} "
+          f"(mod 2**32: {base % 2**32}): kernel == plain version == the "
+          f"round, bit for bit")
+
+
+def _set_wire_launches(value: int = 0) -> None:
+    for fn in WIRE.values():
+        fn.launches = value
+
+
+def _live_cuda_tensors(top: int = 8) -> list:
+    """The largest CUDA tensors the interpreter still reaches: what holds
+    memory that a phase should have freed."""
+    found = {}
+    for obj in gc.get_objects():
+        if torch.is_tensor(obj) and obj.is_cuda:
+            st = obj.untyped_storage()
+            found[st.data_ptr()] = (st.nbytes(), tuple(obj.shape),
+                                    str(obj.dtype))
+    return sorted(found.values(), reverse=True)[:top]
+
+
+def _expect_free_card(what: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"{what}: {held / 1e9:.2f} GB still allocated: "
+          f"{_live_cuda_tensors()}")
+
+
+def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
+    """Two rounds of one configuration; adds its launches to ``totals``."""
+    _expect_free_card(f"before {name}")
+    torch.cuda.reset_peak_memory_stats()
+    fcfg = fl.FLConfig(method="eris", K=K_CLIENTS, A=A_AGGS, lr=LR,
+                       seed=seed, **fields)
+    params = tr.init_params(cfg, seed=seed, device=dev)
+    run = fl.FLRun(fcfg, params, lambda p, b: tr.loss_fn(
+        p, cfg, {"tokens": b}), device=dev)
+    del params
+    n = run.n
+    grad_events, comp_events = [], []
+    lo = (n // 2) // du.LANES * du.LANES
+    capture = {"window": (lo, lo + REPLAY_N)}
+    run.pipeline = dataclasses.replace(run.pipeline, compress=tuple(
+        TimedStage(st, comp_events, capture) for st in run.pipeline.compress))
+    grad = run._grad
+
+    def timed_grad(x, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g = grad(x, batch)
+        end.record()
+        grad_events.append((start, end))
+        return g
+
+    run._grad = timed_grad
+    rounds = []
+    for t in range(2):
+        capture["round"] = t
+        grad_events.clear()
+        comp_events.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        _set_wire_launches(0)                     # the main path starts
+        t0 = time.monotonic()
+        start.record()
+        run.step(toks)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: fn.launches for k, fn in WIRE.items()}
+        for k, count in launches.items():       # the main path ended
+            totals[k] += count
+            want = K_CLIENTS if k in path else 0
+            check(count == want, f"{name} round {t + 1}: {k} launched "
+                  f"{count} times, want {want}")
+        losses = [float(x) for x in run.client_losses[-1]]
+        check(len(losses) == K_CLIENTS and
+              all(math.isfinite(x) for x in losses),
+              f"{name} round {t + 1}: client losses {losses}")
+        check(bool(run.x.isfinite().all()),
+              f"{name} round {t + 1}: x is not finite")
+        if run.state.dsc is not None:
+            check(bool(run.state.dsc.s_agg.isfinite().all()),
+                  f"{name} round {t + 1}: s_agg is not finite")
+        total = start.elapsed_time(end)
+        grad_ms = sum(a.elapsed_time(b) for a, b in grad_events)
+        comp_ms = sum(a.elapsed_time(b) for a, b in comp_events)
+        rounds.append(dict(round_ms=total, grad_ms=grad_ms,
+                           compress_ms=comp_ms,
+                           aggregate_server_ms=total - grad_ms - comp_ms,
+                           wall_s=wall, client_losses=losses,
+                           launches=launches,
+                           allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        print(f"  {name} round {t + 1}: {total:.1f} ms = client "
+              f"gradients {grad_ms:.1f} + compression {comp_ms:.1f} + "
+              f"aggregation and server {total - grad_ms - comp_ms:.1f} "
+              f"(wall {wall:.2f} s); x {run.x.dtype}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; client "
+              f"losses {[round(x, 4) for x in losses]}; device memory "
+              f"{rounds[-1]['allocated_gb']:.2f} GB held, "
+              f"{rounds[-1]['peak_gb']:.2f} GB peak", flush=True)
+    _replay(run.pipeline.compress[0], fl.round_seeds(seed, REPLAY_ROUND),
+            capture, n)
+    if name == FL_CONFIGS[0][0]:
+        profile_round(run, toks, rounds[-1]["round_ms"])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {name}: n = {n}, K = {K_CLIENTS}, A = {A_AGGS}, peak device "
+          f"memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)")
+    return dict(rounds=rounds, peak_mem_gb=peak / 1e9, n=n)
+
+
+def profile_round(run, toks, round_ms: float) -> None:
+    """torch.profiler over one more round: device kernels by time, and
+    the device's busy share of the unprofiled round time ``round_ms``."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        run.step(toks)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, count = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    busy_ms = sum(us for us, _ in kernels.values()) / 1e3
+    print(f"  profile of one more round: "
+          f"{sum(c for _, c in kernels.values())} device kernels, "
+          f"{busy_ms:.1f} ms busy; of the unprofiled {round_ms:.1f} ms "
+          f"round the device is idle {100 * (1 - busy_ms / round_ms):.1f}%")
+    for kname, (us, count) in sorted(kernels.items(),
+                                     key=lambda kv: -kv[1][0])[:12]:
+        print(f"    device {us / 1e3:9.2f} ms {count:6d}x  {kname[:80]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:6]:
+        print(f"    host {e.self_cpu_time_total / 1e3:9.2f} ms "
+              f"{e.count:6d}x  {e.key[:80]}")
+
+
+def fl_round_phase(dev, seed) -> dict:
+    """Two ERIS rounds of eris-gptneo-1.3b at full width in each of the
+    three configurations.  Returns the kernels' launches over all six
+    rounds (the main path's count)."""
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=True)
+    toks = torch.from_numpy(fl_train.lm_token_batches(
+        seed + 1, K_CLIENTS, BATCH, SEQ, cfg.vocab)).to(dev)
+    totals = {name: 0 for name in WIRE}
+    results = {name: _run_config(dev, seed, cfg, toks, name, fields, path,
+                                 totals)
+               for name, fields, path in FL_CONFIGS}
+    _expect_free_card("after the rounds")
+    print("fl_round " + json.dumps(results))
+    return totals
+
+
+# ---------------------------------------------------------------- phase 7
+def fl_small_input_phase(dev, seed) -> None:
+    """The fused configuration on the smoke variant in f32, on the card
+    and on the host with the same seeds."""
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
+    fcfg = fl.FLConfig(method="eris", K=K_CLIENTS, A=A_AGGS, lr=LR,
+                       seed=seed, **FL_CONFIGS[0][1])
+    toks = torch.from_numpy(fl_train.lm_token_batches(
+        seed + 1, K_CLIENTS, BATCH, SEQ, cfg.vocab))
+
+    def loss(p, b):
+        return tr.loss_fn(p, cfg, {"tokens": b})
+
+    host = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"), loss,
+                    device="cpu")
+    card = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"), loss,
+                    device=dev)
+    for _ in range(2):
+        host.step(toks)
+        card.step(toks.to(dev))
+    # one host-made gradient through the kernel and the plain version
+    g = host._grad(host.x, toks[0])
+    s = host.state.dsc.s_clients[0]
+    seeds = fl.round_seeds(seed, 2)
+    kw = dict(p=0.25, gamma=0.5, index_base=3 * qz.padded(g.numel()))
+    on_card = dq.dsc_quantize(g.to(dev), s.to(dev), seeds.comp_mask,
+                              seeds.comp_round, **kw)
+    on_host = dq.dsc_quantize(g, s, seeds.comp_mask, seeds.comp_round, **kw)
+    for what, a, b in zip(("codes", "scales", "s'"), on_card, on_host):
+        _same(f"smoke gradient {what}, card vs host", a.cpu(), b)
+    rel = float((card.x.cpu() - host.x).norm() / host.x.norm())
+    check(rel <= 1e-4, f"smoke fused round: x card vs host relative error "
+          f"{rel:.3e} after 2 rounds")
+    print(f"  eris-gptneo-1.3b smoke f32, fused config, 2 rounds: x card vs "
+          f"host relative error {rel:.3e} (tol 1e-4); a host gradient "
+          f"compressed on the card == on the host (codes, scales, s')")
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -449,9 +948,23 @@ def main() -> None:
     replay_phase(dev, cfg, params, requests, settings,
                  metrics["decode_step_ms_median"])
     small_input_phase(dev, args.seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    phase("5 result")
-    print(json.dumps({"kernels": [{
+    phase("5 wire kernels vs plain versions")
+    _expect_free_card("after serving")
+    wire_worst = wire_cases(dev, args.seed)
+    wire_timing_ = wire_timing(dev, args.seed)
+
+    phase("6 ERIS round of eris-gptneo-1.3b at full width")
+    wire_launches = fl_round_phase(dev, args.seed)
+
+    phase("7 ERIS round, small input, card vs host")
+    fl_small_input_phase(dev, args.seed)
+
+    phase("8 result")
+    rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:52",
@@ -459,7 +972,17 @@ def main() -> None:
         "max_abs_err": max(worst, timing["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}]
+    for name, _, source, replaces in KERNELS[1:]:
+        t = wire_timing_[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": wire_launches[name],
+            "max_abs_err": wire_worst, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

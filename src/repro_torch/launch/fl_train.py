@@ -1,0 +1,126 @@
+"""Federated training of a transformer LM with ERIS on the card: the
+port's counterpart of ``examples/fl_train_lm.py``.
+
+K clients hold disjoint token streams; every round each takes a gradient
+on its own data, DSC shift-compresses it (on the int8 wire with
+``--int8-wire``), the aggregators reduce their FSA shards, and the server
+applies the update.  Without ``--full`` the config is the architecture's
+reduced smoke variant, as the example runs it; with ``--full`` it is the
+published width (eris-gptneo-1.3b: 1.8e9 parameters, one 80 GB card).
+Params are random from ``--seed``, and training takes the plain chunked
+attention (``flash_attention=False``): the flash kernels are not ported
+yet (ROADMAP queue 2.5).
+
+    PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --rounds 3
+    PYTHONPATH=src python -m repro_torch.launch.fl_train --full --dsc \\
+        --int8-wire --impl fused --rounds 2
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.convert import tree_leaves
+from repro_torch.core.compressors import RandP
+from repro_torch.core.fl import FLConfig, FLRun
+from repro_torch.models import transformer as tr
+
+
+def lm_token_batches(seed: int, K: int, batch: int, seq_len: int,
+                     vocab: int, zipf_a: float = 1.2) -> np.ndarray:
+    """(K, batch, seq_len) int32 Zipf token streams with a learnable next-
+    token rule (with prob. 1/2, token t+1 = (7 * token t + 3) mod vocab),
+    the recipe of ``repro/data/synthetic.lm_token_batches`` drawn from
+    numpy: the same distribution, not the same tokens."""
+    rng = np.random.default_rng(seed)
+    probs = np.arange(1, vocab + 1, dtype=np.float64) ** (-zipf_a)
+    base = rng.choice(vocab, size=(K, batch, seq_len), p=probs / probs.sum())
+    det = (np.roll(base, 1, axis=-1) * 7 + 3) % vocab
+    coin = rng.random(base.shape) < 0.5
+    return np.where(coin, det, base).astype(np.int32)
+
+
+def model_config(arch: str, full: bool):
+    """The config at full width or its smoke size, with training through
+    the plain attention."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg if full else cfg.smoke(),
+                               flash_attention=False)
+
+
+def fl_config(args) -> FLConfig:
+    """The round of the example: eris over K clients and A aggregators;
+    with --dsc, RandP(p=0.25) shift compression (the example's RandP(1.0)
+    without), through the ``--impl`` kernel path."""
+    return FLConfig(method="eris", K=args.K, A=args.A, rounds=args.rounds,
+                    lr=args.lr, use_dsc=args.dsc,
+                    compressor=RandP(p=0.25 if args.dsc else 1.0),
+                    int8_wire=args.int8_wire, compress_impl=args.impl,
+                    seed=args.seed)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="eris-gptneo-1.3b")
+    ap.add_argument("--rounds", type=int, default=200)
+    ap.add_argument("--K", type=int, default=4)
+    ap.add_argument("--A", type=int, default=8)
+    ap.add_argument("--dsc", action="store_true")
+    ap.add_argument("--int8-wire", action="store_true")
+    ap.add_argument("--impl", default="fused", choices=("pallas", "fused"),
+                    help="DSC kernel path: dsc_update or the fused "
+                         "dsc_quantize (int8 wire)")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=0.1)
+    ap.add_argument("--full", action="store_true",
+                    help="the config's full width (default: its smoke size)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = model_config(args.arch, args.full)
+    params0 = tr.init_params(cfg, seed=args.seed, device=device)
+    n_params = sum(t.numel() for t in tree_leaves(params0))
+    fl_cfg = fl_config(args)
+    print(f"arch={cfg.name} params={n_params / 1e6:.2f}M dtype={cfg.dtype} "
+          f"K={args.K} A={args.A} dsc={args.dsc} int8_wire={args.int8_wire} "
+          f"impl={args.impl} device={device}", flush=True)
+
+    toks = torch.from_numpy(lm_token_batches(args.seed + 1, args.K,
+                                             args.batch, args.seq, cfg.vocab)
+                            ).to(device)
+    eval_toks = torch.from_numpy(lm_token_batches(
+        args.seed + 2, 1, 8, args.seq, cfg.vocab)[0]).to(device)
+
+    def loss_fn(params, batch):
+        return tr.loss_fn(params, cfg, {"tokens": batch})
+
+    run = FLRun(fl_cfg, params0, loss_fn, device=device)
+    del params0
+    ppl0 = float(np.exp(run.evaluate(eval_toks)))
+    t0 = time.monotonic()
+    for t in range(args.rounds):
+        run.step(toks)
+        if t % 20 == 0 or t == args.rounds - 1:
+            ppl = float(np.exp(run.evaluate(eval_toks)))
+            print(f"round {t:4d}  eval_ppl={ppl:9.2f}  "
+                  f"({time.monotonic() - t0:.0f}s)", flush=True)
+    print(json.dumps({"ppl_init": ppl0, "ppl_final": ppl,
+                      "rounds": args.rounds,
+                      "client_losses_last_round": [
+                          float(x) for x in run.client_losses[-1]]}))
+    return run
+
+
+if __name__ == "__main__":
+    main()

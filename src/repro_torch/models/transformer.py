@@ -1,5 +1,5 @@
-"""Decoder: parameter spec / init / prefill forward / paged decode
-(the serving subset of ``repro/models/transformer.py``).
+"""Decoder: parameter spec / init / train and prefill forward / the LM
+loss / paged decode (the dense subset of ``repro/models/transformer.py``).
 
 Parameters keep the reference's layout: every per-layer weight is
 stacked along a leading L axis, so converting a JAX checkpoint is a
@@ -8,8 +8,11 @@ layer axis with ``lax.scan``; here a Python loop walks it.
 
 Families: the dense decoder (and ``audio``, whose language model is the
 same dense stack).  moe, hybrid, ssm and vlm come with the slice that
-ports the rest of the model zoo; training (``mode="train"`` with the
-flash-attention kernels) with the training slice.
+ports the rest of the model zoo.  Training (``mode="train"``, ``loss_fn``)
+runs through PyTorch autograd and the plain chunked attention; where the
+reference would run its flash-attention kernels (``cfg.flash_attention``)
+the port raises until they are ported (ROADMAP queue 2.5), rather than
+put the plain attention in their place.
 """
 from __future__ import annotations
 
@@ -99,6 +102,16 @@ def _layer(params: dict, i: int) -> dict:
     return {n: t[i] for n, t in params["blocks"].items()}
 
 
+def _layers(params: dict) -> list:
+    """Every layer's weights, by one ``unbind`` of each stacked leaf: its
+    backward stacks the L per-layer gradients once, where L ``t[i]``
+    selects would each scatter into a zeroed full-size (L, ...) gradient
+    (at full width, L passes over 3 GB in every backward)."""
+    slices = {n: t.unbind(0) for n, t in params["blocks"].items()}
+    return [{n: ts[i] for n, ts in slices.items()}
+            for i in range(len(next(iter(slices.values()))))]
+
+
 def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -122,9 +135,10 @@ def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions):
 
 
 def _attn(cfg: ModelConfig, lp: dict, x, positions, window):
-    """Prefill attention.  As in the reference, prefill goes through the
-    plain chunked ``causal_attention``; the flash kernel serves only
-    ``mode="train"``.  Returns (x_out, {"k", "v"}) -- the per-layer cache."""
+    """Prefill and training attention through the plain chunked
+    ``causal_attention`` (``forward`` refuses the training shapes the
+    reference sends to its flash kernel).  Returns (x_out, {"k", "v"}) --
+    the per-layer cache."""
     B, S = x.shape[:2]
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, positions)
@@ -151,32 +165,108 @@ def _block(cfg: ModelConfig, lp: dict, x, positions, window):
 
 # ================================================================ forward
 def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    """Token embedding (forward only)."""
+    """Token embedding.  Its gradient is a scatter-add of the rows; the
+    reference's one-hot matmul backward (``dense_embed_grad``) gives the
+    same values up to the order of summation."""
     _require_family(cfg)
     return params["embed"][tokens.long()]
 
 
-@torch.no_grad()
+# the reference's flash-attention blocks (kernels/flash_attention.py)
+FLASH_BLOCK_Q = FLASH_BLOCK_K = 128
+
+
+def uses_flash_kernel(cfg: ModelConfig, seq_len: int,
+                      window: Optional[int] = None) -> bool:
+    """Whether the reference trains this shape through its Pallas flash
+    attention (``models/transformer.py:223-225`` with ``supports``)."""
+    bq, bk = min(FLASH_BLOCK_Q, seq_len), min(FLASH_BLOCK_K, seq_len)
+    return (cfg.flash_attention and not cfg.attn_batch_shard
+            and window != 0 and seq_len % bq == 0 and seq_len % bk == 0)
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             mode: str = "prefill", window: Optional[int] = None):
-    """Full-sequence forward.  Returns (logits, caches, aux); caches holds
-    the per-layer K/V stacked as (L, B, S, KV, hd) under ``["kv"]``."""
-    if mode != "prefill":
+    """Full-sequence forward.  Returns (logits, caches, aux).
+
+    ``mode="prefill"`` runs without autograd and returns the per-layer
+    K/V stacked as (L, B, S, KV, hd) under ``caches["kv"]``;
+    ``mode="train"`` records the graph for the backward and returns no
+    caches.  Training a shape the reference routes through its flash
+    kernels raises: those kernels are not ported yet (ROADMAP queue 2.5),
+    and the plain attention does not stand in for them."""
+    if mode == "prefill":
+        with torch.no_grad():
+            return _forward(params, cfg, tokens, window, keep_cache=True)
+    if mode != "train":
         raise NotImplementedError(
-            f"forward(mode={mode!r}): only prefill is ported; training "
-            f"comes with the training slice")
+            f"forward(mode={mode!r}): prefill and train are ported; the "
+            f"dense ring-cache decode is ROADMAP queue 1.11")
+    if uses_flash_kernel(cfg, tokens.shape[1], window):
+        raise NotImplementedError(
+            f"training {cfg.name} at seq_len {tokens.shape[1]} runs the "
+            f"reference's flash-attention kernels (cfg.flash_attention), "
+            f"which are not ported yet (ROADMAP queue 2.5); pass a config "
+            f"with flash_attention=False for the plain chunked attention")
+    return _forward(params, cfg, tokens, window, keep_cache=False)
+
+
+def _forward(params, cfg, tokens, window, keep_cache: bool):
     x = embed_inputs(params, cfg, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, cache = _block(cfg, _layer(params, i), x, positions, window)
-        ks.append(cache["kv"]["k"])
-        vs.append(cache["kv"]["v"])
+    for lp in _layers(params):
+        x, cache = _block(cfg, lp, x, positions, window)
+        if keep_cache:
+            ks.append(cache["kv"]["k"])
+            vs.append(cache["kv"]["v"])
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
-    caches = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    caches = ({"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+              if keep_cache else None)
     return logits, caches, {"load_balance": torch.zeros((), device=x.device)}
+
+
+def _select_logit(pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """pred[..., tgt]: value- and gradient-identical to the reference's
+    one-hot masked sum (exactly one nonzero term per row)."""
+    return pred.gather(-1, tgt.long()[..., None])[..., 0]
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+            window: Optional[int] = None) -> torch.Tensor:
+    """Causal LM loss (the reference's replicated path, ``tp=None``).
+    batch: dict(tokens (B, S) [, loss_mask (B, S)]).  Next-token CE with
+    f32 logits unless the config keeps them in the compute dtype."""
+    tokens = batch["tokens"]
+    logits, _, _ = forward(params, cfg, tokens, "train", window)
+    return _ce(cfg, logits, tokens, batch.get("loss_mask"))
+
+
+def _ce(cfg: ModelConfig, logits, tokens, loss_mask):
+    """Masked next-token CE: the two non-sharded branches of the
+    reference's ``_ce``."""
+    n_pre = cfg.n_frontend_tokens if cfg.frontend == "vlm" else 0
+    logits = logits[:, n_pre:, :]
+    targ = tokens[:, 1:]
+    if cfg.loss_fp32_logits and not cfg.bf16_residency:
+        pred = logits[:, :-1].float()
+        lse = torch.logsumexp(pred, dim=-1)
+        ll = _select_logit(pred, targ)
+    else:
+        # no f32 copy of the (B, S, V) logits: max-shift and exp in the
+        # compute dtype, the sum accumulated in f32
+        pred = logits[:, :-1]
+        m = pred.max(-1).values.detach()
+        e = torch.exp(pred - m[..., None])
+        lse = m.float() + torch.log(e.sum(-1, dtype=torch.float32))
+        ll = _select_logit(pred, targ).float()
+    nll = lse - ll
+    if loss_mask is not None:
+        m = loss_mask[:, 1:]
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1)
+    return nll.mean()
 
 
 # ========================================================== paged decode

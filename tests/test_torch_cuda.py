@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card.  This file imports torch and the
+"""The port's CUDA kernels on the card.  This file imports torch and the
 port only (the machine with the card has no jax), so it runs there as
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -6,6 +6,7 @@ port only (the machine with the card has no jax), so it runs there as
 Tests that need the card carry the ``cuda`` marker and skip without one,
 naming what is missing; whether there is a card is decided inside the
 fixture, never at import."""
+import dataclasses
 import os
 import shutil
 
@@ -120,3 +121,111 @@ def test_engine_on_the_card_equals_the_host(cuda):
         cfg.n_layers * eng.stats()["decode_steps"] > 0
     want = ServeEngine(cfg, host, settings, device="cpu").run(prompts)
     assert [o.tokens for o in got] == [o.tokens for o in want]
+
+
+# ------------------------------------------------------- the wire kernels
+from repro_torch.core import fl  # noqa: E402
+from repro_torch.core.compressors import RandP  # noqa: E402
+from repro_torch.kernels import dsc_quantize as dq  # noqa: E402
+from repro_torch.kernels import dsc_update as du  # noqa: E402
+from repro_torch.kernels import quantize as qz  # noqa: E402
+from repro_torch.kernels import ref as wire_ref  # noqa: E402
+
+
+def _wire_inputs(n, gdt, cuda, seed=3):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    s = torch.from_numpy((0.3 * rng.standard_normal(n)).astype(np.float32))
+    g[256:512] = 0.0                              # a zero block
+    s[256:512] = 0.0
+    return g.to(cuda).to(gdt), s.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3 * 2**16 + 77, 2**18])
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.25, 1.0])
+@pytest.mark.parametrize("base", [0, 2**32 - 4096])
+def test_cuda_wire_kernels_match_plain_versions(cuda, n, gdt, p, base):
+    """dsc_update, dsc_quantize, quantize and dequantize on the card equal
+    their plain versions bit for bit (codes, scales, v, s'), across the
+    2**32 index wrap; a zero block and the padded tail stay zero; each
+    wrapper counts one launch."""
+    g, s = _wire_inputs(n, gdt, cuda)
+    before = dict(du=du.dsc_update.launches, dq=dq.dsc_quantize.launches,
+                  q=qz.quantize.launches, d=qz.dequantize.launches)
+    v, s1 = du.dsc_update(g, s, 7, p=p, gamma=0.37, index_base=base)
+    rv, rs1 = wire_ref.dsc_update_ref(g, s, 7, p=p, gamma=0.37,
+                                      index_base=base)
+    assert torch.equal(v, rv) and torch.equal(s1, rs1)
+    q, sc, s2 = dq.dsc_quantize(g, s, 8, 9, p=p, gamma=0.37,
+                                index_base=base)
+    rq, rsc, rs2 = wire_ref.dsc_quantize_ref(g, s, 8, 9, p=p, gamma=0.37,
+                                             index_base=base)
+    assert torch.equal(q, rq) and torch.equal(sc, rsc) and torch.equal(s2, rs2)
+    assert float(sc[1]) == 0.0 and not q[256:512].any() and not q[n:].any()
+    q, sc = qz.quantize(g, 10, index_base=base)
+    rq, rsc = wire_ref.quantize_ref(g, 10, index_base=base)
+    assert torch.equal(q, rq) and torch.equal(sc, rsc)
+    assert torch.equal(qz.dequantize(q, sc), wire_ref.dequantize_ref(q, sc))
+    torch.cuda.synchronize()
+    assert (du.dsc_update.launches - before["du"],
+            dq.dsc_quantize.launches - before["dq"],
+            qz.quantize.launches - before["q"],
+            qz.dequantize.launches - before["d"]) == (1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_wire_kernels_update_the_shift_in_place(cuda):
+    g, s = _wire_inputs(4096 + 13, torch.float32, cuda)
+    want = dq.dsc_quantize(g, s, 1, 2, p=0.25, gamma=0.5)[2]
+    s_in = s.clone()
+    assert dq.dsc_quantize(g, s_in, 1, 2, p=0.25, gamma=0.5,
+                           out=s_in)[2] is s_in
+    assert torch.equal(s_in, want)
+    s_in = s.clone()
+    du.dsc_update(g, s_in, 1, p=0.25, gamma=0.5, out=s_in)
+    assert torch.equal(s_in, du.dsc_update(g, s, 1, p=0.25, gamma=0.5)[1])
+
+
+@pytest.mark.cuda
+def test_cuda_wire_wrappers_raise_instead_of_falling_back(cuda):
+    g = torch.zeros(1024, device=cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        du.dsc_update(g, g.cpu(), 1, p=0.5, gamma=0.1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        qz.quantize(g.half(), 1)
+    with pytest.raises(ValueError, match="aligned"):
+        qz.dequantize(torch.zeros(513, dtype=torch.int8, device=cuda)[1:],
+                      torch.zeros(2, device=cuda))
+
+
+@pytest.mark.cuda
+def test_fl_round_on_the_card_equals_the_host(cuda):
+    """Two fused DSC-int8 rounds of eris-gptneo-1.3b's smoke variant in
+    f32, on the card through the kernels and on the host through the
+    plain versions, with the same seeds: x within 1e-4 relative norm (a
+    code may flip where u falls within an ulp of its fraction, as the
+    two devices' gradients differ in the last bits)."""
+    cfg = dataclasses.replace(get_config("eris-gptneo-1.3b").smoke(),
+                              flash_attention=False)
+    fcfg = fl.FLConfig(method="eris", K=3, A=8, lr=0.1, use_dsc=True,
+                       compressor=RandP(p=0.25), int8_wire=True,
+                       compress_impl="fused")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(3, 2, 16)).astype(np.int32))
+
+    def loss(p, b):
+        return tr.loss_fn(p, cfg, {"tokens": b})
+
+    host = fl.FLRun(fcfg, tr.init_params(cfg, seed=0, device="cpu"), loss,
+                    device="cpu")
+    card = fl.FLRun(fcfg, tr.init_params(cfg, seed=0, device="cpu"), loss,
+                    device=cuda)
+    dq.dsc_quantize.launches = 0
+    for _ in range(2):
+        host.step(toks)
+        card.step(toks.to(cuda))
+    assert dq.dsc_quantize.launches == 2 * 3
+    rel = float((card.x.cpu() - host.x).norm() / host.x.norm())
+    assert rel < 1e-4

@@ -1,0 +1,405 @@
+"""The port's FL round against the reference, on the CPU: the flat-vector
+math (Theorem B.1, the compressors' constants, masks, server optimizers),
+the LM loss and its gradients, the parameter flattening order, and whole
+``FLRun`` trajectories with the reference's seeds handed to the port.
+
+Trajectories are held to 1e-5 relative norm, not to bits: the two
+frameworks' gradients differ in the last bits, and the streamed client
+sum adds in another order than the reference's einsum.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax.flatten_util import ravel_pytree
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.core import baselines as ref_bl  # noqa: E402
+from repro.core import dsc as ref_dsc  # noqa: E402
+from repro.core import fl as ref_fl  # noqa: E402
+from repro.core import masks as ref_masks  # noqa: E402
+from repro.core import server_opt as ref_so  # noqa: E402
+from repro.core.compressors import Identity as RefIdentity  # noqa: E402
+from repro.core.compressors import Int8RoundTrip as RefInt8RoundTrip  # noqa: E402
+from repro.core.compressors import RandP as RefRandP  # noqa: E402
+from repro.core.pipeline import split_round_keys  # noqa: E402
+from repro.models import transformer as ref_tr  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import params_from_jax, ravel_params  # noqa: E402
+from repro_torch.core import dsc, fl, fsa, masks, server_opt  # noqa: E402
+from repro_torch.core.compressors import (Identity, Int8RoundTrip,  # noqa: E402
+                                          RandP)
+from repro_torch.core.pipeline import DSCCompress, RoundSeeds  # noqa: E402
+from repro_torch.launch import fl_train  # noqa: E402
+from repro_torch.models import transformer as tr  # noqa: E402
+
+DIM, HID, CLASSES, K, S = 8, 16, 3, 3, 16
+
+
+# ------------------------------------------------------------ helpers
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def _mlp_params(seed=0):
+    """examples/quickstart.py's MLP, made with numpy."""
+    rng = np.random.default_rng(seed)
+    return {"w1": (0.3 * rng.standard_normal((DIM, HID))).astype(np.float32),
+            "b1": np.zeros(HID, np.float32),
+            "w2": (0.3 * rng.standard_normal((HID, CLASSES))).astype(
+                np.float32),
+            "b2": np.zeros(CLASSES, np.float32)}
+
+
+def _mlp_data(seed=1):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((K, S, DIM)).astype(np.float32)
+    w = rng.standard_normal((DIM, CLASSES))
+    y = np.argmax(x @ w + 0.5 * rng.standard_normal((K, S, CLASSES)),
+                  -1).astype(np.int32)
+    return x, y
+
+
+def _ref_mlp_loss(p, batch):
+    x, y = batch
+    h = jnp.tanh(x @ p["w1"] + p["b1"])
+    logp = jax.nn.log_softmax(h @ p["w2"] + p["b2"])
+    return -jnp.take_along_axis(logp, y[:, None], 1).mean()
+
+
+def _mlp_loss(p, batch):
+    x, y = batch
+    h = torch.tanh(x @ p["w1"] + p["b1"])
+    logp = torch.log_softmax(h @ p["w2"] + p["b2"], -1)
+    return -logp.gather(1, y.long()[:, None]).mean()
+
+
+def _seeds_of(key) -> RoundSeeds:
+    """The kernel seeds the reference's round derives from its key."""
+    keys = split_round_keys(key)
+    k_in, k_q = jax.random.split(keys.comp)
+
+    def bits(k):
+        return int(jax.random.bits(k, dtype=jnp.uint32))
+
+    return RoundSeeds(bits(keys.comp), bits(k_in), bits(k_q),
+                      bits(keys.wire))
+
+
+def _run_both(ref_cfg, cfg, rounds=3):
+    """Both FLRuns on the quickstart MLP; the port steps with the seeds
+    the reference's own round keys give.  Returns the two x per round."""
+    p0 = _mlp_params()
+    x, y = _mlp_data()
+    ref_run = ref_fl.FLRun(ref_cfg, {k: jnp.asarray(v) for k, v in p0.items()},
+                           _ref_mlp_loss)
+    run = fl.FLRun(cfg, {k: torch.from_numpy(v.copy()) for k, v in p0.items()},
+                   _mlp_loss, device="cpu")
+    key, out = ref_run.key, []
+    for _ in range(rounds):
+        key, sub = jax.random.split(key)
+        ref_run.step((jnp.asarray(x), jnp.asarray(y)))
+        run.step((torch.from_numpy(x), torch.from_numpy(y)),
+                 seeds=_seeds_of(sub))
+        out.append((run.x.numpy().copy(), np.asarray(ref_run.x)))
+    return out
+
+
+# ------------------------------------------------------------- FLRun
+CASES = {
+    "fedavg": dict(method="fedavg"),
+    "eris-A8": dict(method="eris", A=8),
+    "eris-dsc-int8-fused": dict(method="eris", A=8, use_dsc=True,
+                                int8_wire=True, compress_impl="fused"),
+    "eris-dsc-pallas": dict(method="eris", A=8, use_dsc=True,
+                            compress_impl="pallas"),
+    "eris-int8": dict(method="eris", A=8, int8_wire=True),
+    "eris-dsc-pallas-views": dict(method="eris", A=8, use_dsc=True,
+                                  compress_impl="pallas", keep_views=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flrun_tracks_reference(case):
+    """x after each of 3 rounds within 1e-5 relative norm of the
+    reference's FLRun (K = 3, 16 samples a client, RandP(p=0.25) where DSC
+    is on), with the reference's kernel seeds."""
+    kw = dict(CASES[case], K=K, lr=0.3)
+    dsc_on = kw.get("use_dsc", False)
+    ref_cfg = ref_fl.FLConfig(**kw, compressor=RefRandP(p=0.25) if dsc_on
+                              else RefIdentity())
+    cfg = fl.FLConfig(**kw, compressor=RandP(p=0.25) if dsc_on
+                      else Identity())
+    for t, (got, want) in enumerate(_run_both(ref_cfg, cfg)):
+        assert _rel(got, want) < 1e-5, (t, _rel(got, want))
+
+
+def test_theorem_b1_literal_fsa_equals_fedavg_bit_exactly():
+    """Theorem B.1 in the port: the literal sharded round equals the
+    algebraic one and FedAvg's formula bit for bit, for any (n, A, K) and
+    weights; and the reference's agrees to rounding."""
+    rng = np.random.default_rng(3)
+    for n, A, Kc in ((8, 1, 1), (37, 3, 2), (200, 8, 6), (64, 5, 4)):
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal((Kc, n)).astype(np.float32))
+        w = torch.from_numpy(rng.uniform(0.5, 2.0, Kc).astype(np.float32))
+        for scheme in ("strided", "contiguous"):
+            assign = masks.make_assignment(n, A, scheme)
+            out = fsa.fsa_round_sharded(x, g, assign, A, 0.31, weights=w)
+            alg = fsa.fsa_round(x, g, 0.31, weights=w)
+            fedavg = x - 0.31 * fsa.weighted_sum(list(g), w, Kc)
+            assert torch.equal(out.x_new, alg) and torch.equal(alg, fedavg)
+            ref = ref_bl.fedavg_round(jnp.asarray(x.numpy()),
+                                      jnp.asarray(g.numpy()), 0.31,
+                                      weights=jnp.asarray(w.numpy()))
+            np.testing.assert_allclose(out.x_new.numpy(), np.asarray(ref),
+                                       rtol=0, atol=1e-6)
+            views = out.shard_views
+            for a in range(A):
+                m = masks.mask_for(assign, a)
+                assert not (views[a] * (1 - m)).any()
+
+
+def test_flrun_eris_literal_fsa_equals_fedavg_bit_exactly():
+    x, y = _mlp_data()
+    batches = (torch.from_numpy(x), torch.from_numpy(y))
+    runs = []
+    for kw in (dict(method="fedavg"),
+               dict(method="eris", A=8, keep_views=True)):
+        p0 = {k: torch.from_numpy(v) for k, v in _mlp_params().items()}
+        run = fl.FLRun(fl.FLConfig(K=K, lr=0.3, **kw), p0, _mlp_loss,
+                       device="cpu")
+        views = [run.step(batches, collect_views=True) for _ in range(4)]
+        runs.append((run.x, views[-1]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1].shape == (K, runs[0][0].numel())        # transmitted
+    assert runs[1][1].shape == (8, K, runs[0][0].numel())     # A shards
+
+
+def test_run_fl_scan_is_run_fl():
+    x, y = _mlp_data()
+    cfg = fl.FLConfig(method="eris", K=K, A=8, rounds=4, lr=0.3,
+                      use_dsc=True, compressor=RandP(p=0.25),
+                      compress_impl="pallas", seed=5)
+
+    def params():
+        return {k: torch.from_numpy(v) for k, v in _mlp_params().items()}
+
+    def batches(t, seed):
+        return (torch.from_numpy(x), torch.from_numpy(y))
+
+    full = (torch.from_numpy(x[0]), torch.from_numpy(y[0]))
+    a, la = fl.run_fl(cfg, params(), _mlp_loss, batches, full, 2,
+                      device="cpu")
+    b, lb = fl.run_fl_scan(cfg, params(), _mlp_loss, batches, full, 2,
+                           device="cpu")
+    assert torch.equal(a.x, b.x) and la == lb and len(la) == 3
+    c = fl.FLRun(cfg, params(), _mlp_loss, device="cpu")
+    xs = c.run_scanned((torch.from_numpy(np.stack([x] * 4)),
+                        torch.from_numpy(np.stack([y] * 4))))
+    assert xs.shape == (4, a.n) and torch.equal(xs[-1], a.x)
+
+
+# ---------------------------------------------- constants, masks, server
+def test_round_constants_equal_reference():
+    for p in (0.1, 0.25, 1.0):
+        ours, theirs = RandP(p=p), RefRandP(p=p)
+        for n in (2, 195, 1000, 1_443_072, 2**30 + 1, 1_816_565_760):
+            assert ours.omega(n) == theirs.omega(n)
+            assert ours.retention(n) == theirs.retention(n)
+            assert ours.wire_bits(n) == float(theirs.wire_bits(n))
+            i8, ri8 = Int8RoundTrip(inner=ours), RefInt8RoundTrip(inner=theirs)
+            assert (i8.omega(n), i8.retention(n), i8.wire_bits(n)) == \
+                (ri8.omega(n), ri8.retention(n), ri8.wire_bits(n))
+        assert dsc.gamma_star(ours.omega(0)) == \
+            ref_dsc.gamma_star(theirs.omega(0))
+    assert Identity().wire_bits(100) == RefIdentity().wire_bits(100)
+    # the reference's positional trap, kept: the first field is the name
+    assert RandP(0.25).p == RefRandP(0.25).p == 0.1
+
+
+def test_flconfig_fields_equal_reference():
+    ours = {f.name: f.default for f in dataclasses.fields(fl.FLConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(ref_fl.FLConfig)}
+    assert list(ours) == list(theirs)
+    for name, default in theirs.items():
+        if name == "compressor":
+            assert type(ours[name]).__name__ == type(default).__name__
+        else:
+            assert ours[name] == default, name
+
+
+def test_masks_equal_reference():
+    for n, A in ((10, 3), (1000, 8), (7, 7), (5, 8)):
+        for scheme in ("strided", "contiguous"):
+            ours = masks.make_assignment(n, A, scheme)
+            theirs = ref_masks.make_assignment(n, A, scheme)
+            np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+            assert masks.check_disjoint_complete(ours, A)
+            np.testing.assert_array_equal(
+                masks.shard_sizes(ours, A).numpy(),
+                np.asarray(ref_masks.shard_sizes(theirs, A)))
+            np.testing.assert_array_equal(
+                masks.masks_stacked(ours, A).numpy(),
+                np.asarray(ref_masks.masks_stacked(theirs, A)))
+
+
+@pytest.mark.parametrize("name", ["fedavg", "fedadam", "fedyogi"])
+def test_server_opt_equals_reference(name):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(50).astype(np.float32)
+    ours, theirs = server_opt.get_server_opt(name, 0.1), \
+        ref_so.get_server_opt(name, 0.1)
+    s, rs = ours.init(torch.from_numpy(x)), theirs.init(jnp.asarray(x))
+    for t in range(3):
+        v = rng.standard_normal(50).astype(np.float32)
+        d, s = ours.update(torch.from_numpy(v), s)
+        rd, rs = theirs.update(jnp.asarray(v), rs)
+        np.testing.assert_allclose(d.numpy(), np.asarray(rd), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_dsc_aggregate_equals_reference():
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal((3, 40)).astype(np.float32)
+    s_agg = rng.standard_normal(40).astype(np.float32)
+    st = dsc.DSCState(torch.zeros(3, 40), torch.from_numpy(s_agg.copy()))
+    u, s_new = dsc.aggregate(st, torch.from_numpy(v), 0.4)
+    ru, rs = ref_dsc.aggregate(ref_dsc.DSCState(jnp.zeros((3, 40)),
+                                                jnp.asarray(s_agg)),
+                               jnp.asarray(v), 0.4)
+    np.testing.assert_allclose(u.numpy(), np.asarray(ru), rtol=1e-6)
+    np.testing.assert_allclose(s_new.numpy(), np.asarray(rs), rtol=1e-6)
+    assert s_new is st.s_agg                     # updated in place
+
+
+def test_unported_paths_name_their_queue():
+    with pytest.raises(NotImplementedError, match="queue 1.2"):
+        RandP(p=0.5)(None, torch.zeros(3))
+    with pytest.raises(NotImplementedError, match="queue 1.2"):
+        DSCCompress(compressor=RandP(p=0.5), impl="jnp")
+    with pytest.raises(NotImplementedError, match="queue 1.2"):
+        masks.make_assignment(10, 2, "random")
+    p0 = {k: torch.from_numpy(v) for k, v in _mlp_params().items()}
+    for kw, queue in ((dict(use_dsc=True, compressor=RandP(p=0.5)), "1.2"),
+                      (dict(participation=0.5), "1.2"),
+                      (dict(fresh_masks=True), "1.2"),
+                      (dict(use_ef=True), "1.2"),
+                      (dict(agg_dropout=0.1), "1.7"),
+                      (dict(ldp=object()), "1.7"),
+                      (dict(method="fedbuff"), "1.7"),
+                      (dict(method="soteriafl"), "1.7")):
+        with pytest.raises(NotImplementedError, match=f"queue {queue}"):
+            fl.FLRun(fl.FLConfig(**kw), p0, _mlp_loss, device="cpu")
+
+
+def test_flrun_runs_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p0 = {k: torch.from_numpy(v) for k, v in _mlp_params().items()}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fl.FLRun(fl.FLConfig(method="fedavg"), p0, _mlp_loss)
+
+
+def test_round_seeds_are_a_function_of_seed_and_round():
+    a, b = fl.round_seeds(0, 0), fl.round_seeds(0, 1)
+    assert a == fl.round_seeds(0, 0) and a != b and a != fl.round_seeds(1, 0)
+    assert len(set(a)) == 4 and all(0 <= s < 2**32 for s in a + b)
+
+
+# ---------------------------------------------------- model, flattening
+def _smoke_pair(dtype="float32", flash=False):
+    ref_cfg = dataclasses.replace(ref_get_config("eris-gptneo-1.3b").smoke(),
+                                  flash_attention=flash, dtype=dtype)
+    cfg = dataclasses.replace(get_config("eris-gptneo-1.3b").smoke(),
+                              flash_attention=flash, dtype=dtype)
+    p = ref_tr.init_params(jax.random.PRNGKey(0), ref_cfg)
+    return ref_cfg, cfg, p, params_from_jax(jax.tree.map(np.asarray, p),
+                                            "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ravel_params_order_equals_ravel_pytree(dtype):
+    _, _, p, pt = _smoke_pair(dtype)
+    want, _ = ravel_pytree(p)
+    flat, unravel = ravel_params(pt)
+    assert flat.dtype == getattr(torch, dtype) and flat.numel() == 1_443_072
+    np.testing.assert_array_equal(flat.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    # unravel casts each leaf back to its own dtype, as JAX's does
+    back = unravel(flat.float())
+    assert back["blocks"]["wq"].dtype == getattr(torch, dtype)
+    assert torch.equal(back["embed"], pt["embed"])
+
+
+def test_loss_and_every_grad_match_reference():
+    """eris-gptneo-1.3b's smoke variant in f32, flash off on both sides:
+    the loss and the gradient of every leaf within 1e-5 relative norm,
+    with and without a loss mask."""
+    ref_cfg, cfg, p, pt = _smoke_pair()
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, size=(2, 16)).astype(np.int32)
+    mask = (rng.random((2, 16)) < 0.7).astype(np.float32)
+    for use_mask in (False, True):
+        batch = {"tokens": jnp.asarray(toks)}
+        tbatch = {"tokens": torch.from_numpy(toks)}
+        if use_mask:
+            batch["loss_mask"] = jnp.asarray(mask)
+            tbatch["loss_mask"] = torch.from_numpy(mask)
+        want_l, want_g = jax.value_and_grad(
+            lambda q: ref_tr.loss_fn(q, ref_cfg, batch))(p)
+        leaves = {k: v.requires_grad_() for k, v in
+                  [(k, t.clone()) for k, t in _flat(pt)]}
+        loss = tr.loss_fn(_unflat(leaves), cfg, tbatch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        assert abs(float(loss.detach()) - float(want_l)) < \
+            1e-5 * abs(float(want_l))
+        ref_leaves = dict(_flat(want_g))
+        for (name, _), g in zip(leaves.items(), grads):
+            assert _rel(g.numpy(), ref_leaves[name]) < 1e-5, name
+
+
+def _flat(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat(tree[k], prefix + k + "/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def _unflat(leaves):
+    out = {}
+    for name, t in leaves.items():
+        node = out
+        *path, last = name.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = t
+    return out
+
+
+def test_flash_attention_training_raises_and_prefill_still_runs():
+    """With cfg.flash_attention, the training shapes the reference sends
+    through its Pallas flash kernel raise (queue 2.5); the plain attention
+    never stands in for the kernel.  Prefill is unaffected."""
+    _, cfg, _, pt = _smoke_pair(flash=True)
+    toks = torch.zeros(2, 16, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="queue 2.5"):
+        tr.loss_fn(pt, cfg, {"tokens": toks})
+    logits, caches, _ = tr.forward(pt, cfg, toks, "prefill")
+    assert logits.shape == (2, 16, cfg.vocab) and caches is not None
+    assert not logits.requires_grad
+
+
+def test_fl_train_launcher_runs_on_the_cpu():
+    run = fl_train.main(["--device", "cpu", "--rounds", "2", "--K", "2",
+                         "--seq", "16", "--batch", "2", "--dsc",
+                         "--int8-wire"])
+    assert run.t == 2 and all(np.isfinite(float(v))
+                              for v in run.client_losses[-1])
+    assert run.x.dtype == torch.float32
+    assert run.state.dsc.s_clients.abs().sum() > 0
