@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``): builds its
 CUDA kernels, holds each to its plain torch version, serves
-eris-gptneo-1.3b at full width, and runs ERIS rounds of it at full width,
+eris-gptneo-1.3b at full width, and runs ERIS rounds of it and of
+qwen2-0.5b at full width, training through the flash-attention kernels,
 on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
@@ -36,24 +37,45 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ragged tail: codes, scales, v and s' must be bit-identical.  Then each
    kernel is timed at the ERIS round's per-client n (1,816,565,760) beside
    its byte bound, and each plain version on a 2**26 window.
-6. the ERIS round -- ``FLRun`` on eris-gptneo-1.3b at full width (bf16
-   params from ``--seed``, flash_attention off, K = 4, A = 8, lr 0.1,
+6. flash kernels vs plain versions -- ``flash_fwd``, ``flash_dq`` and
+   ``flash_dkv`` against ``kernels/ref.py`` at (B, H, KV, S, d) =
+   (2, 4, 2, 128, 64) f32, (4, 16, 16, 64, 128), (2, 14, 2, 256, 64) and
+   (1, 16, 16, 2048, 128) bf16, causal, full and causal with window 100,
+   on (B, S, H, d) tensors seen as (B, H, S, d), as the model hands them
+   over: o, lse, dq, dk and dv.  Then each kernel, its plain version and
+   scaled_dot_product_attention (forward; forward + backward less the
+   forward) are timed at the two rounds' shapes and at S = 2048, causal,
+   bf16, beside the kernel's bound.
+7. the ERIS round -- ``FLRun`` on eris-gptneo-1.3b at full width (bf16
+   params from ``--seed``, flash_attention on, K = 4, A = 8, lr 0.1,
    4 x 64 random tokens a client), two rounds in each of three
    configurations: DSC on the int8 wire through the fused kernel, DSC
-   through ``dsc_update``, and the int8 wire alone.  Asserts finite client
-   losses, x and s_agg after every round, K launches a round of each
-   kernel of the configuration, and replays client 3's round-2
-   compression (index base 3 * n_pad, past 2**32) on a 2**24 window
-   through the kernel and the plain version.  Prints each round's time
-   split (client gradients, compression, aggregation + server, from CUDA
-   events) and the peak device memory, and a torch.profiler breakdown of
-   one more round of the first configuration.
-7. small input -- the fused configuration on eris-gptneo-1.3b's smoke
-   variant in f32, two rounds on the card and on the host with the same
-   seeds: a host-made gradient compressed on both gives the same codes,
-   scales and s', and x agrees to 1e-4 relative norm.
-8. prints the ``{"kernels": [...]}`` line, then, last, the
-   ``{"ok": true, "device": ...}`` line.
+   through ``dsc_update``, and the int8 wire alone; the first again with
+   flash off (the plain chunked attention, right after itself, to compare
+   within one call); then two rounds of qwen2-0.5b at full width in the
+   first configuration.  Asserts finite
+   client losses, x and s_agg after every round, K launches a round of
+   each wire kernel of the configuration and n_layers x K of each flash
+   kernel, and replays client 3's round-2 compression (index base
+   3 * n_pad, past 2**32) on a 2**24 window through the kernel and the
+   plain version.  Prints each round's time split (client gradients,
+   compression, aggregation + server, from CUDA events) and the peak
+   device memory, and a torch.profiler breakdown of one more round of
+   the first configuration.
+8. the GPT-Neo context -- one client gradient of eris-gptneo-1.3b at full
+   width on 1 x 2048 tokens (2048 is the max_position_embeddings of
+   EleutherAI/gpt-neo-1.3B's published config), through the flash kernels
+   and through the plain chunked attention: ms, peak memory, and the two
+   gradients within 5e-2 relative norm.  A profile of one round-shape
+   client gradient each way counts its host syncs, and six of each, in
+   turns, are timed.
+9. small input -- the fused configuration on eris-gptneo-1.3b's smoke
+   variant in f32 with flash on, two rounds on the card (kernels) and on
+   the host (plain versions) with the same seeds: a host-made gradient
+   compressed on both gives the same codes, scales and s', and x agrees
+   to 1e-4 relative norm.
+10. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+    last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
 """
@@ -76,17 +98,20 @@ import time
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import tree_leaves, tree_unflatten  # noqa: E402
 from repro_torch.core import fl  # noqa: E402
 from repro_torch.core.compressors import RandP  # noqa: E402
 from repro_torch.core.pipeline import DSCCompress, Int8Wire  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import dsc_quantize as dq  # noqa: E402
 from repro_torch.kernels import dsc_update as du  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import ref as wire_ref  # noqa: E402
@@ -97,6 +122,7 @@ from repro_torch.serve import SamplingParams, ServeEngine, pages_for  # noqa: E4
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 # every kernel of the port: (name, wrapper, source, the TPU kernel it replaces)
 KERNELS = (
     ("paged_attention", pa.paged_attention, "paged_attention.cu",
@@ -109,8 +135,16 @@ KERNELS = (
      "src/repro/kernels/quantize.py:52"),
     ("dsc_quantize", dq.dsc_quantize, "dsc_quantize.cu",
      "src/repro/kernels/dsc_quantize.py:36"),
+    ("flash_fwd", fa.flash_fwd, "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:50"),
+    ("flash_dq", fa.flash_dq, "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:90"),
+    ("flash_dkv", fa.flash_dkv, "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:124"),
 )
-WIRE = {name: fn for name, fn, _, _ in KERNELS[1:]}
+WIRE = {name: fn for name, fn, _, _ in KERNELS[1:5]}
+FLASH = {name: fn for name, fn, _, _ in KERNELS[5:]}
+ROUND = {**WIRE, **FLASH}        # every kernel the ERIS round may launch
 
 # kernel vs plain version: f32 agrees to summation order; with bf16 pools
 # the plain version rounds its softmax weights to bf16 before the PV
@@ -135,8 +169,21 @@ def check(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+PHASE_SECONDS = {}
+_current = []                    # (name, start) of the phase under way
+
+
+def phase(name) -> None:
+    """Ends the phase under way, keeping its seconds, and starts ``name``
+    (None starts nothing)."""
+    now = time.monotonic()
+    if _current:
+        last, t0 = _current.pop()
+        PHASE_SECONDS[last] = now - t0
+        print(f"   ({last}: {PHASE_SECONDS[last]:.1f} s)", flush=True)
+    if name is not None:
+        _current.append((name, now))
+        print(f"== {name}", flush=True)
 
 
 # ------------------------------------------------------------ phase 1 / 2
@@ -634,6 +681,172 @@ def wire_timing(dev, seed) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
+# (B, H, KV, S, d, dtype): a small f32 case, every shape phases 7-9 give
+# the kernels (eris-gptneo-1.3b's round, qwen2-0.5b's round, the smoke
+# round of phase 9 in f32, the GPT-Neo context), and qwen2-0.5b's GQA (7
+# heads a kv head) over four k-tiles; each under the three masks
+FLASH_SHAPES = ((2, 4, 2, 128, 64, torch.float32),
+                (4, 16, 16, 64, 128, torch.bfloat16),
+                (4, 14, 2, 64, 64, torch.bfloat16),
+                (4, 4, 2, 64, 64, torch.float32),
+                (2, 14, 2, 256, 64, torch.bfloat16),
+                (1, 16, 16, 2048, 128, torch.bfloat16))
+# the flash kernels and their plain versions both compute in f32 and cast
+# once, so a bf16 output may differ by one bf16 step (2**-7 of its size)
+# and the f32 sums' order
+FLASH_BF16_STEP = 2.0 ** -7
+FLASH_MASKS = ((True, None), (False, None), (True, 100))
+# timed causal in bf16: the two rounds' shapes (4 clients' batch of 4 x 64
+# tokens is one call per layer) and the GPT-Neo context
+FLASH_TIMED = (("gptneo-round", (4, 16, 16, 64, 128)),
+               ("qwen2-round", (4, 14, 2, 64, 64)),
+               ("gptneo-s2048", (1, 16, 16, 2048, 128)))
+# f32 operations per visible (query, key) pair, per unit of head dim:
+# forward q.k and p v; dq adds do.v and ds k; dk/dv do.v, p^T do, ds^T q
+FLASH_FLOPS = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+
+
+def _flash_inputs(gen, dev, B, H, KV, S, d, dtype):
+    """q, k, v, do as (B, H, S, d) views of (B, S, H, d) tensors."""
+    def one(heads):
+        return torch.randn(B, S, heads, d, generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+    return one(H), one(KV), one(KV), one(H)
+
+
+def _flash_all(q, k, v, do, mask):
+    """(o, lse, dq, dk, dv) through the kernels, and through the plain
+    versions with the kernels' lse and delta."""
+    o, lse = fa.flash_fwd(q, k, v, **mask)
+    delta = wire_ref.flash_delta(o, do)
+    got = (o, lse, fa.flash_dq(q, k, v, do, lse, delta, **mask),
+           *fa.flash_dkv(q, k, v, do, lse, delta, **mask))
+    want = (*wire_ref.flash_fwd_ref(q, k, v, **mask),
+            wire_ref.flash_dq_ref(q, k, v, do, lse, delta, **mask),
+            *wire_ref.flash_dkv_ref(q, k, v, do, lse, delta, **mask))
+    return got, want
+
+
+def flash_cases(dev, seed) -> dict:
+    """Each flash kernel against its plain version at every listed shape
+    and mask (f32: TOL_F32 absolute and relative, the order of summation;
+    bf16 outputs: FLASH_BF16_STEP relative plus TOL_F32, one bf16 step;
+    lse is f32 throughout).  Prints each kernel's largest error as a share
+    of its bound; returns its largest absolute error."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    worst = dict.fromkeys(FLASH, 0.0)
+    share = dict.fromkeys(FLASH, 0.0)
+    owner = ("flash_fwd", "flash_fwd", "flash_dq", "flash_dkv", "flash_dkv")
+    for B, H, KV, S, d, dtype in FLASH_SHAPES:
+        q, k, v, do = _flash_inputs(gen, dev, B, H, KV, S, d, dtype)
+        for causal, window in FLASH_MASKS:
+            mask = dict(causal=causal, window=window)
+            got, want = _flash_all(q, k, v, do, mask)
+            torch.cuda.synchronize()
+            errs = []
+            for kname, what, a, b in zip(owner, ("o", "lse", "dq", "dk", "dv"),
+                                         got, want):
+                rel = TOL_F32 if what == "lse" or dtype == torch.float32 \
+                    else FLASH_BF16_STEP
+                check(a.dtype == b.dtype and a.shape == b.shape,
+                      f"flash {what}: kernel gives {a.dtype} "
+                      f"{tuple(a.shape)}, plain {b.dtype} {tuple(b.shape)}")
+                err = (a.float() - b.float()).abs()
+                bound = TOL_F32 + rel * b.float().abs()
+                share[kname] = max(share[kname], float((err / bound).max()))
+                check(bool((err <= bound).all()),
+                      f"{kname} disagrees with its plain version on {what} "
+                      f"at B={B} H={H} KV={KV} S={S} d={d} {dtype} {mask}: "
+                      f"max abs err {float(err.max()):.3e}")
+                errs.append(float(err.max()))
+                worst[kname] = max(worst[kname], errs[-1])
+            print(f"  B={B} H={H:2d} KV={KV:2d} S={S:4d} d={d:3d} "
+                  f"{str(dtype)[6:]:8s} causal={causal!s:5s} "
+                  f"window={window}: max abs err o/lse/dq/dk/dv "
+                  f"{' '.join(f'{e:.2e}' for e in errs)}")
+    print(f"  largest error as a share of its bound: "
+          f"{ {k: round(v, 4) for k, v in share.items()} }")
+    return worst
+
+
+def _pairs(S: int, causal: bool) -> int:
+    """(query, key) pairs of one head that the mask lets through."""
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def _flash_bound(nbytes: int, flops: int) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=flops)
+
+
+def flash_timing(dev, seed) -> dict:
+    """Each flash kernel and its plain version at the rounds' shapes and
+    at S = 2048, causal, bf16, in CUDA graphs of back-to-back calls (the
+    host's enqueue is not measured); beside them
+    scaled_dot_product_attention: its forward, and its forward and
+    autograd backward less the forward (dq, dk and dv in one call).  The
+    bound counts each input read once and each output written once at
+    3.35 TB/s, and the visible pairs' products at the bf16 tensor-core
+    peak of 989 TFLOP/s."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    out = {}
+    for label, (B, H, KV, S, d) in FLASH_TIMED:
+        q, k, v, do = _flash_inputs(gen, dev, B, H, KV, S, d, torch.bfloat16)
+        o, lse = fa.flash_fwd(q, k, v)
+        delta = wire_ref.flash_delta(o, do)
+        qb, kvb, rows = 2 * B * H * S * d, 2 * B * KV * S * d, 4 * B * H * S
+        nbytes = {"flash_fwd": 2 * qb + 2 * kvb + rows,
+                  "flash_dq": 3 * qb + 2 * kvb + 2 * rows,
+                  "flash_dkv": 2 * qb + 4 * kvb + 2 * rows}
+        pairs = B * H * _pairs(S, True)
+        calls = {
+            "flash_fwd": (lambda i: fa.flash_fwd(q, k, v),
+                          lambda i: wire_ref.flash_fwd_ref(q, k, v)),
+            "flash_dq": (
+                lambda i: fa.flash_dq(q, k, v, do, lse, delta),
+                lambda i: wire_ref.flash_dq_ref(q, k, v, do, lse, delta)),
+            "flash_dkv": (
+                lambda i: fa.flash_dkv(q, k, v, do, lse, delta),
+                lambda i: wire_ref.flash_dkv_ref(q, k, v, do, lse, delta)),
+        }
+        n = 24 if S <= 256 else 4
+        gqa = {"enable_gqa": True} if KV != H else {}
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def lib_fwd(i):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  **gqa)
+
+        def lib_fwd_bwd(i):
+            o_ = F.scaled_dot_product_attention(*leaves, is_causal=True, **gqa)
+            return torch.autograd.grad(o_, leaves, do)
+
+        lib_fwd_ms = _graph_ms(lib_fwd, n)
+        lib_bwd_ms = _graph_ms(lib_fwd_bwd, n) - lib_fwd_ms
+        row = {}
+        for name, (kernel, plain) in calls.items():
+            row[name] = dict(
+                ms=_graph_ms(kernel, n), plain_ms=_graph_ms(plain, n),
+                library_ms=lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
+                **_flash_bound(nbytes[name], FLASH_FLOPS[name] * d * pairs))
+            r = row[name]
+            print(f"  {label} B={B} H={H} KV={KV} S={S} d={d}: {name:9s} "
+                  f"kernel {r['ms'] * 1e3:10.2f} us, plain "
+                  f"{r['plain_ms'] * 1e3:10.2f} us, bound "
+                  f"{r['bound_ms'] * 1e3:8.2f} us by {r['bound_by']} "
+                  f"({r['bytes']} bytes, {r['ops']} flops), kernel at "
+                  f"{r['ops'] / (r['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+        print(f"  {label}: scaled_dot_product_attention forward "
+              f"{lib_fwd_ms * 1e3:.2f} us, backward {lib_bwd_ms * 1e3:.2f} us "
+              f"(kernels: forward {row['flash_fwd']['ms'] * 1e3:.2f} us, "
+              f"dq + dk/dv {(row['flash_dq']['ms'] + row['flash_dkv']['ms']) * 1e3:.2f} us)")
+        out[label] = row
+    return out
+
+
+# ---------------------------------------------------------------- phase 7
 K_CLIENTS, A_AGGS, LR, BATCH, SEQ = 4, 8, 0.1, 4, 64
 FL_CONFIGS = (
     # (name, FLConfig fields, kernels each client launches once)
@@ -723,8 +936,8 @@ def _replay(stage, seeds, capture, n) -> None:
           f"round, bit for bit")
 
 
-def _set_wire_launches(value: int = 0) -> None:
-    for fn in WIRE.values():
+def _set_round_launches(value: int = 0) -> None:
+    for fn in ROUND.values():
         fn.launches = value
 
 
@@ -749,7 +962,9 @@ def _expect_free_card(what: str) -> None:
 
 
 def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
-    """Two rounds of one configuration; adds its launches to ``totals``."""
+    """Two rounds of one configuration; adds its launches to ``totals``.
+    Each wire kernel of ``path`` launches once a client, each flash kernel
+    once a layer a client."""
     _expect_free_card(f"before {name}")
     torch.cuda.reset_peak_memory_stats()
     fcfg = fl.FLConfig(method="eris", K=K_CLIENTS, A=A_AGGS, lr=LR,
@@ -776,6 +991,8 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
         return g
 
     run._grad = timed_grad
+    flash_per_round = (cfg.n_layers * K_CLIENTS
+                       if tr.uses_flash_kernel(cfg, toks.shape[-1]) else 0)
     rounds = []
     for t in range(2):
         capture["round"] = t
@@ -783,17 +1000,18 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
         comp_events.clear()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        _set_wire_launches(0)                     # the main path starts
+        _set_round_launches(0)                    # the main path starts
         t0 = time.monotonic()
         start.record()
         run.step(toks)
         end.record()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        launches = {k: fn.launches for k, fn in WIRE.items()}
+        launches = {k: fn.launches for k, fn in ROUND.items()}
         for k, count in launches.items():       # the main path ended
             totals[k] += count
-            want = K_CLIENTS if k in path else 0
+            want = (flash_per_round if k in FLASH else
+                    K_CLIENTS if k in path else 0)
             check(count == want, f"{name} round {t + 1}: {k} launched "
                   f"{count} times, want {want}")
         losses = [float(x) for x in run.client_losses[-1]]
@@ -861,27 +1079,135 @@ def profile_round(run, toks, round_ms: float) -> None:
               f"{e.count:6d}x  {e.key[:80]}")
 
 
+# (arch, configurations); flash on and off compare at the round's shape in
+# phase 8, client gradient against client gradient in turns
+FL_RUNS = (("eris-gptneo-1.3b", FL_CONFIGS),
+           ("qwen2-0.5b", FL_CONFIGS[:1]))
+
+
 def fl_round_phase(dev, seed) -> dict:
     """Two ERIS rounds of eris-gptneo-1.3b at full width in each of the
-    three configurations.  Returns the kernels' launches over all six
+    three configurations, then two of qwen2-0.5b in the first, all with
+    flash attention on.  Returns the kernels' launches over all eight
     rounds (the main path's count)."""
-    cfg = fl_train.model_config("eris-gptneo-1.3b", full=True)
-    toks = torch.from_numpy(fl_train.lm_token_batches(
-        seed + 1, K_CLIENTS, BATCH, SEQ, cfg.vocab)).to(dev)
-    totals = {name: 0 for name in WIRE}
-    results = {name: _run_config(dev, seed, cfg, toks, name, fields, path,
-                                 totals)
-               for name, fields, path in FL_CONFIGS}
+    totals = {name: 0 for name in ROUND}
+    results = {}
+    for arch, configs in FL_RUNS:
+        cfg = fl_train.model_config(arch, full=True)
+        check(cfg.flash_attention, f"{arch}: flash attention is off")
+        toks = torch.from_numpy(fl_train.lm_token_batches(
+            seed + 1, K_CLIENTS, BATCH, SEQ, cfg.vocab)).to(dev)
+        for name, fields, path in configs:
+            label = name if arch == "eris-gptneo-1.3b" else f"{arch} {name}"
+            results[label] = _run_config(dev, seed, cfg, toks, label, fields,
+                                         path, totals)
     _expect_free_card("after the rounds")
     print("fl_round " + json.dumps(results))
     return totals
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 8
+CONTEXT = 2048       # max_position_embeddings of EleutherAI/gpt-neo-1.3B
+# flash vs the plain chunked attention over 24 layers of random bf16
+# weights: the plain path rounds its softmax weights to bf16 before the
+# PV product and the kernels keep them in f32, in every layer both ways
+CONTEXT_GRAD_REL_TOL = 5e-2
+
+
+def _client_grad(cfg, params, toks):
+    """One client's gradient (bf16 leaves), its loss, its device ms and
+    the peak memory it added above what was held before it.  The cache
+    allocator keeps its blocks, as between a round's clients."""
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = tr.loss_fn(tree_unflatten(params, leaves), cfg, {"tokens": toks})
+    grads = torch.autograd.grad(loss, leaves)
+    end.record()
+    torch.cuda.synchronize()
+    return (grads, float(loss.detach()), start.elapsed_time(end),
+            (torch.cuda.max_memory_allocated() - held) / 1e9)
+
+
+def _host_syncs(cfg, params, toks) -> dict:
+    """Host-side waits in one client gradient, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        loss = tr.loss_fn(tree_unflatten(params, leaves), cfg,
+                          {"tokens": toks})
+        torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaMemcpyAsync", "cudaLaunchKernel")
+    return {e.key: e.count for e in prof.key_averages() if e.key in names}
+
+
+def context_phase(dev, seed) -> None:
+    """One eris-gptneo-1.3b client gradient on 1 x 2048 tokens through the
+    flash kernels and through the plain chunked attention."""
+    on = fl_train.model_config("eris-gptneo-1.3b", full=True)
+    off = dataclasses.replace(on, flash_attention=False)
+    check(tr.uses_flash_kernel(on, CONTEXT), "S = 2048 does not take flash")
+    params = tr.init_params(on, seed=seed, device=dev)
+    toks = torch.from_numpy(fl_train.lm_token_batches(
+        seed + 3, 1, 1, CONTEXT, on.vocab)[0]).to(dev)
+    short = toks[:, :128]
+    for cfg in (on, off):                      # cuBLAS handles, the library
+        _client_grad(cfg, params, short)
+    round_toks = torch.from_numpy(fl_train.lm_token_batches(
+        seed + 1, 1, BATCH, SEQ, on.vocab)[0]).to(dev)
+    for cfg in (off, on):
+        syncs = _host_syncs(cfg, params, round_toks)
+        print(f"  one client gradient at {BATCH} x {SEQ} tokens, flash "
+              f"{cfg.flash_attention}: host calls {json.dumps(syncs)}")
+    # the round's client gradient both ways, in turns, each side first in
+    # half the pairs
+    ms = {False: [], True: []}
+    for i in range(6):
+        for cfg in ((off, on) if i % 2 == 0 else (on, off)):
+            ms[cfg.flash_attention].append(
+                _client_grad(cfg, params, round_toks)[2])
+    print(f"  one client gradient at {BATCH} x {SEQ} tokens, device-event "
+          f"ms in turns: flash off {[round(x, 1) for x in ms[False]]}, "
+          f"flash on {[round(x, 1) for x in ms[True]]}")
+    g_on, loss_on, ms_on, peak_on = _client_grad(on, params, toks)
+    g_off, loss_off, ms_off, peak_off = _client_grad(off, params, toks)
+    diff = sum(float((a.float() - b.float()).square().sum())
+               for a, b in zip(g_on, g_off))
+    ref = sum(float(b.float().square().sum()) for b in g_off)
+    rel = math.sqrt(diff / ref)
+    finite = all(bool(g.isfinite().all()) for g in g_on)
+    del g_on, g_off, params
+    check(finite and math.isfinite(loss_on), "flash gradient not finite")
+    print("context " + json.dumps(dict(
+        tokens=CONTEXT, flash_ms=ms_on, plain_ms=ms_off,
+        flash_peak_gb=peak_on, plain_peak_gb=peak_off, loss_flash=loss_on,
+        loss_plain=loss_off, grad_rel=rel)))
+    print(f"  1 x {CONTEXT} tokens: flash {ms_on:.1f} ms, {peak_on:.2f} GB "
+          f"above the params; plain chunked {ms_off:.1f} ms, {peak_off:.2f} "
+          f"GB; losses {loss_on:.5f} / {loss_off:.5f}; gradient relative "
+          f"difference {rel:.3e} (tol {CONTEXT_GRAD_REL_TOL:g})")
+    check(rel <= CONTEXT_GRAD_REL_TOL,
+          f"S = {CONTEXT} gradient, flash vs plain: relative difference "
+          f"{rel:.3e}")
+    _expect_free_card("after the context gradient")
+
+
+# ---------------------------------------------------------------- phase 9
 def fl_small_input_phase(dev, seed) -> None:
-    """The fused configuration on the smoke variant in f32, on the card
-    and on the host with the same seeds."""
+    """The fused configuration on the smoke variant in f32, flash on, on
+    the card (through the kernels) and on the host (through the plain
+    versions) with the same seeds."""
     cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
+    check(tr.uses_flash_kernel(cfg, SEQ), "the smoke round does not take "
+          "the flash kernels")
     fcfg = fl.FLConfig(method="eris", K=K_CLIENTS, A=A_AGGS, lr=LR,
                        seed=seed, **FL_CONFIGS[0][1])
     toks = torch.from_numpy(fl_train.lm_token_batches(
@@ -894,9 +1220,14 @@ def fl_small_input_phase(dev, seed) -> None:
                     device="cpu")
     card = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"), loss,
                     device=dev)
+    for fn in FLASH.values():
+        fn.launches = 0
     for _ in range(2):
         host.step(toks)
         card.step(toks.to(dev))
+    launched = [fn.launches for fn in FLASH.values()]
+    check(launched == [2 * K_CLIENTS * cfg.n_layers] * 3,
+          f"smoke rounds: flash kernels launched {launched} times")
     # one host-made gradient through the kernel and the plain version
     g = host._grad(host.x, toks[0])
     s = host.state.dsc.s_clients[0]
@@ -910,9 +1241,10 @@ def fl_small_input_phase(dev, seed) -> None:
     rel = float((card.x.cpu() - host.x).norm() / host.x.norm())
     check(rel <= 1e-4, f"smoke fused round: x card vs host relative error "
           f"{rel:.3e} after 2 rounds")
-    print(f"  eris-gptneo-1.3b smoke f32, fused config, 2 rounds: x card vs "
-          f"host relative error {rel:.3e} (tol 1e-4); a host gradient "
-          f"compressed on the card == on the host (codes, scales, s')")
+    print(f"  eris-gptneo-1.3b smoke f32, fused config, flash on, 2 rounds: "
+          f"x card vs host relative error {rel:.3e} (tol 1e-4); flash "
+          f"kernels {launched} launches; a host gradient compressed on the "
+          f"card == on the host (codes, scales, s')")
 
 
 # ------------------------------------------------------------------- main
@@ -957,13 +1289,20 @@ def main() -> None:
     wire_worst = wire_cases(dev, args.seed)
     wire_timing_ = wire_timing(dev, args.seed)
 
-    phase("6 ERIS round of eris-gptneo-1.3b at full width")
-    wire_launches = fl_round_phase(dev, args.seed)
+    phase("6 flash kernels vs plain versions")
+    flash_worst = flash_cases(dev, args.seed)
+    flash_timing_ = flash_timing(dev, args.seed)
 
-    phase("7 ERIS round, small input, card vs host")
+    phase("7 ERIS rounds of eris-gptneo-1.3b and qwen2-0.5b at full width")
+    round_launches = fl_round_phase(dev, args.seed)
+
+    phase("8 eris-gptneo-1.3b gradient at its 2048-token context")
+    context_phase(dev, args.seed)
+
+    phase("9 ERIS round, small input, card vs host")
     fl_small_input_phase(dev, args.seed)
 
-    phase("8 result")
+    phase("10 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -973,15 +1312,35 @@ def main() -> None:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}]
-    for name, _, source, replaces in KERNELS[1:]:
+    for name, _, source, replaces in KERNELS[1:5]:
         t = wire_timing_[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "launches": wire_launches[name],
+            "replaces": replaces, "launches": round_launches[name],
             "max_abs_err": wire_worst, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    # the flash rows at the gptneo round's shape, where they launch; the
+    # GPT-Neo context beside it; the library call is
+    # scaled_dot_product_attention (forward for flash_fwd; its backward,
+    # dq, dk and dv in one call, for flash_dq and flash_dkv)
+    for name, _, source, replaces in KERNELS[5:]:
+        t, long = (flash_timing_[label][name]
+                   for label in ("gptneo-round", "gptneo-s2048"))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": round_launches[name],
+            "max_abs_err": flash_worst[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": "B=4 H=16 KV=16 S=64 d=128 bf16 causal",
+            "s2048": {key: long[key] for key in
+                      ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")}})
+    phase(None)
+    print(f"phase seconds {json.dumps(PHASE_SECONDS)}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

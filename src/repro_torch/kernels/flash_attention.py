@@ -1,0 +1,204 @@
+"""Flash attention for training, forward and backward
+(``repro/kernels/flash_attention.py``).
+
+:func:`flash_attention` is differentiable: its forward saves (q, k, v, o,
+lse) and its backward computes delta = rowsum(do * o) as one torch
+expression, as the reference does outside its kernels, then the dq and
+the dk/dv kernels.  The three kernel wrappers, :func:`flash_fwd`,
+:func:`flash_dq` and :func:`flash_dkv`, launch the hand-written CUDA
+kernels of ``csrc/flash_attention.cu`` on CUDA tensors; their design and
+bound are set out in that file.  On CPU tensors they compute the plain
+versions in ``kernels/ref.py``, and only there: on a CUDA tensor they
+launch the kernel or raise.  ``flash_fwd.launches``, ``flash_dq.launches``
+and ``flash_dkv.launches`` count the kernels' launches.
+
+Layout is the reference's, q (B, H, S, d) and k, v (B, KV, S, d), with
+any strides so long as d is contiguous: the model hands over transposed
+views of its (B, S, H, d) projections and the kernels read them in
+place, without a copy.  Outputs take their input's strides
+(``torch.empty_like``), so o comes back as a view of a contiguous
+(B, S, H, d) tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import (FLASH_BLOCK, flash_delta, flash_dkv_ref,
+                                     flash_dq_ref, flash_fwd_ref)
+
+BLOCK_Q = BLOCK_K = FLASH_BLOCK
+HEAD_DIMS = (16, 32, 64, 128)         # the head dims the CUDA kernels take
+_DTYPES = (torch.float32, torch.bfloat16)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_TAIL = [_I] * 5 + [ctypes.c_float, _I, _I, _I, _P]   # B H KV S d scale ...
+_ARGS = {"flash_fwd_launch": [_P] * 6 + _TAIL,
+         "flash_dq_launch": [_P] * 8 + _TAIL,
+         "flash_dkv_launch": [_P] * 9 + _TAIL}
+
+
+def supports(S: int, d: int, block_q: int = BLOCK_Q,
+             block_k: int = BLOCK_K) -> bool:
+    """The reference's shape gate for its training integration: the
+    (possibly clamped) blocks tile S exactly."""
+    bq, bk = min(block_q, S), min(block_k, S)
+    return S % bq == 0 and S % bk == 0
+
+
+def _check(op: str, q, k, v, window, **more) -> None:
+    """Shapes, devices and the mask, on any device; dtypes and the head
+    dim only where a kernel will run."""
+    tensors = dict(q=q, k=k, v=v, **more)
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{op}: {name} is on {t.device}, q on "
+                             f"{q.device}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"{op}: want q (B, H, S, d) and k, v (B, KV, S, "
+                         f"d), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, S, d = q.shape
+    if k.shape[0] != B or k.shape[2:] != (S, d) or H % k.shape[1]:
+        raise ValueError(f"{op}: k and v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (self-attention, H % KV == 0)")
+    if window is not None and window < 1:
+        raise ValueError(f"{op}: window must be >= 1, got {window}")
+    if q.device.type == "cpu":
+        return
+    if q.device.type != "cuda":
+        raise ValueError(f"{op}: no kernel for {q.device}")
+    for name, t in tensors.items():
+        want = torch.float32 if name in ("lse", "delta") else q.dtype
+        if t.dtype != want or (name == "q" and t.dtype not in _DTYPES):
+            raise TypeError(f"{op}: q must be float32 or bfloat16 and every "
+                            f"tensor but lse and delta of q's dtype, float32 "
+                            f"for those; got {name} {t.dtype} with q "
+                            f"{q.dtype}")
+        if name in ("lse", "delta"):
+            if t.shape != (B * H, S) or not t.is_contiguous():
+                raise ValueError(f"{op}: {name} must be contiguous "
+                                 f"(B * H, S), got {tuple(t.shape)}")
+        elif t.stride(-1) != 1:
+            raise ValueError(f"{op}: {name} must have a contiguous last dim, "
+                             f"got strides {t.stride()}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{op}: the CUDA kernels take head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    if B * H > 65535:
+        raise ValueError(f"{op}: B * H = {B * H} beyond the kernels' grid")
+
+
+def _strides(*tensors) -> ctypes.Array:
+    """(b, h, s) element strides of each tensor, as one long long array."""
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _launch(symbol: str, pointers, strides, q, k, causal, window) -> None:
+    B, H, S, d = q.shape
+    with torch.cuda.device(q.device):
+        err = _build.bind("flash_attention", symbol, _ARGS[symbol])(
+            *pointers, strides, B, H, k.shape[1], S, d, d ** -0.5,
+            int(causal), -1 if window is None else int(window),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on_error("flash_attention", err)
+
+
+def flash_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    """The forward kernel.  Returns (o in q's dtype and strides, lse
+    (B * H, S) f32)."""
+    _check("flash_fwd", q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, causal=causal, window=window)
+    B, H, S, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
+    if o.numel():
+        _launch("flash_fwd_launch",
+                [t.data_ptr() for t in (q, k, v, o, lse)],
+                _strides(q, k, v, o), q, k, causal, window)
+        flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+             window: Optional[int] = None):
+    """The dq kernel.  Returns dq in q's dtype and strides."""
+    _check("flash_dq", q, k, v, window, do=do, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        return flash_dq_ref(q, k, v, do, lse, delta, causal=causal,
+                            window=window)
+    dq = torch.empty_like(q)
+    if dq.numel():
+        _launch("flash_dq_launch",
+                [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
+                _strides(q, k, v, do, dq), q, k, causal, window)
+        flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+              window: Optional[int] = None):
+    """The dk/dv kernel, the sum over each group's query heads included.
+    Returns (dk, dv) in k's and v's dtype and strides."""
+    _check("flash_dkv", q, k, v, window, do=do, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        return flash_dkv_ref(q, k, v, do, lse, delta, causal=causal,
+                             window=window)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel():
+        _launch("flash_dkv_launch",
+                [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
+                _strides(q, k, v, do, dk, dv), q, k, causal, window)
+        flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's custom VJP: forward kernel, then delta, dq and
+    dk/dv from the saved (q, k, v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window = ctx.mask
+        if do.stride(-1) != 1:          # e.g. the expanded grad of a sum
+            do = do.contiguous()
+        delta = flash_delta(o, do)
+        dq = flash_dq(q, k, v, do, lse, delta, causal=causal, window=window)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, causal=causal,
+                           window=window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, S, d); k, v: (B, KV, S, d) with H % KV == 0 (GQA).
+    Returns o (B, H, S, d) in q's dtype.  A window implies causal masking.
+    Differentiable; without a gradient to take (``torch.no_grad`` or no
+    input that requires one) only the forward kernel runs and nothing is
+    saved."""
+    if window is not None and not causal:
+        raise ValueError("flash_attention: a sliding window implies causal "
+                         "masking")
+    window = None if window is None else int(window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(causal), window)
+    return flash_fwd(q, k, v, causal=causal, window=window)[0]

@@ -1,9 +1,12 @@
-"""Plain torch versions of the wire kernels (``repro/kernels/ref.py``).
+"""Plain torch versions of the kernels (``repro/kernels/ref.py``): the
+wire kernels and the flash-attention forward and backward.
 
 Each computes what its CUDA kernel computes, on any device, and is what
-the kernel's wrapper runs for a CPU tensor.  They follow the Pallas
-kernels, not the reference's jnp oracles, in the two places where those
-differ:
+the kernel's wrapper runs for a CPU tensor.  The flash-attention plain
+versions follow the Pallas kernels' blocked arithmetic (the section at
+the end); :func:`flash_attention_ref` is the reference's naive oracle.
+The wire plain versions follow the Pallas kernels, not the reference's
+jnp oracles, in the two places where those differ:
 
 * v is ``(g - s) * f32(1/p)`` with ``1/p`` taken in double on the host,
   as ``kernels/dsc_update.py:40`` and ``kernels/dsc_quantize.py:46`` do;
@@ -129,3 +132,163 @@ def dsc_quantize_ref(g: torch.Tensor, s: torch.Tensor, seed_mask: int,
     q, scale = _quantize_f32(v, seed_round, idx)
     v_hat = (q * scale[:, None]).reshape(-1)[:n]
     return q.to(torch.int8).reshape(-1), scale, fma_f32(gamma, v_hat, s)
+
+
+# -------------------------------------------------------- flash attention
+# ``repro/kernels/flash_attention.py``: blocks of 128 clamped to S, masks
+# at -1e30, q scaled by f32(d**-0.5) as it is loaded, everything in f32.
+FLASH_BLOCK = 128
+NEG_INF = -1e30
+
+
+def _flash_mask(s, qpos, kpos, causal, window):
+    """Causal and/or window mask of score tiles (..., bq, bk) whose rows
+    sit at ``qpos`` (..., bq) and columns at ``kpos`` (..., bk)."""
+    if not causal and window is None:
+        return s
+    q, k = qpos[..., :, None], kpos[..., None, :]
+    ok = k <= q if causal else torch.ones_like(k <= q)
+    if window is not None:
+        ok = ok & (k > q - window)
+    return torch.where(ok, s, NEG_INF)
+
+
+def _flash_split(q, k, block_q, block_k):
+    B, H, S, d = q.shape
+    KV = k.shape[1]
+    if k.shape != (B, KV, S, d) or H % KV:
+        raise ValueError(f"flash attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} are not (B, H, S, d) and "
+                         f"(B, KV, S, d) with H % KV == 0")
+    bq, bk = min(block_q, S), min(block_k, S)
+    if S % bq or S % bk:
+        raise ValueError(f"flash attention: blocks {bq}, {bk} do not tile "
+                         f"S = {S}")
+    return B, H, KV, H // KV, S, d, bq, bk, float(np.float32(d ** -0.5))
+
+
+def flash_fwd_ref(q, k, v, *, causal: bool = True, window=None,
+                  block_q: int = FLASH_BLOCK, block_k: int = FLASH_BLOCK):
+    """The forward kernel's online softmax over k-blocks, every q-block at
+    once.  q: (B, H, S, d); k, v: (B, KV, S, d).  Returns (o in q's dtype,
+    lse (B*H, S) f32).  It visits every k-block where the kernel stops at
+    the diagonal and starts at the window: a block past the diagonal adds
+    exact zeros, and a fully masked block before the first visible one is
+    cleared exactly by the next block's alpha = exp(-1e30 - m) = 0."""
+    B, H, KV, G, S, d, bq, bk, scale = _flash_split(q, k, block_q, block_k)
+    nq = S // bq
+    qs = (q.float() * scale).reshape(B, KV, G, nq, bq, d)
+    kf = k.float()[:, :, None, None]                  # (B, KV, 1, 1, S, d)
+    vf = v.float()[:, :, None, None]
+    qpos = torch.arange(S, device=q.device).reshape(nq, bq)
+    kpos = torch.arange(S, device=q.device)
+    m = torch.full(qs.shape[:-1], NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qs)
+    for k0 in range(0, S, bk):
+        s = qs @ kf[..., k0:k0 + bk, :].transpose(-1, -2)
+        s = _flash_mask(s, qpos, kpos[k0:k0 + bk], causal, window)
+        m_cur = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p @ vf[..., k0:k0 + bk, :]
+        m = m_cur
+    l_safe = l.clamp_min(1e-30)
+    o = (acc / l_safe[..., None]).reshape(B, H, S, d).to(q.dtype)
+    return o, (m + torch.log(l_safe)).reshape(B * H, S)
+
+
+def flash_delta(o, do):
+    """delta = rowsum(do * o) in f32, (B*H, S): computed outside the
+    kernels, from o as saved in q's dtype (``flash_attention.py:221``)."""
+    B, H, S, _ = o.shape
+    return (do.float() * o.float()).sum(-1).reshape(B * H, S)
+
+
+def _flash_bwd_inputs(q, k, v, do, lse, delta, block_q, block_k):
+    B, H, KV, G, S, d, bq, bk, scale = _flash_split(q, k, block_q, block_k)
+    qs = (q.float() * scale).reshape(B, KV, G, S, d)
+    dof = do.float().reshape(B, KV, G, S, d)
+    return (B, H, KV, G, S, d, bq, bk, scale, qs, dof,
+            lse.reshape(B, KV, G, S), delta.reshape(B, KV, G, S))
+
+
+def flash_dq_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                 window=None, block_q: int = FLASH_BLOCK,
+                 block_k: int = FLASH_BLOCK):
+    """The dq kernel: p = exp(s - lse), ds = p * (do v^T - delta), dq =
+    scale * sum over k-blocks of ds k, in q's dtype.  Blocks the kernel
+    skips have p = 0 exactly and add nothing."""
+    (B, H, KV, G, S, d, bq, bk, scale, qs, dof, lse,
+     delta) = _flash_bwd_inputs(q, k, v, do, lse, delta, block_q, block_k)
+    nq = S // bq
+    qs, dof = qs.reshape(B, KV, G, nq, bq, d), dof.reshape(B, KV, G, nq, bq, d)
+    lse, delta = lse.reshape(B, KV, G, nq, bq), delta.reshape(B, KV, G, nq, bq)
+    kf = k.float()[:, :, None, None]
+    vf = v.float()[:, :, None, None]
+    qpos = torch.arange(S, device=q.device).reshape(nq, bq)
+    kpos = torch.arange(S, device=q.device)
+    dq = torch.zeros_like(qs)
+    for k0 in range(0, S, bk):
+        kb, vb = kf[..., k0:k0 + bk, :], vf[..., k0:k0 + bk, :]
+        s = _flash_mask(qs @ kb.transpose(-1, -2), qpos, kpos[k0:k0 + bk],
+                        causal, window)
+        p = torch.exp(s - lse[..., None])
+        ds = p * (dof @ vb.transpose(-1, -2) - delta[..., None])
+        dq = dq + ds @ kb
+    return (dq * scale).reshape(B, H, S, d).to(q.dtype)
+
+
+def flash_dkv_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                  window=None, block_q: int = FLASH_BLOCK,
+                  block_k: int = FLASH_BLOCK):
+    """The dk/dv kernel: per query head, dv = sum p^T do and dk = sum
+    ds^T q_hat (q_hat already scaled) over q-blocks, in f32; then the sum
+    over the G heads of each group, still in f32, and one cast to k's and
+    v's dtypes (``flash_attention.py:263-265``)."""
+    (B, H, KV, G, S, d, bq, bk, scale, qs, dof, lse,
+     delta) = _flash_bwd_inputs(q, k, v, do, lse, delta, block_q, block_k)
+    nk = S // bk
+    kf = k.float().reshape(B, KV, 1, nk, bk, d)
+    vf = v.float().reshape(B, KV, 1, nk, bk, d)
+    kpos = torch.arange(S, device=q.device).reshape(nk, bk)
+    qpos = torch.arange(S, device=q.device)
+    dk = torch.zeros(B, KV, G, nk, bk, d, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, S, bq):
+        qb = qs[:, :, :, None, q0:q0 + bq]            # (B, KV, G, 1, bq, d)
+        dob = dof[:, :, :, None, q0:q0 + bq]
+        lb = lse[:, :, :, None, q0:q0 + bq, None]
+        db = delta[:, :, :, None, q0:q0 + bq, None]
+        s = qb @ kf.transpose(-1, -2)                 # (B, KV, G, nk, bq, bk)
+        s = _flash_mask(s, qpos[q0:q0 + bq].expand(nk, bq), kpos, causal,
+                        window)
+        p = torch.exp(s - lb)
+        dv = dv + p.transpose(-1, -2) @ dob
+        ds = p * (dob @ vf.transpose(-1, -2) - db)
+        dk = dk + ds.transpose(-1, -2) @ qb
+    dk = dk.sum(2).reshape(B, KV, S, d).to(k.dtype)
+    dv = dv.sum(2).reshape(B, KV, S, d).to(v.dtype)
+    return dk, dv
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """The reference's naive oracle (``repro/kernels/ref.py:78``): the
+    whole (Sq, Skv) score matrix in f32 and one softmax.  q: (B, H, Sq, d);
+    k, v: (B, KV, Skv, d); differentiable by autograd."""
+    B, H, Sq, d = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Sq, d)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg, k).float() * (d ** -0.5)
+    if causal or window is not None:
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        mask = kpos <= qpos if causal else torch.ones(Sq, Skv, dtype=torch.bool,
+                                                      device=q.device)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        scores = scores.masked_fill(~mask, -torch.inf)
+    w = torch.softmax(scores, -1)
+    return torch.einsum("bkgqs,bksd->bkgqd", w, v.float()).reshape(
+        B, H, Sq, d).to(q.dtype)

@@ -7,9 +7,9 @@ on its own data, DSC shift-compresses it (on the int8 wire with
 applies the update.  Without ``--full`` the config is the architecture's
 reduced smoke variant, as the example runs it; with ``--full`` it is the
 published width (eris-gptneo-1.3b: 1.8e9 parameters, one 80 GB card).
-Params are random from ``--seed``, and training takes the plain chunked
-attention (``flash_attention=False``): the flash kernels are not ported
-yet (ROADMAP queue 2.5).
+Params are random from ``--seed``.  Training keeps the config's
+``flash_attention`` (on by default, as in the example), so every layer's
+attention runs the flash-attention kernels forward and backward.
 
     PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --rounds 3
     PYTHONPATH=src python -m repro_torch.launch.fl_train --full --dsc \\
@@ -18,7 +18,6 @@ yet (ROADMAP queue 2.5).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 
@@ -48,11 +47,10 @@ def lm_token_batches(seed: int, K: int, batch: int, seq_len: int,
 
 
 def model_config(arch: str, full: bool):
-    """The config at full width or its smoke size, with training through
-    the plain attention."""
+    """The config at full width or its smoke size, as the example takes
+    it: ``flash_attention`` stays the config's (True by default)."""
     cfg = get_config(arch)
-    return dataclasses.replace(cfg if full else cfg.smoke(),
-                               flash_attention=False)
+    return cfg if full else cfg.smoke()
 
 
 def fl_config(args) -> FLConfig:

@@ -8,6 +8,7 @@ softmax as the reference, chunked over queries.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -37,15 +38,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_in(hd: int, dtype: torch.dtype) -> float:
+    """hd**-0.5 rounded to ``dtype`` on the host, as a Python float: a
+    tensor of ``dtype`` times it gives the bits of a product with the
+    rounded scale as a tensor, with no copy to the device per call."""
+    return torch.tensor(hd ** -0.5, dtype=dtype).item()
+
+
 def _attend_block(q, k, v, qpos, kpos, window, scores_f32=True):
     """q: (B, Cq, KV, G, hd); k/v: (B, Skv, KV, hd); returns (B,Cq,KV,G,hd).
     Causal + optional sliding-window masking by absolute positions."""
-    scale = q.shape[-1] ** -0.5
     sdt = torch.float32 if scores_f32 else q.dtype
     neg = -1e30 if scores_f32 else -6e4
     # the scale is rounded to the score dtype first, as the reference does
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).to(sdt) * \
-        torch.tensor(scale, dtype=sdt, device=q.device)
+        _scale_in(q.shape[-1], sdt)
     mask = kpos[None, :] <= qpos[:, None]
     if window is not None:
         mask &= kpos[None, :] > qpos[:, None] - window

@@ -9,10 +9,12 @@ layer axis with ``lax.scan``; here a Python loop walks it.
 Families: the dense decoder (and ``audio``, whose language model is the
 same dense stack).  moe, hybrid, ssm and vlm come with the slice that
 ports the rest of the model zoo.  Training (``mode="train"``, ``loss_fn``)
-runs through PyTorch autograd and the plain chunked attention; where the
-reference would run its flash-attention kernels (``cfg.flash_attention``)
-the port raises until they are ported (ROADMAP queue 2.5), rather than
-put the plain attention in their place.
+runs through PyTorch autograd.  Its attention is routed as the
+reference routes it: with ``cfg.flash_attention`` (the default) every
+shape that the 128-blocks tile goes through the flash-attention kernels
+(``kernels/flash_attention``, a ``torch.autograd.Function`` whose
+backward is the dq and dk/dv kernels); any other shape, and prefill,
+through the plain chunked ``causal_attention``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -134,17 +137,23 @@ def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions):
             L.rope(k, positions, cfg.rope_theta), v)
 
 
-def _attn(cfg: ModelConfig, lp: dict, x, positions, window):
-    """Prefill and training attention through the plain chunked
-    ``causal_attention`` (``forward`` refuses the training shapes the
-    reference sends to its flash kernel).  Returns (x_out, {"k", "v"}) --
-    the per-layer cache."""
+def _attn(cfg: ModelConfig, lp: dict, x, positions, window, train: bool):
+    """Prefill and training attention (``models/transformer.py:175-241``):
+    a training shape that ``uses_flash_kernel`` goes through the flash
+    kernels on (B, H, S, hd) views of the projections, read in place;
+    everything else through the plain chunked ``causal_attention``.
+    Returns (x_out, {"k", "v"}) -- the per-layer cache."""
     B, S = x.shape[:2]
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, positions)
-    out = L.causal_attention(
-        q, k, v, window=window, chunk=cfg.attn_chunk,
-        scores_f32=cfg.attn_scores_f32 and not cfg.bf16_residency)
+    if train and uses_flash_kernel(cfg, S, window):
+        out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
+                                 window=window).transpose(1, 2)
+    else:
+        out = L.causal_attention(
+            q, k, v, window=window, chunk=cfg.attn_chunk,
+            scores_f32=cfg.attn_scores_f32 and not cfg.bf16_residency)
     y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"]
     return x + y, {"k": k, "v": v}
 
@@ -158,8 +167,8 @@ def _ffn(cfg: ModelConfig, lp: dict, x):
     return x + _gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
-def _block(cfg: ModelConfig, lp: dict, x, positions, window):
-    x, kv = _attn(cfg, lp, x, positions, window)
+def _block(cfg: ModelConfig, lp: dict, x, positions, window, train: bool):
+    x, kv = _attn(cfg, lp, x, positions, window, train)
     return _ffn(cfg, lp, x), {"kv": kv}
 
 
@@ -172,17 +181,12 @@ def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     return params["embed"][tokens.long()]
 
 
-# the reference's flash-attention blocks (kernels/flash_attention.py)
-FLASH_BLOCK_Q = FLASH_BLOCK_K = 128
-
-
 def uses_flash_kernel(cfg: ModelConfig, seq_len: int,
                       window: Optional[int] = None) -> bool:
     """Whether the reference trains this shape through its Pallas flash
     attention (``models/transformer.py:223-225`` with ``supports``)."""
-    bq, bk = min(FLASH_BLOCK_Q, seq_len), min(FLASH_BLOCK_K, seq_len)
     return (cfg.flash_attention and not cfg.attn_batch_shard
-            and window != 0 and seq_len % bq == 0 and seq_len % bk == 0)
+            and window != 0 and fa.supports(seq_len, cfg.hd))
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -192,9 +196,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``mode="prefill"`` runs without autograd and returns the per-layer
     K/V stacked as (L, B, S, KV, hd) under ``caches["kv"]``;
     ``mode="train"`` records the graph for the backward and returns no
-    caches.  Training a shape the reference routes through its flash
-    kernels raises: those kernels are not ported yet (ROADMAP queue 2.5),
-    and the plain attention does not stand in for them."""
+    caches; its attention goes through the flash kernels where the
+    reference's does (:func:`uses_flash_kernel`)."""
     if mode == "prefill":
         with torch.no_grad():
             return _forward(params, cfg, tokens, window, keep_cache=True)
@@ -202,12 +205,6 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             f"forward(mode={mode!r}): prefill and train are ported; the "
             f"dense ring-cache decode is ROADMAP queue 1.11")
-    if uses_flash_kernel(cfg, tokens.shape[1], window):
-        raise NotImplementedError(
-            f"training {cfg.name} at seq_len {tokens.shape[1]} runs the "
-            f"reference's flash-attention kernels (cfg.flash_attention), "
-            f"which are not ported yet (ROADMAP queue 2.5); pass a config "
-            f"with flash_attention=False for the plain chunked attention")
     return _forward(params, cfg, tokens, window, keep_cache=False)
 
 
@@ -217,7 +214,8 @@ def _forward(params, cfg, tokens, window, keep_cache: bool):
     positions = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
     for lp in _layers(params):
-        x, cache = _block(cfg, lp, x, positions, window)
+        x, cache = _block(cfg, lp, x, positions, window,
+                          train=not keep_cache)
         if keep_cache:
             ks.append(cache["kv"]["k"])
             vs.append(cache["kv"]["v"])

@@ -201,14 +201,16 @@ def test_cuda_wire_wrappers_raise_instead_of_falling_back(cuda):
 
 
 @pytest.mark.cuda
-def test_fl_round_on_the_card_equals_the_host(cuda):
+@pytest.mark.parametrize("flash", [False, True])
+def test_fl_round_on_the_card_equals_the_host(cuda, flash):
     """Two fused DSC-int8 rounds of eris-gptneo-1.3b's smoke variant in
     f32, on the card through the kernels and on the host through the
     plain versions, with the same seeds: x within 1e-4 relative norm (a
     code may flip where u falls within an ulp of its fraction, as the
-    two devices' gradients differ in the last bits)."""
+    two devices' gradients differ in the last bits).  With flash on, each
+    flash kernel ran once per layer per client gradient."""
     cfg = dataclasses.replace(get_config("eris-gptneo-1.3b").smoke(),
-                              flash_attention=False)
+                              flash_attention=flash)
     fcfg = fl.FLConfig(method="eris", K=3, A=8, lr=0.1, use_dsc=True,
                        compressor=RandP(p=0.25), int8_wire=True,
                        compress_impl="fused")
@@ -223,9 +225,105 @@ def test_fl_round_on_the_card_equals_the_host(cuda):
     card = fl.FLRun(fcfg, tr.init_params(cfg, seed=0, device="cpu"), loss,
                     device=cuda)
     dq.dsc_quantize.launches = 0
+    _set_flash_launches(0)
     for _ in range(2):
         host.step(toks)
         card.step(toks.to(cuda))
     assert dq.dsc_quantize.launches == 2 * 3
+    want = 2 * 3 * cfg.n_layers if flash else 0
+    assert [fn.launches for fn in FLASH] == [want] * 3
     rel = float((card.x.cpu() - host.x).norm() / host.x.norm())
     assert rel < 1e-4
+
+
+# ------------------------------------------------------ flash attention
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+FLASH = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+
+
+def _set_flash_launches(value):
+    for fn in FLASH:
+        fn.launches = value
+
+
+def _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd=True, seed=5):
+    """q, k, v, do as (B, H, S, d): transposed views of (B, S, H, d)
+    tensors, as the model hands them over, or contiguous."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for heads in (H, KV, KV, H):
+        shape = (B, S, heads, d) if bshd else (B, heads, S, d)
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        t = t.to(cuda).to(dtype)
+        out.append(t.transpose(1, 2) if bshd else t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,d,causal,window,dtype,bshd", [
+    (2, 4, 2, 128, 64, True, None, torch.float32, True),
+    (1, 4, 4, 100, 32, False, None, torch.float32, True),   # ragged S
+    (1, 2, 1, 256, 16, True, 48, torch.float32, False),
+    (2, 4, 2, 128, 128, True, None, torch.float32, True),   # most smem
+    (4, 16, 16, 64, 128, True, None, torch.bfloat16, True),  # gptneo round
+    (4, 14, 2, 64, 64, True, None, torch.bfloat16, True),   # qwen2 round
+    (4, 4, 2, 64, 64, True, None, torch.float32, True),     # smoke round
+    (1, 14, 2, 256, 64, True, 100, torch.bfloat16, True),   # qwen2 GQA 7
+])
+def test_cuda_flash_kernels_match_plain_versions(cuda, B, H, KV, S, d, causal,
+                                                 window, dtype, bshd):
+    """The forward, dq and dk/dv kernels against their plain versions on
+    the same inputs (f32: 1e-4, the order of summation; bf16 outputs:
+    2**-7 of the plain value plus 1e-4, one bf16 step, since both sides
+    compute in f32 and cast once), each launched once; outputs keep their
+    inputs' strides."""
+    q, k, v, do = _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd)
+    mask = dict(causal=causal, window=window)
+    before = [fn.launches for fn in FLASH]
+    o, lse = fa.flash_fwd(q, k, v, **mask)
+    delta = wire_ref.flash_delta(o, do)
+    dq_ = fa.flash_dq(q, k, v, do, lse, delta, **mask)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **mask)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(FLASH, before)] == [1, 1, 1]
+    ro, rlse = wire_ref.flash_fwd_ref(q, k, v, **mask)
+    rdq = wire_ref.flash_dq_ref(q, k, v, do, lse, delta, **mask)
+    rdk, rdv = wire_ref.flash_dkv_ref(q, k, v, do, lse, delta, **mask)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for name, got, want in (("o", o, ro), ("dq", dq_, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        assert got.dtype == dtype and got.stride() == \
+            (q if name in ("o", "dq") else k).stride(), name
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=rtol, msg=name)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_function_matches_the_oracle(cuda):
+    """The autograd Function on the card (forward kernel, delta, dq and
+    dk/dv kernels) against autograd through the naive oracle, f32."""
+    q, k, v, w = _flash_inputs(2, 6, 2, 128, 64, torch.float32, cuda)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(
+        (fa.flash_attention(*leaves, window=40) * w).sum(), leaves)
+    want = torch.autograd.grad(
+        (wire_ref.flash_attention_ref(*leaves, window=40) * w).sum(), leaves)
+    for g, e in zip(got, want):
+        torch.testing.assert_close(g, e, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrappers_raise_instead_of_falling_back(cuda):
+    q, k, v, do = _flash_inputs(1, 4, 2, 64, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fa.flash_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fa.flash_attention(q, k, v.cpu())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_fwd(q[..., :48], k[..., :48], v[..., :48])

@@ -336,11 +336,14 @@ def test_ravel_params_order_equals_ravel_pytree(dtype):
     assert torch.equal(back["embed"], pt["embed"])
 
 
-def test_loss_and_every_grad_match_reference():
-    """eris-gptneo-1.3b's smoke variant in f32, flash off on both sides:
-    the loss and the gradient of every leaf within 1e-5 relative norm,
-    with and without a loss mask."""
-    ref_cfg, cfg, p, pt = _smoke_pair()
+@pytest.mark.parametrize("flash", [False, True])
+def test_loss_and_every_grad_match_reference(flash):
+    """eris-gptneo-1.3b's smoke variant in f32, flash attention off or on
+    on both sides (on: the reference's Pallas kernels in interpret mode,
+    the port's Function through its plain versions): the loss and the
+    gradient of every leaf within 1e-5 relative norm, with and without a
+    loss mask."""
+    ref_cfg, cfg, p, pt = _smoke_pair(flash=flash)
     rng = np.random.default_rng(6)
     toks = rng.integers(0, cfg.vocab, size=(2, 16)).astype(np.int32)
     mask = (rng.random((2, 16)) < 0.7).astype(np.float32)
@@ -382,17 +385,80 @@ def _unflat(leaves):
     return out
 
 
-def test_flash_attention_training_raises_and_prefill_still_runs():
+def test_flash_attention_training_runs_the_flash_function_and_prefill_does_not(
+        monkeypatch):
     """With cfg.flash_attention, the training shapes the reference sends
-    through its Pallas flash kernel raise (queue 2.5); the plain attention
-    never stands in for the kernel.  Prefill is unaffected."""
+    through its Pallas flash kernels go through the port's flash Function:
+    on the CPU its forward and both backward plain versions run once per
+    layer, and the chunked attention never does.  Prefill and a shape the
+    128-blocks do not tile take the chunked attention, as the reference
+    routes them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
     _, cfg, _, pt = _smoke_pair(flash=True)
+    calls = {"flash_fwd_ref": 0, "flash_dq_ref": 0, "flash_dkv_ref": 0,
+             "causal_attention": 0}
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def counted(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        monkeypatch.setattr(module, name, counted)
+
+    for name in ("flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref"):
+        spy(fa, name)
+    spy(layers, "causal_attention")
+    leaves = {n: t.clone().requires_grad_() for n, t in _flat(pt)}
     toks = torch.zeros(2, 16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 2.5"):
-        tr.loss_fn(pt, cfg, {"tokens": toks})
+    loss = tr.loss_fn(_unflat(leaves), cfg, {"tokens": toks})
+    torch.autograd.grad(loss, list(leaves.values()))
+    L = cfg.n_layers
+    assert calls == {"flash_fwd_ref": L, "flash_dq_ref": L,
+                     "flash_dkv_ref": L, "causal_attention": 0}
+    assert tr.uses_flash_kernel(cfg, 16) and not tr.uses_flash_kernel(cfg, 192)
     logits, caches, _ = tr.forward(pt, cfg, toks, "prefill")
     assert logits.shape == (2, 16, cfg.vocab) and caches is not None
     assert not logits.requires_grad
+    tr.loss_fn(pt, cfg, {"tokens": torch.zeros(1, 192, dtype=torch.int32)})
+    assert calls["causal_attention"] == 2 * L
+    assert calls["flash_fwd_ref"] == L
+
+
+# the round on the smoke model with flash on both sides: DSC alone holds
+# the reference to 1e-5 like the MLP trajectories; on the int8 wire a
+# code flips where a draw falls within an ulp of its fraction, so two
+# gradients that differ in their last bits move x by a quantization step
+# here and there (1e-4, as the card-vs-host round in test_torch_cuda.py)
+FLASH_ROUNDS = {
+    "dsc-pallas": (dict(compress_impl="pallas"), 1e-5),
+    "dsc-int8-fused": (dict(int8_wire=True, compress_impl="fused"), 1e-4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_ROUNDS))
+def test_flrun_with_flash_tracks_reference_on_the_smoke_model(case):
+    """Two eris rounds (K = 2, A = 8, RandP(p=0.25), 2 x 16 tokens a
+    client) of eris-gptneo-1.3b's smoke variant with flash_attention on
+    both sides, the port stepping with the reference's own round seeds."""
+    extra, tol = FLASH_ROUNDS[case]
+    ref_cfg, cfg, p, pt = _smoke_pair(flash=True)
+    kw = dict(method="eris", K=2, A=8, lr=0.1, use_dsc=True, **extra)
+    ref_run = ref_fl.FLRun(
+        ref_fl.FLConfig(**kw, compressor=RefRandP(p=0.25)), p,
+        lambda q, b: ref_tr.loss_fn(q, ref_cfg, {"tokens": b}))
+    run = fl.FLRun(fl.FLConfig(**kw, compressor=RandP(p=0.25)), pt,
+                   lambda q, b: tr.loss_fn(q, cfg, {"tokens": b}),
+                   device="cpu")
+    toks = np.random.default_rng(7).integers(
+        0, cfg.vocab, size=(2, 2, 16)).astype(np.int32)
+    key = ref_run.key
+    for t in range(2):
+        key, sub = jax.random.split(key)
+        ref_run.step(jnp.asarray(toks))
+        run.step(torch.from_numpy(toks), seeds=_seeds_of(sub))
+        assert _rel(run.x.numpy(), np.asarray(ref_run.x)) < tol, t
 
 
 def test_fl_train_launcher_runs_on_the_cpu():

@@ -1,0 +1,166 @@
+"""The port's flash attention against the reference's Pallas kernels on
+the CPU.  The same numpy inputs go to both sides; the reference's kernels
+run in interpret mode, as its own tests run them (``test_kernels.py``,
+``test_flash_backward.py``).
+
+Three things per case: the plain forward (o, lse) against
+``_flash_fwd_call``; the plain dq, dk and dv against ``_flash_bwd_call``
+with the same o, lse and do; and the gradients of the port's autograd
+Function against ``jax.grad`` through the Pallas ``flash_attention``.
+
+Tolerances.  f32: 1e-5 absolute plus 1e-5 relative, twenty times tighter
+than the reference's own 5e-4 against its oracle; both sides compute the
+same blocked f32 arithmetic and differ by summation order (about 1e-6
+here).  bf16 outputs: both sides round the same f32 value to bf16, so
+an element may land one bf16 step apart (2**-7 relative) where the f32
+values straddle a rounding boundary, plus the f32 summation noise of
+1e-5 absolute (where terms cancel, as dq's first causal row, one side
+rounds to exactly 0 and the other to 1e-7); lse stays f32 at 1e-5.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import flash_attention as ref_fa  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+TOL_F32 = 1e-5
+BF16_STEP = 2.0 ** -7
+
+# (B, H, KV, S, d, causal, window, block, dtype): GQA (4,4), (4,2), (2,1);
+# causal on and off; window 48 (its start inside a 64-block at S = 128);
+# one block (S <= 128 clamps it) and two (block 64 at S = 128)
+CASES = {
+    "mha-causal-s64": (2, 4, 4, 64, 32, True, None, 128, "float32"),
+    "gqa2-full-s128": (2, 4, 2, 128, 32, False, None, 128, "float32"),
+    "mqa-window48-s128-blk64": (1, 2, 1, 128, 64, True, 48, 64, "float32"),
+    "gqa2-causal-s128-blk64": (1, 4, 2, 128, 32, True, None, 64, "float32"),
+    "mha-full-s64-d64": (1, 4, 4, 64, 64, False, None, 128, "float32"),
+    "mqa-window48-s64": (1, 2, 1, 64, 32, True, 48, 128, "float32"),
+    "gqa2-causal-s64-bf16": (1, 4, 2, 64, 32, True, None, 128, "bfloat16"),
+}
+
+
+def _inputs(case, seed=0):
+    B, H, KV, S, d, causal, window, block, dtype = CASES[case]
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((B, H, S, d), (B, KV, S, d), (B, KV, S, d),
+                            (B, H, S, d))]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    jx = [jnp.asarray(a).astype(jdt) for a in arrays]
+    tx = [torch.from_numpy(a).to(tdt) for a in arrays]
+    return jx, tx, dict(causal=causal, window=window), block, dtype
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.detach().float().numpy().astype(np.float64)
+    return np.asarray(jnp.asarray(x).astype(jnp.float32), np.float64)
+
+
+def _close(got, want, dtype, what):
+    got, want = _np(got), _np(want)
+    if dtype == "bfloat16":
+        err = np.abs(got - want)
+        assert np.all(err <= BF16_STEP * np.abs(want) + TOL_F32), \
+            (what, float(err.max()))
+    else:
+        np.testing.assert_allclose(got, want, rtol=TOL_F32, atol=TOL_F32,
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_forward_matches_pallas_forward(case):
+    (q, k, v, _), (tq, tk, tv, _), mask, block, dtype = _inputs(case)
+    o, lse = ref_fa._flash_fwd_call(q, k, v, mask["causal"], mask["window"],
+                                    block, block, True)
+    got_o, got_lse = ref.flash_fwd_ref(tq, tk, tv, **mask, block_q=block,
+                                       block_k=block)
+    assert got_o.dtype == tq.dtype and got_lse.dtype == torch.float32
+    _close(got_o, o, dtype, f"o {case}")
+    _close(got_lse, lse, "float32", f"lse {case}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_backward_matches_pallas_backward(case):
+    """dq, dk, dv from the reference's o, lse and the same do; delta is
+    the port's, from o as saved in q's dtype."""
+    (q, k, v, do), (tq, tk, tv, tdo), mask, block, dtype = _inputs(case)
+    o, lse = ref_fa._flash_fwd_call(q, k, v, mask["causal"], mask["window"],
+                                    block, block, True)
+    dq, dk, dv = ref_fa._flash_bwd_call(q, k, v, o, lse, do, mask["causal"],
+                                        mask["window"], block, block, True)
+    to = torch.from_numpy(np.array(o.astype(jnp.float32))).to(tq.dtype)
+    tlse = torch.from_numpy(np.array(lse))
+    delta = ref.flash_delta(to, tdo)
+    kw = dict(mask, block_q=block, block_k=block)
+    got_dq = ref.flash_dq_ref(tq, tk, tv, tdo, tlse, delta, **kw)
+    got_dk, got_dv = ref.flash_dkv_ref(tq, tk, tv, tdo, tlse, delta, **kw)
+    for name, got, want in (("dq", got_dq, dq), ("dk", got_dk, dk),
+                            ("dv", got_dv, dv)):
+        assert got.shape == tuple(want.shape) and got.dtype == tq.dtype
+        _close(got, want, dtype, f"{name} {case}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_function_gradients_match_jax_grad_through_pallas(case):
+    """loss = sum(o * w): the Function's forward and its backward (delta,
+    the saved residuals, the group sum) on the CPU against jax.grad
+    through the reference's custom VJP."""
+    (q, k, v, w), (tq, tk, tv, tw), mask, block, dtype = _inputs(case)
+
+    def loss(a, b, c):
+        o = ref_fa.flash_attention(a, b, c, **mask, block_q=block,
+                                   block_k=block, interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * w.astype(jnp.float32))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    o = fa.flash_attention(*leaves, **mask)
+    got = torch.autograd.grad((o.float() * tw.float()).sum(), leaves)
+    for name, g, e in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tq.dtype
+        _close(g, e, dtype, f"{name} {case}")
+
+
+def test_supports_equals_reference():
+    for S in (1, 16, 48, 64, 100, 128, 192, 256, 384, 2048):
+        for d in (32, 64, 128):
+            assert fa.supports(S, d) == ref_fa.supports(S, d), (S, d)
+
+
+def test_naive_oracle_matches_reference_oracle():
+    from repro.kernels import ref as ref_oracle
+    (q, k, v, _), (tq, tk, tv, _), mask, _, _ = _inputs("mqa-window48-s64")
+    want = ref_oracle.flash_attention_ref(q, k, v, **mask)
+    got = ref.flash_attention_ref(tq, tk, tv, **mask)
+    _close(got, want, "float32", "oracle")
+
+
+def test_no_grad_runs_the_forward_only_and_saves_nothing():
+    _, (tq, tk, tv, _), mask, _, _ = _inputs("gqa2-causal-s64-bf16")
+    leaves = [t.float().requires_grad_() for t in (tq, tk, tv)]
+    with torch.no_grad():
+        o = fa.flash_attention(*leaves, **mask)
+    assert o.grad_fn is None and not o.requires_grad
+    with_graph = fa.flash_attention(*leaves, **mask)
+    assert with_graph.grad_fn is not None
+    assert torch.equal(o, with_graph.detach())
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    _, (tq, tk, tv, _), _, _, _ = _inputs("mha-causal-s64")
+    with pytest.raises(ValueError, match="implies causal"):
+        fa.flash_attention(tq, tk, tv, causal=False, window=8)
+    with pytest.raises(ValueError, match="is on meta"):
+        fa.flash_fwd(tq, tk.to("meta"), tv)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        fa.flash_fwd(tq.to("meta"), tk.to("meta"), tv.to("meta"))
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.flash_fwd(tq, tk[:, :3], tv[:, :3])
