@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and power limit as nvidia-smi gives them.
 2. build -- compiles every kernel source under
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
-   source, started together) and prints the seconds.
+   source, started together) and prints the seconds, each kernel's
+   registers and spills from ``-Xptxas -v``, and the shared memory of the
+   tensor-core dq and dk/dv kernels.
 3. kernel vs plain version -- ``paged_attention`` against
    ``paged_attention_ref`` on the card at (H, KV, hd) = (16, 16, 128) and
    (14, 2, 64), f32 and bf16, with and without a window, a ctx-0 row and
@@ -39,13 +41,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    its byte bound, and each plain version on a 2**26 window.
 6. flash kernels vs plain versions -- ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` against ``kernels/ref.py`` at (B, H, KV, S, d) =
-   (2, 4, 2, 128, 64) f32, (4, 16, 16, 64, 128), (2, 14, 2, 256, 64) and
-   (1, 16, 16, 2048, 128) bf16, causal, full and causal with window 100,
-   on (B, S, H, d) tensors seen as (B, H, S, d), as the model hands them
-   over: o, lse, dq, dk and dv.  Then each kernel, its plain version and
-   scaled_dot_product_attention (forward; forward + backward less the
-   forward) are timed at the two rounds' shapes and at S = 2048, causal,
-   bf16, beside the kernel's bound.
+   (2, 4, 2, 128, 64) f32, (4, 16, 16, 64, 128), (2, 14, 2, 256, 64),
+   (1, 16, 16, 2048, 128), a ragged (1, 4, 4, 100, 128), (1, 14, 2, 512,
+   64) and contiguous (2, 4, 4, 128, 128) bf16, causal, full, and causal
+   with windows 100 and 200 (four k-tiles), mostly on (B, S, H, d)
+   tensors seen as (B, H, S, d), as the model hands them over: o, lse,
+   dq, dk and dv; every bf16 dq and dk/dv on the tensor cores.  Then
+   each kernel, its plain version and scaled_dot_product_attention
+   (forward; forward + backward less the forward) are timed at the two
+   rounds' shapes and at S = 2048 for both models, causal, bf16, beside
+   the kernel's bound and its first (SIMT) version's time.
 7. the ERIS round -- ``FLRun`` on eris-gptneo-1.3b at full width (bf16
    params from ``--seed``, flash_attention on, K = 4, A = 8, lr 0.1,
    4 x 64 random tokens a client), two rounds in each of three
@@ -66,7 +71,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    width on 1 x 2048 tokens (2048 is the max_position_embeddings of
    EleutherAI/gpt-neo-1.3B's published config), through the flash kernels
    and through the plain chunked attention: ms, peak memory, and the two
-   gradients within 5e-2 relative norm.  A profile of one round-shape
+   gradients within 5e-2 relative norm; a torch.profiler breakdown of one
+   more flash gradient.  A profile of one round-shape
    client gradient each way counts its host syncs, and six of each, in
    turns, are timed.
 9. small input -- the fused configuration on eris-gptneo-1.3b's smoke
@@ -82,12 +88,14 @@ Builds go to ``build/kernels/`` (listed in .gitignore).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import gc
 import json
 import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -137,14 +145,15 @@ KERNELS = (
      "src/repro/kernels/dsc_quantize.py:36"),
     ("flash_fwd", fa.flash_fwd, "flash_attention.cu",
      "src/repro/kernels/flash_attention.py:50"),
-    ("flash_dq", fa.flash_dq, "flash_attention.cu",
+    ("flash_dq", fa.flash_dq, "flash_bwd_sm90.cu",
      "src/repro/kernels/flash_attention.py:90"),
-    ("flash_dkv", fa.flash_dkv, "flash_attention.cu",
+    ("flash_dkv", fa.flash_dkv, "flash_bwd_sm90.cu",
      "src/repro/kernels/flash_attention.py:124"),
 )
 WIRE = {name: fn for name, fn, _, _ in KERNELS[1:5]}
 FLASH = {name: fn for name, fn, _, _ in KERNELS[5:]}
 ROUND = {**WIRE, **FLASH}        # every kernel the ERIS round may launch
+TENSOR_CORE = (fa.flash_dq, fa.flash_dkv)   # their bf16 launches counted apart
 
 # kernel vs plain version: f32 agrees to summation order; with bf16 pools
 # the plain version rounds its softmax weights to bf16 before the PV
@@ -214,9 +223,42 @@ def build_phase() -> None:
         log = _build.library_path(name).with_name(
             _build.library_path(name).name + ".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+            for kernel, report in _ptxas_report(log.read_text()):
+                print(f"  ptxas {name}: {kernel}: {report}")
+    smem = _build.bind("flash_bwd_sm90", "flash_bwd_sm90_smem",
+                       [ctypes.c_int, ctypes.c_int])
+    print("  flash_bwd_sm90 dynamic shared memory a block, bytes: " +
+          json.dumps({f"{kind} d={d}": smem(i, d)
+                      for i, kind in enumerate(("dq", "dk/dv"))
+                      for d in fa.HEAD_DIMS}))
+
+
+def _ptxas_report(log: str):
+    """(kernel<template args>, "N registers, spills ...") for each entry
+    function of an ``-Xptxas -v`` log, and any wgmma serialisation
+    warning."""
+    out, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:                   # <length><name> in the mangled name
+            mangled = entry.group(1)
+            for m in re.finditer(r"(?=(\d+))", mangled):
+                at = m.start() + len(m.group(1))
+                name = mangled[at:at + int(m.group(1))]
+                if name.endswith("_kernel"):  # I<args>E, Li128E an int
+                    args = re.match(r"I(\w+?)EEv", mangled[at + len(name):])
+                    args = "" if args is None else re.sub(
+                        r"L[a-z](\d+)E", r"\1,", args.group(1)).replace(
+                        "13__nv_bfloat16", "bf16,").strip(",")
+                    kernel = name + (f"<{args}>" if args else "")
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and kernel:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((kernel, f"{regs} registers, {spills}"))
+        elif "wgmma" in line:
+            out.append((kernel, line.strip()))
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -681,34 +723,54 @@ def wire_timing(dev, seed) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
-# (B, H, KV, S, d, dtype): a small f32 case, every shape phases 7-9 give
-# the kernels (eris-gptneo-1.3b's round, qwen2-0.5b's round, the smoke
-# round of phase 9 in f32, the GPT-Neo context), and qwen2-0.5b's GQA (7
-# heads a kv head) over four k-tiles; each under the three masks
-FLASH_SHAPES = ((2, 4, 2, 128, 64, torch.float32),
-                (4, 16, 16, 64, 128, torch.bfloat16),
-                (4, 14, 2, 64, 64, torch.bfloat16),
-                (4, 4, 2, 64, 64, torch.float32),
-                (2, 14, 2, 256, 64, torch.bfloat16),
-                (1, 16, 16, 2048, 128, torch.bfloat16))
+# (B, H, KV, S, d, dtype, bshd): a small f32 case, every shape phases 7-9
+# give the kernels (eris-gptneo-1.3b's round, qwen2-0.5b's round, the
+# smoke round of phase 9 in f32, the GPT-Neo context), qwen2-0.5b's GQA (7
+# heads a kv head) over four and eight k-tiles, a ragged S at d = 128, and
+# contiguous (B, H, S, d) inputs beside the model's (B, S, H, d) views;
+# each under every mask
+FLASH_SHAPES = ((2, 4, 2, 128, 64, torch.float32, True),
+                (4, 16, 16, 64, 128, torch.bfloat16, True),
+                (4, 14, 2, 64, 64, torch.bfloat16, True),
+                (4, 4, 2, 64, 64, torch.float32, True),
+                (2, 14, 2, 256, 64, torch.bfloat16, True),
+                (1, 16, 16, 2048, 128, torch.bfloat16, True),
+                (1, 4, 4, 100, 128, torch.bfloat16, True),
+                (1, 14, 2, 512, 64, torch.bfloat16, True),
+                (2, 4, 4, 128, 128, torch.bfloat16, False))
 # the flash kernels and their plain versions both compute in f32 and cast
 # once, so a bf16 output may differ by one bf16 step (2**-7 of its size)
 # and the f32 sums' order
 FLASH_BF16_STEP = 2.0 ** -7
-FLASH_MASKS = ((True, None), (False, None), (True, 100))
+# causal, full, and causal with windows of 100 and 200 (four k-tiles)
+FLASH_MASKS = ((True, None), (False, None), (True, 100), (True, 200))
 # timed causal in bf16: the two rounds' shapes (4 clients' batch of 4 x 64
-# tokens is one call per layer) and the GPT-Neo context
+# tokens is one call per layer) and both models at the GPT-Neo context
 FLASH_TIMED = (("gptneo-round", (4, 16, 16, 64, 128)),
                ("qwen2-round", (4, 14, 2, 64, 64)),
-               ("gptneo-s2048", (1, 16, 16, 2048, 128)))
+               ("gptneo-s2048", (1, 16, 16, 2048, 128)),
+               ("qwen2-s2048", (1, 14, 2, 2048, 64)))
+# each kernel's first version's time in us at those shapes: f32 FMAs on
+# the CUDA cores (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside this run's; qwen2 at S = 2048 was not timed then
+FIRST_VERSION_US = {"gptneo-round": {"flash_fwd": 23.24, "flash_dq": 28.82,
+                            "flash_dkv": 30.68},
+           "qwen2-round": {"flash_fwd": 12.12, "flash_dq": 16.40,
+                           "flash_dkv": 105.57},
+           "gptneo-s2048": {"flash_fwd": 1582.0, "flash_dq": 2058.5,
+                            "flash_dkv": 1964.9}}
 # f32 operations per visible (query, key) pair, per unit of head dim:
 # forward q.k and p v; dq adds do.v and ds k; dk/dv do.v, p^T do, ds^T q
 FLASH_FLOPS = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
 
 
-def _flash_inputs(gen, dev, B, H, KV, S, d, dtype):
-    """q, k, v, do as (B, H, S, d) views of (B, S, H, d) tensors."""
+def _flash_inputs(gen, dev, B, H, KV, S, d, dtype, bshd=True):
+    """q, k, v, do as (B, H, S, d) views of (B, S, H, d) tensors, or
+    contiguous."""
     def one(heads):
+        if not bshd:
+            return torch.randn(B, heads, S, d, generator=gen,
+                               device=dev).to(dtype)
         return torch.randn(B, S, heads, d, generator=gen, device=dev).to(
             dtype).transpose(1, 2)
     return one(H), one(KV), one(KV), one(H)
@@ -731,18 +793,25 @@ def flash_cases(dev, seed) -> dict:
     """Each flash kernel against its plain version at every listed shape
     and mask (f32: TOL_F32 absolute and relative, the order of summation;
     bf16 outputs: FLASH_BF16_STEP relative plus TOL_F32, one bf16 step;
-    lse is f32 throughout).  Prints each kernel's largest error as a share
-    of its bound; returns its largest absolute error."""
+    lse is f32 throughout); every bf16 dq and dk/dv call launches the
+    tensor-core kernels.  Prints each kernel's largest error as a share of
+    its bound; returns its largest absolute error."""
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     worst = dict.fromkeys(FLASH, 0.0)
     share = dict.fromkeys(FLASH, 0.0)
     owner = ("flash_fwd", "flash_fwd", "flash_dq", "flash_dkv", "flash_dkv")
-    for B, H, KV, S, d, dtype in FLASH_SHAPES:
-        q, k, v, do = _flash_inputs(gen, dev, B, H, KV, S, d, dtype)
+    for B, H, KV, S, d, dtype, bshd in FLASH_SHAPES:
+        q, k, v, do = _flash_inputs(gen, dev, B, H, KV, S, d, dtype, bshd)
         for causal, window in FLASH_MASKS:
             mask = dict(causal=causal, window=window)
+            tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
             got, want = _flash_all(q, k, v, do, mask)
             torch.cuda.synchronize()
+            added = [fn.tensor_core_launches - n
+                     for fn, n in zip(TENSOR_CORE, tc)]
+            check(added == [int(dtype == torch.bfloat16)] * 2,
+                  f"flash dq, dk/dv at {dtype}: {added} tensor-core "
+                  f"launches")
             errs = []
             for kname, what, a, b in zip(owner, ("o", "lse", "dq", "dk", "dv"),
                                          got, want):
@@ -761,7 +830,8 @@ def flash_cases(dev, seed) -> dict:
                 errs.append(float(err.max()))
                 worst[kname] = max(worst[kname], errs[-1])
             print(f"  B={B} H={H:2d} KV={KV:2d} S={S:4d} d={d:3d} "
-                  f"{str(dtype)[6:]:8s} causal={causal!s:5s} "
+                  f"{str(dtype)[6:]:8s} {'bshd' if bshd else 'bhsd'} "
+                  f"causal={causal!s:5s} "
                   f"window={window}: max abs err o/lse/dq/dk/dv "
                   f"{' '.join(f'{e:.2e}' for e in errs)}")
     print(f"  largest error as a share of its bound: "
@@ -832,8 +902,10 @@ def flash_timing(dev, seed) -> dict:
                 library_ms=lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
                 **_flash_bound(nbytes[name], FLASH_FLOPS[name] * d * pairs))
             r = row[name]
+            was = FIRST_VERSION_US.get(label, {}).get(name)
             print(f"  {label} B={B} H={H} KV={KV} S={S} d={d}: {name:9s} "
-                  f"kernel {r['ms'] * 1e3:10.2f} us, plain "
+                  f"kernel {r['ms'] * 1e3:10.2f} us (first version: "
+                  f"{'not timed' if was is None else f'{was:.2f} us'}), plain "
                   f"{r['plain_ms'] * 1e3:10.2f} us, bound "
                   f"{r['bound_ms'] * 1e3:8.2f} us by {r['bound_by']} "
                   f"({r['bytes']} bytes, {r['ops']} flops), kernel at "
@@ -939,6 +1011,8 @@ def _replay(stage, seeds, capture, n) -> None:
 def _set_round_launches(value: int = 0) -> None:
     for fn in ROUND.values():
         fn.launches = value
+    for fn in TENSOR_CORE:
+        fn.tensor_core_launches = value
 
 
 def _live_cuda_tensors(top: int = 8) -> list:
@@ -1008,6 +1082,10 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {k: fn.launches for k, fn in ROUND.items()}
+        tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
+        check(tc == [flash_per_round] * 2 or cfg.dtype != "bfloat16",
+              f"{name} round {t + 1}: tensor-core dq, dk/dv launched {tc} "
+              f"times, want {flash_per_round} (bf16)")
         for k, count in launches.items():       # the main path ended
             totals[k] += count
             want = (flash_per_round if k in FLASH else
@@ -1060,23 +1138,30 @@ def profile_round(run, toks, round_ms: float) -> None:
                               ProfilerActivity.CUDA]) as prof:
         run.step(toks)
         torch.cuda.synchronize()
+    _print_device_kernels(prof, "one more round", round_ms)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:6]:
+        print(f"    host {e.self_cpu_time_total / 1e3:9.2f} ms "
+              f"{e.count:6d}x  {e.key[:80]}")
+
+
+def _print_device_kernels(prof, what: str, span_ms: float,
+                          top: int = 12) -> None:
+    """The profile's device kernels by time, and the device's busy share
+    of the unprofiled span ``span_ms`` of the same work."""
     kernels = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us, count = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (us + e.time_range.elapsed_us(), count + 1)
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
-    print(f"  profile of one more round: "
+    print(f"  profile of {what}: "
           f"{sum(c for _, c in kernels.values())} device kernels, "
-          f"{busy_ms:.1f} ms busy; of the unprofiled {round_ms:.1f} ms "
-          f"round the device is idle {100 * (1 - busy_ms / round_ms):.1f}%")
+          f"{busy_ms:.1f} ms busy; of the unprofiled {span_ms:.1f} ms "
+          f"the device is idle {100 * (1 - busy_ms / span_ms):.1f}%")
     for kname, (us, count) in sorted(kernels.items(),
-                                     key=lambda kv: -kv[1][0])[:12]:
+                                     key=lambda kv: -kv[1][0])[:top]:
         print(f"    device {us / 1e3:9.2f} ms {count:6d}x  {kname[:80]}")
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    for e in host[:6]:
-        print(f"    host {e.self_cpu_time_total / 1e3:9.2f} ms "
-              f"{e.count:6d}x  {e.key[:80]}")
 
 
 # (arch, configurations); flash on and off compare at the round's shape in
@@ -1134,8 +1219,8 @@ def _client_grad(cfg, params, toks):
             (torch.cuda.max_memory_allocated() - held) / 1e9)
 
 
-def _host_syncs(cfg, params, toks) -> dict:
-    """Host-side waits in one client gradient, by torch.profiler."""
+def _profiled_grad(cfg, params, toks):
+    """torch.profiler over one client gradient."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -1144,9 +1229,16 @@ def _host_syncs(cfg, params, toks) -> dict:
                           {"tokens": toks})
         torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
+    return prof
+
+
+def _host_syncs(cfg, params, toks) -> dict:
+    """Host-side waits in one client gradient, by torch.profiler."""
     names = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
              "cudaMemcpyAsync", "cudaLaunchKernel")
-    return {e.key: e.count for e in prof.key_averages() if e.key in names}
+    return {e.key: e.count for e in
+            _profiled_grad(cfg, params, toks).key_averages()
+            if e.key in names}
 
 
 def context_phase(dev, seed) -> None:
@@ -1177,15 +1269,24 @@ def context_phase(dev, seed) -> None:
     print(f"  one client gradient at {BATCH} x {SEQ} tokens, device-event "
           f"ms in turns: flash off {[round(x, 1) for x in ms[False]]}, "
           f"flash on {[round(x, 1) for x in ms[True]]}")
+    _set_round_launches(0)
     g_on, loss_on, ms_on, peak_on = _client_grad(on, params, toks)
+    tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
+    check(tc == [on.n_layers] * 2 and on.dtype == "bfloat16",
+          f"S = {CONTEXT} flash gradient: tensor-core dq, dk/dv launched "
+          f"{tc} times, want {on.n_layers} each")
     g_off, loss_off, ms_off, peak_off = _client_grad(off, params, toks)
     diff = sum(float((a.float() - b.float()).square().sum())
                for a, b in zip(g_on, g_off))
     ref = sum(float(b.float().square().sum()) for b in g_off)
     rel = math.sqrt(diff / ref)
     finite = all(bool(g.isfinite().all()) for g in g_on)
-    del g_on, g_off, params
+    del g_on, g_off
     check(finite and math.isfinite(loss_on), "flash gradient not finite")
+    _print_device_kernels(_profiled_grad(on, params, toks),
+                          f"one more flash gradient at 1 x {CONTEXT} tokens",
+                          ms_on, top=8)
+    del params
     print("context " + json.dumps(dict(
         tokens=CONTEXT, flash_ms=ms_on, plain_ms=ms_off,
         flash_peak_gb=peak_on, plain_peak_gb=peak_off, loss_flash=loss_on,
@@ -1220,14 +1321,15 @@ def fl_small_input_phase(dev, seed) -> None:
                     device="cpu")
     card = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"), loss,
                     device=dev)
-    for fn in FLASH.values():
-        fn.launches = 0
+    _set_round_launches(0)
     for _ in range(2):
         host.step(toks)
         card.step(toks.to(dev))
     launched = [fn.launches for fn in FLASH.values()]
     check(launched == [2 * K_CLIENTS * cfg.n_layers] * 3,
           f"smoke rounds: flash kernels launched {launched} times")
+    check([fn.tensor_core_launches for fn in TENSOR_CORE] == [0, 0],
+          "smoke rounds in f32 launched the bf16 tensor-core kernels")
     # one host-made gradient through the kernel and the plain version
     g = host._grad(host.x, toks[0])
     s = host.state.dsc.s_clients[0]
@@ -1322,12 +1424,15 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
     # the flash rows at the gptneo round's shape, where they launch; the
-    # GPT-Neo context beside it; the library call is
+    # other timed shapes beside it; the library call is
     # scaled_dot_product_attention (forward for flash_fwd; its backward,
     # dq, dk and dv in one call, for flash_dq and flash_dkv)
     for name, _, source, replaces in KERNELS[5:]:
-        t, long = (flash_timing_[label][name]
-                   for label in ("gptneo-round", "gptneo-s2048"))
+        t = flash_timing_["gptneo-round"][name]
+        more = {label.replace("-", "_"): {
+            key: flash_timing_[label][name][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for label in ("qwen2-round", "gptneo-s2048", "qwen2-s2048")}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1335,10 +1440,7 @@ def main() -> None:
             "max_abs_err": flash_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": "B=4 H=16 KV=16 S=64 d=128 bf16 causal",
-            "s2048": {key: long[key] for key in
-                      ("ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms")}})
+            "shape": "B=4 H=16 KV=16 S=64 d=128 bf16 causal", **more})
     phase(None)
     print(f"phase seconds {json.dumps(PHASE_SECONDS)}")
     print(json.dumps({"kernels": rows}))

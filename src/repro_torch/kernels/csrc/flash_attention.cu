@@ -13,6 +13,9 @@
 //                        dv = sum p^T do, dk = sum ds^T q_hat over the G
 //                        query heads of a kv head, in f32, cast once
 //
+// The forward takes bf16 and f32; dq and dk/dv here take f32 only.  bf16
+// dq and dk/dv run on the tensor cores, in flash_bwd_sm90.cu.
+//
 //   q, do, o, dq (B, H, S, d)   bf16 or f32, any strides with d contiguous
 //   k, v, dk, dv (B, KV, S, d)  q's dtype, H = KV * G (query head h reads
 //                               kv head h / G, the reference's _kv_index)
@@ -573,6 +576,17 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
     default: return static_cast<int>(cudaErrorInvalidValue);            \
   }
 
+// the f32 instantiations alone (dq, dk/dv: bf16 runs in flash_bwd_sm90.cu)
+#define FLASH_DISPATCH_F32(FN, ...)                                     \
+  if (bf16) return static_cast<int>(cudaErrorInvalidValue);             \
+  switch (d) {                                                          \
+    case 16: return static_cast<int>(FN<16, float>(__VA_ARGS__));       \
+    case 32: return static_cast<int>(FN<32, float>(__VA_ARGS__));       \
+    case 64: return static_cast<int>(FN<64, float>(__VA_ARGS__));       \
+    case 128: return static_cast<int>(FN<128, float>(__VA_ARGS__));     \
+    default: return static_cast<int>(cudaErrorInvalidValue);            \
+  }
+
 }  // namespace
 
 extern "C" {
@@ -587,24 +601,24 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                  S, scale, causal, window, static_cast<cudaStream_t>(stream))
 }
 
-// strides of q, k, v, do, dq
+// strides of q, k, v, do, dq; f32 only (bf16 returns cudaErrorInvalidValue)
 int flash_dq_launch(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq_out, const long long* strides, int B, int H,
                     int KV, int S, int d, float scale, int causal, int window,
                     int bf16, void* stream) {
-  FLASH_DISPATCH(dq, q, k, v, dout, static_cast<const float*>(lse),
+  FLASH_DISPATCH_F32(dq, q, k, v, dout, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), dq_out, strides, B, H, KV,
                  S, scale, causal, window, static_cast<cudaStream_t>(stream))
 }
 
-// strides of q, k, v, do, dk, dv
+// strides of q, k, v, do, dk, dv; f32 only
 int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, const long long* strides, int B,
                      int H, int KV, int S, int d, float scale, int causal,
                      int window, int bf16, void* stream) {
-  FLASH_DISPATCH(dkv, q, k, v, dout, static_cast<const float*>(lse),
+  FLASH_DISPATCH_F32(dkv, q, k, v, dout, static_cast<const float*>(lse),
                  static_cast<const float*>(delta), dk, dv, strides, B, H, KV,
                  S, scale, causal, window, static_cast<cudaStream_t>(stream))
 }

@@ -1,0 +1,694 @@
+// Flash attention backward on Hopper's tensor cores (sm_90a): the dq and
+// dk/dv kernels for bf16 q, k, v and do.
+//
+// Replaces the TPU kernels of src/repro/kernels/flash_attention.py on the
+// bf16 path (the model's training dtype):
+//
+//   flash_dq_sm90_kernel   <- _dq_kernel: p = exp(s - lse),
+//                             ds = p (do v^T - delta), dq = scale sum ds k
+//   flash_dkv_sm90_kernel  <- _dkv_kernel, one block per query head as its
+//                             grid, dv = sum p^T do, dk = scale sum ds^T q;
+//                             the sum over each group's G query heads runs
+//                             after the kernel (flash_attention.py:264-265)
+//
+// f32 inputs keep the SIMT kernels of flash_attention.cu: their f32
+// products on the CUDA cores hold the host to 1e-4, which TF32 would not.
+// bf16 at d = 16 and 32 runs here too, zero-padded to 64 columns in
+// shared memory (the padding adds zeros to q.k and do.v, and its dq, dk
+// and dv columns are never stored).
+//
+// Layout and masks as flash_attention.cu: q, do, dq (B, H, S, d) and
+// k, v, dk, dv (B, KV, S, d) with any strides whose rows start on 16 bytes
+// (the wrapper checks), lse and delta (B * H, S) f32; causal kpos <= qpos,
+// window w kpos > qpos - w; tiles of 64 rows, skipped outside the
+// reference's lo/hi; S need not be a multiple of 64 (rows and columns past
+// S are zero-filled, masked and never stored).
+//
+// Arithmetic.  q enters the products unscaled, exactly as bf16:
+// s = scale (q . k) in f32 with scale = f32(d**-0.5) (q scale is not exact
+// in bf16); p = exp(s - lse); ds = p (dp - delta) with dp = do . v.  The
+// second products take p and ds, which are f32, as two bf16 terms each,
+// hi = bf16(x) and lo = bf16(x - hi), multiplied into one f32 accumulator:
+// rounding p and ds once to bf16 (as FlashAttention-2 does) leaves errors
+// up to 60x a bf16 step of the outputs, the two terms hold them to one
+// step.  dq and dk are multiplied by scale once, at the end.
+//
+// Design.  One warpgroup (128 threads) a block; every product is a
+// wgmma.mma_async m64nNk16 bf16 -> f32 with the accumulators in registers.
+// Tiles are bf16 in shared memory in the 128-byte swizzle (a row of 64
+// columns is one 128-byte line of an 8-row atom, its 16-byte chunks XORed
+// with row % 8; a d = 128 row spans two 64-column atoms, 8 KB apart).  One
+// layout serves both operand forms: k-major (rows the M or N index, the
+// head dim the reduction, as K in s = q k^T) and n-major (rows the
+// reduction, as K in dq += ds K).  Tiles stream through a two-stage ring
+// filled by 16-byte cp.async, the next tile's copies in flight while the
+// current one is multiplied.
+//
+//   dq     one block per (b h, 64-row q-tile), longest causal q-tiles
+//          first.  Q and dO stay; K and V stream.  S = Q K^T and
+//          dP = dO V^T from shared memory; ds, split, becomes the register
+//          A operand of dq += ds K (K n-major).
+//   dk/dv  one block per (b h, 64-row k-tile), the reference's grid: at
+//          qwen2-0.5b's round shape 56 blocks where a block per kv head
+//          gives 8.  K and V stay; Q, dO, lse and delta stream.  S^T = K Q^T
+//          and dP^T = V dO^T put keys on the accumulator rows, so p^T and
+//          ds^T are register A operands of dv += p^T dO and dk += ds^T Q
+//          (dO, Q n-major) with no trip through shared memory.  G = 1
+//          writes dk, dv in k's dtype; G > 1 writes f32 partials
+//          (B H, S, d) that the wrapper sums over each group and casts once.
+//
+// Bound.  At S = 2048 the causal products (6 d and 8 d flops a visible
+// (query, key) pair, 8 d and 12 d as issued with the split) make both
+// kernels compute-bound against the tensor cores' 989 TFLOP/s; at the
+// round's S = 64 they read a few MB on 56-64 blocks, and latency rules.
+// Shared memory: 6 tiles of 64 x max(d, 64) bf16, 97-98 KB at d = 128, so
+// two blocks share an SM.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace {
+
+constexpr int kTile = 64;             // rows of a q-tile and of a k-tile
+constexpr int kThreads = 128;         // one warpgroup
+constexpr int kAtom = kTile * 128;    // bytes of 64 rows of one 64-column atom
+constexpr float kNegInf = -1e30f;
+
+struct Strides {                      // element strides; d has stride 1
+  long long b, h, s;
+};
+
+using bf16 = __nv_bfloat16;
+
+// ------------------------------------------------------------ PTX helpers
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, zeros where !full
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the thread's shared-memory writes, visible to the tensor cores' reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of an asynchronous
+// product's registers (accumulators, register A operands) across its issue
+// or its wait, or from reusing them before the wait
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// a shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lead,
+                                               uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
+}
+// k-step kk (columns 16 kk ..) of a tile whose rows are M or N: 8-row
+// groups 1 KB apart, the step 32 bytes into its 64-column atom
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
+  return descriptor(tile + (kk >> 2) * kAtom + (kk & 3) * 32, 16, 1024);
+}
+// k-step kk (rows 16 kk ..) of a tile whose rows are the reduction: 8-row
+// groups 1 KB apart, 64-column atoms kAtom apart
+__device__ __forceinline__ uint64_t n_major(uint32_t tile, int kk) {
+  return descriptor(tile + kk * 2048, kAtom, 1024);
+}
+
+// d (64 x 64) = a b^T (+ d where acc): a 64 x 16 and b 64 x 16, both in
+// shared memory with k contiguous
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                           uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (64 x 64) += a b: a 64 x 16 in registers (the accumulator layout of
+// a 64 x 16 slice, two bf16 a register), b 16 x 64 in shared memory with n
+// contiguous (the transposed operand)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128) += a b: a 64 x 16 in registers (the accumulator layout of
+// a 64 x 16 slice, two bf16 a register), b 16 x 128 in shared memory with n
+// contiguous (the transposed operand)
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t* a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// --------------------------------------------------------------- helpers
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// (x0, x1) as two bf16 terms: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
+// rows r0 .. r0 + 63 of one head into a (64, DP) swizzled bf16 tile by
+// cp.async; rows past S and columns past D are zeros
+template <int D, int DP>
+__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* src,
+                                          long long row_stride, int r0,
+                                          int S) {
+  constexpr int kChunks = DP / 8;     // 16-byte chunks a row
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kTile * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = e - r * kChunks;
+    const bool ok = r0 + r < S && c < D / 8;
+    const bf16* from =
+        ok ? src + static_cast<long long>(r0 + r) * row_stride + c * 8 : src;
+    cp_async16(tile + (c >> 3) * kAtom + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+               from, ok);
+  }
+}
+
+// lse and delta of rows r0 .. r0 + 63 into two 64-float rows; zeros past S
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* lse,
+                                          const float* delta, int r0, int S) {
+  const int t = threadIdx.x & (kTile - 1);
+  const float* src = threadIdx.x < kTile ? lse : delta;
+  const bool ok = r0 + t < S;
+  cp_async4(dst + (threadIdx.x < kTile ? 0 : kTile * 4) + t * 4,
+            ok ? src + r0 + t : src, ok);
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
+                                        int window) {
+  return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+         (window <= 0 || kpos > qpos - window);
+}
+
+// whether any (query, key) pair of q-tile q0 and k-tile k0 is masked
+__device__ __forceinline__ bool any_masked(int q0, int k0, int S, int causal,
+                                           int window) {
+  return q0 + kTile > S || k0 + kTile > S ||
+         (causal && k0 + kTile - 1 > q0) ||
+         (window > 0 && k0 <= q0 + kTile - 1 - window);
+}
+
+// first and one-past-last k-tile that q-tile q0 sees (flash_attention.py:75-83)
+__device__ __forceinline__ void k_tiles(int q0, int S, int causal, int window,
+                                        int* lo, int* hi) {
+  const int n = (S + kTile - 1) / kTile;
+  *hi = causal ? min(n, (q0 + kTile - 1) / kTile + 1) : n;
+  *lo = window > 0 ? max(0, (q0 - window + 1) / kTile) : 0;
+}
+
+// ------------------------------------------------------------------- dq
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     Strides sq, Strides sk, Strides sv, Strides sdo,
+                     Strides sdq, int H, int KV, int S, float scale,
+                     int causal, int window) {
+  constexpr int DP = D < 64 ? 64 : D;   // columns of a tile in shared memory
+  constexpr int kTileBytes = kTile * DP * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + kTileBytes;
+  const uint32_t k_s = base + 2 * kTileBytes;        // two stages
+  const uint32_t v_s = base + 4 * kTileBytes;        // two stages
+
+  const int n_q = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+
+  int lo, hi;
+  k_tiles(q0, S, causal, window, &lo, &hi);
+  load_tile<D, DP>(q_s, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  load_tile<D, DP>(do_s, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+  load_tile<D, DP>(k_s, kb, sk.s, lo * kTile, S);
+  load_tile<D, DP>(v_s, vb, sv.s, lo * kTile, S);
+  cp_async_commit();
+
+  // this thread's accumulator rows: rows[0] and rows[0] + 8 of the tile
+  const int rows[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = q0 + rows[i] < S;
+    const long long at = static_cast<long long>(bh) * S + q0 + rows[i];
+    lse_r[i] = ok ? lse[at] : 0.f;
+    dl_r[i] = ok ? delta[at] : 0.f;
+  }
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int stage = (kt - lo) & 1;
+    if (kt + 1 < hi) {
+      const int next = (stage ^ 1) * kTileBytes;
+      load_tile<D, DP>(k_s + next, kb, sk.s, (kt + 1) * kTile, S);
+      load_tile<D, DP>(v_s + next, vb, sv.s, (kt + 1) * kTile, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    const uint32_t kc = k_s + stage * kTileBytes;
+    const uint32_t vc = v_s + stage * kTileBytes;
+
+    float s[32], dp[32];
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      mma_ss(s, k_major(q_s, kk), k_major(kc, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      mma_ss(dp, k_major(do_s, kk), k_major(vc, kk), kk);
+    mma_commit();
+    mma_wait();
+    hold(s);
+    hold(dp);
+
+    // element i: row rows[(i >> 1) & 1], column 8 (i >> 2) + 2 (lane & 3) +
+    // (i & 1); a pair (i, i + 1) is one register of the A operand
+    const int k0 = kt * kTile;
+    const bool edge = any_masked(q0, k0, S, causal, window);
+    uint32_t ds_hi[16], ds_lo[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      const int c = 8 * (i >> 2) + 2 * (lane & 3);
+      float x[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float sc = s[i + j] * scale;
+        if (edge && !visible(q0 + rows[r], k0 + c + j, S, causal, window))
+          sc = kNegInf;
+        x[j] = expf(sc - lse_r[r]) * (dp[i + j] - dl_r[r]);
+      }
+      split(x[0], x[1], ds_hi[i >> 1], ds_lo[i >> 1]);
+    }
+    hold(acc);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs(acc, ds_hi + 4 * kk, n_major(kc, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs(acc, ds_lo + 4 * kk, n_major(kc, kk));
+    mma_commit();
+    mma_wait();
+    hold(acc);
+    hold(ds_hi);
+    hold(ds_lo);
+    __syncthreads();                    // the stage may be refilled
+  }
+  cp_async_wait<0>();
+
+  bf16* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int row = q0 + rows[(i >> 1) & 1];
+    const int c = 8 * (i >> 2) + 2 * (lane & 3);
+    if (row < S && c < D)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dqb + static_cast<long long>(row) * sdq.s + c) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+  }
+}
+
+// ----------------------------------------------------------------- dk/dv
+template <int D, bool kPartial>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, void* __restrict__ dk,
+                      void* __restrict__ dv, Strides sq, Strides sk,
+                      Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
+                      int KV, int S, float scale, int causal, int window) {
+  constexpr int DP = D < 64 ? 64 : D;
+  constexpr int kTileBytes = kTile * DP * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + kTileBytes;
+  const uint32_t q_s = base + 2 * kTileBytes;        // two stages
+  const uint32_t do_s = base + 4 * kTileBytes;       // two stages
+  const uint32_t rows_s = base + 6 * kTileBytes;     // two stages of lse, delta
+  // the same rows through a generic pointer, for plain loads
+  const float* rows_p = reinterpret_cast<const float*>(
+      smem_raw + (rows_s - smem_addr(smem_raw)));
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + static_cast<long long>(bh) * S;
+  const float* dlb = delta + static_cast<long long>(bh) * S;
+
+  // the q-tiles that see this k-tile (flash_attention.py:148-159)
+  const int n_q = (S + kTile - 1) / kTile;
+  const int lo = causal ? k0 / kTile : 0;
+  const int hi =
+      window > 0 ? min(n_q, (k0 + kTile - 1 + window - 1) / kTile + 1) : n_q;
+
+  load_tile<D, DP>(k_s, k + b * sk.b + kvh * sk.h, sk.s, k0, S);
+  load_tile<D, DP>(v_s, v + b * sv.b + kvh * sv.h, sv.s, k0, S);
+  load_tile<D, DP>(q_s, qb, sq.s, lo * kTile, S);
+  load_tile<D, DP>(do_s, dob, sdo.s, lo * kTile, S);
+  load_rows(rows_s, lseb, dlb, lo * kTile, S);
+  cp_async_commit();
+
+  // this thread's accumulator rows (keys): rows[0] and rows[0] + 8
+  const int rows[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int qt = lo; qt < hi; ++qt) {
+    const int stage = (qt - lo) & 1;
+    if (qt + 1 < hi) {
+      const int next = (stage ^ 1) * kTileBytes;
+      load_tile<D, DP>(q_s + next, qb, sq.s, (qt + 1) * kTile, S);
+      load_tile<D, DP>(do_s + next, dob, sdo.s, (qt + 1) * kTile, S);
+      load_rows(rows_s + (stage ^ 1) * 2 * kTile * 4, lseb, dlb,
+                (qt + 1) * kTile, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    const uint32_t qc = q_s + stage * kTileBytes;
+    const uint32_t doc = do_s + stage * kTileBytes;
+    const float* lse_s = rows_p + stage * 2 * kTile;
+    const float* dl_s = lse_s + kTile;
+
+    float s[32], dp[32];                // S^T and dP^T: keys x queries
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      mma_ss(s, k_major(k_s, kk), k_major(qc, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      mma_ss(dp, k_major(v_s, kk), k_major(doc, kk), kk);
+    mma_commit();
+    mma_wait();
+    hold(s);
+    hold(dp);
+
+    const int q0 = qt * kTile;
+    const bool edge = any_masked(q0, k0, S, causal, window);
+    uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = rows[(i >> 1) & 1];
+      const int c = 8 * (i >> 2) + 2 * (lane & 3);
+      float p[2], ds[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float sc = s[i + j] * scale;
+        if (edge && !visible(q0 + c + j, k0 + r, S, causal, window))
+          sc = kNegInf;
+        p[j] = expf(sc - lse_s[c + j]);
+        ds[j] = p[j] * (dp[i + j] - dl_s[c + j]);
+      }
+      split(p[0], p[1], p_hi[i >> 1], p_lo[i >> 1]);
+      split(ds[0], ds[1], ds_hi[i >> 1], ds_lo[i >> 1]);
+    }
+    hold(dk_acc);
+    hold(dv_acc);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(dv_acc, p_hi + 4 * kk, n_major(doc, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(dv_acc, p_lo + 4 * kk, n_major(doc, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(dk_acc, ds_hi + 4 * kk, n_major(qc, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(dk_acc, ds_lo + 4 * kk, n_major(qc, kk));
+    mma_commit();
+    mma_wait();
+    hold(dk_acc);
+    hold(dv_acc);
+    hold(p_hi);
+    hold(p_lo);
+    hold(ds_hi);
+    hold(ds_lo);
+    __syncthreads();                    // the stage may be refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int row = k0 + rows[(i >> 1) & 1];
+    const int c = 8 * (i >> 2) + 2 * (lane & 3);
+    if (row >= S || c >= D) continue;
+    const float2 gk = make_float2(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+    const float2 gv = make_float2(dv_acc[i], dv_acc[i + 1]);
+    if (kPartial) {                     // (B H, S, D) f32 partials
+      const long long at = (static_cast<long long>(bh) * S + row) * D + c;
+      *reinterpret_cast<float2*>(static_cast<float*>(dk) + at) = gk;
+      *reinterpret_cast<float2*>(static_cast<float*>(dv) + at) = gv;
+    } else {                            // G = 1: kvh = h
+      bf16* dkb = static_cast<bf16*>(dk) + b * sdk.b + kvh * sdk.h;
+      bf16* dvb = static_cast<bf16*>(dv) + b * sdv.b + kvh * sdv.h;
+      *reinterpret_cast<__nv_bfloat162*>(
+          dkb + static_cast<long long>(row) * sdk.s + c) =
+          __floats2bfloat162_rn(gk.x, gk.y);
+      *reinterpret_cast<__nv_bfloat162*>(
+          dvb + static_cast<long long>(row) * sdv.s + c) =
+          __floats2bfloat162_rn(gv.x, gv.y);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
+// dynamic shared memory: six (64, max(d, 64)) bf16 tiles, dk/dv's two
+// stages of lse and delta, and 1 KB to align the swizzle atoms
+constexpr size_t dq_smem(int D) {
+  return 6 * kTile * (D < 64 ? 64 : D) * 2 + 1024;
+}
+constexpr size_t dkv_smem(int D) { return dq_smem(D) + 4 * kTile * 4; }
+
+// cudaFuncSetAttribute applies to the current device only: each launcher
+// instantiation sets it on a device's first launch (as flash_attention.cu)
+constexpr int kMaxDevices = 64;
+using DeviceFlags = std::atomic<bool>[kMaxDevices];
+
+template <typename Kernel>
+cudaError_t allow_smem(DeviceFlags& set, Kernel kernel, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && set[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kMaxDevices)
+    set[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+Strides strides(const long long* s) { return Strides{s[0], s[1], s[2]}; }
+
+template <int D>
+cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq_out,
+               const long long* st, int B, int H, int KV, int S, float scale,
+               int causal, int window, cudaStream_t stream) {
+  auto kernel = flash_dq_sm90_kernel<D>;
+  static DeviceFlags smem_set;
+  const cudaError_t attr = allow_smem(smem_set, kernel, dq_smem(D));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (S + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, dq_smem(D), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq_out), strides(st), strides(st + 3),
+      strides(st + 6), strides(st + 9), strides(st + 12), H, KV, S, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* delta, void* dk, void* dv,
+                const long long* st, int B, int H, int KV, int S, float scale,
+                int causal, int window, int partial, cudaStream_t stream) {
+  auto kernel = partial ? flash_dkv_sm90_kernel<D, true>
+                        : flash_dkv_sm90_kernel<D, false>;
+  static DeviceFlags smem_set[2];
+  const cudaError_t attr =
+      allow_smem(smem_set[partial ? 1 : 0], kernel, dkv_smem(D));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (S + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, dkv_smem(D), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      dk, dv, strides(st), strides(st + 3), strides(st + 6), strides(st + 9),
+      strides(st + 12), strides(st + 15), H, KV, S, scale, causal, window);
+  return cudaGetLastError();
+}
+
+#define SM90_HEAD_DIMS(FN, ...)                                        \
+  switch (d) {                                                         \
+    case 16: return static_cast<int>(FN<16>(__VA_ARGS__));            \
+    case 32: return static_cast<int>(FN<32>(__VA_ARGS__));            \
+    case 64: return static_cast<int>(FN<64>(__VA_ARGS__));            \
+    case 128: return static_cast<int>(FN<128>(__VA_ARGS__));          \
+    default: return static_cast<int>(cudaErrorInvalidValue);          \
+  }
+
+}  // namespace
+
+extern "C" {
+
+// strides: (b, h, s) element strides of q, k, v, do, dq.  window <= 0
+// means none.  Returns the cudaError_t of the launch.
+int flash_dq_sm90_launch(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq_out, const long long* strides, int B, int H,
+                         int KV, int S, int d, float scale, int causal,
+                         int window, void* stream) {
+  SM90_HEAD_DIMS(dq, q, k, v, dout, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), dq_out, strides, B, H, KV,
+                 S, scale, causal, window, static_cast<cudaStream_t>(stream))
+}
+
+// strides of q, k, v, do, dk, dv.  partial: dk and dv are f32 (B H, S, d)
+// per query head (for G > 1), else k's dtype and strides (G = 1 only).
+int flash_dkv_sm90_launch(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv,
+                          const long long* strides, int B, int H, int KV,
+                          int S, int d, float scale, int causal, int window,
+                          int partial, void* stream) {
+  if (!partial && H != KV) return static_cast<int>(cudaErrorInvalidValue);
+  SM90_HEAD_DIMS(dkv, q, k, v, dout, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), dk, dv, strides, B, H, KV,
+                 S, scale, causal, window, partial,
+                 static_cast<cudaStream_t>(stream))
+}
+
+// bytes of dynamic shared memory a block of the dq (kind 0) or dk/dv
+// (kind 1) kernel takes at head dim d
+int flash_bwd_sm90_smem(int kind, int d) {
+  return static_cast<int>(kind ? dkv_smem(d) : dq_smem(d));
+}
+
+const char* flash_bwd_sm90_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -6,18 +6,24 @@ lse) and its backward computes delta = rowsum(do * o) as one torch
 expression, as the reference does outside its kernels, then the dq and
 the dk/dv kernels.  The three kernel wrappers, :func:`flash_fwd`,
 :func:`flash_dq` and :func:`flash_dkv`, launch the hand-written CUDA
-kernels of ``csrc/flash_attention.cu`` on CUDA tensors; their design and
-bound are set out in that file.  On CPU tensors they compute the plain
-versions in ``kernels/ref.py``, and only there: on a CUDA tensor they
-launch the kernel or raise.  ``flash_fwd.launches``, ``flash_dq.launches``
-and ``flash_dkv.launches`` count the kernels' launches.
+kernels on CUDA tensors: the forward, and dq and dk/dv in f32, from
+``csrc/flash_attention.cu``; dq and dk/dv in bf16 on the tensor cores,
+from ``csrc/flash_bwd_sm90.cu``.  Their designs and bounds are set out in
+those files.  On CPU tensors they compute the plain versions in
+``kernels/ref.py``, and only there: on a CUDA tensor they launch a kernel
+or raise.  ``flash_fwd.launches``, ``flash_dq.launches`` and
+``flash_dkv.launches`` count the kernels' launches, and
+``flash_dq.tensor_core_launches`` and ``flash_dkv.tensor_core_launches``
+the bf16 ones among them.
 
 Layout is the reference's, q (B, H, S, d) and k, v (B, KV, S, d), with
 any strides so long as d is contiguous: the model hands over transposed
 views of its (B, S, H, d) projections and the kernels read them in
 place, without a copy.  Outputs take their input's strides
 (``torch.empty_like``), so o comes back as a view of a contiguous
-(B, S, H, d) tensor.
+(B, S, H, d) tensor.  The bf16 dq and dk/dv kernels copy rows with 16-byte
+asynchronous copies, so there every row must start on 16 bytes (base
+address and the b, h and s strides); the model's views do.
 """
 from __future__ import annotations
 
@@ -34,10 +40,15 @@ BLOCK_Q = BLOCK_K = FLASH_BLOCK
 HEAD_DIMS = (16, 32, 64, 128)         # the head dims the CUDA kernels take
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_TAIL = [_I] * 5 + [ctypes.c_float, _I, _I, _I, _P]   # B H KV S d scale ...
-_ARGS = {"flash_fwd_launch": [_P] * 6 + _TAIL,
-         "flash_dq_launch": [_P] * 8 + _TAIL,
-         "flash_dkv_launch": [_P] * 9 + _TAIL}
+_MASK = [_I] * 5 + [ctypes.c_float, _I, _I]    # B H KV S d scale causal window
+# symbol: (source, argument types); the SIMT kernels end (bf16, stream),
+# the tensor-core dk/dv (partial, stream)
+_ARGS = {"flash_fwd_launch": ("flash_attention", [_P] * 6 + _MASK + [_I, _P]),
+         "flash_dq_launch": ("flash_attention", [_P] * 8 + _MASK + [_I, _P]),
+         "flash_dkv_launch": ("flash_attention", [_P] * 9 + _MASK + [_I, _P]),
+         "flash_dq_sm90_launch": ("flash_bwd_sm90", [_P] * 8 + _MASK + [_P]),
+         "flash_dkv_sm90_launch": ("flash_bwd_sm90",
+                                   [_P] * 9 + _MASK + [_I, _P])}
 
 
 def supports(S: int, d: int, block_q: int = BLOCK_Q,
@@ -91,21 +102,49 @@ def _check(op: str, q, k, v, window, **more) -> None:
         raise ValueError(f"{op}: B * H = {B * H} beyond the kernels' grid")
 
 
+def _aligned(t) -> bool:
+    """Every (b, h, s) row of ``t`` starts on 16 bytes."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % step == 0
+                                           for s in t.stride()[:3])
+
+
+def _check_async_copies(op: str, **tensors) -> None:
+    """The bf16 dq and dk/dv kernels copy 16-byte chunks of rows: raise on
+    a row that does not start on 16 bytes (never fall back)."""
+    for name, t in tensors.items():
+        if not _aligned(t):
+            raise ValueError(f"{op}: {name}'s rows must start on 16 bytes "
+                             f"for the bf16 kernel (base address and the "
+                             f"b, h, s strides), got address "
+                             f"{t.data_ptr()} and strides {t.stride()}")
+
+
+def group_sum(partial: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The per-query-head f32 partials (B, H, S, d) summed over each group
+    of H / KV heads in f32 and cast once into ``out`` (B, KV, S, d), as
+    the reference sums after its dk/dv kernel (``flash_attention.py:264``)."""
+    B, H, S, d = partial.shape
+    KV = out.shape[1]
+    return out.copy_(partial.view(B, KV, H // KV, S, d).sum(2))
+
+
 def _strides(*tensors) -> ctypes.Array:
     """(b, h, s) element strides of each tensor, as one long long array."""
     flat = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _launch(symbol: str, pointers, strides, q, k, causal, window) -> None:
+def _launch(symbol: str, pointers, strides, q, k, causal, window,
+            *flags) -> None:
     B, H, S, d = q.shape
+    source, argtypes = _ARGS[symbol]
     with torch.cuda.device(q.device):
-        err = _build.bind("flash_attention", symbol, _ARGS[symbol])(
+        err = _build.bind(source, symbol, argtypes)(
             *pointers, strides, B, H, k.shape[1], S, d, d ** -0.5,
-            int(causal), -1 if window is None else int(window),
-            int(q.dtype == torch.bfloat16),
+            int(causal), -1 if window is None else int(window), *flags,
             torch.cuda.current_stream().cuda_stream)
-    _build.raise_on_error("flash_attention", err)
+    _build.raise_on_error(source, err)
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None):
@@ -120,47 +159,77 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None):
     if o.numel():
         _launch("flash_fwd_launch",
                 [t.data_ptr() for t in (q, k, v, o, lse)],
-                _strides(q, k, v, o), q, k, causal, window)
+                _strides(q, k, v, o), q, k, causal, window,
+                int(q.dtype == torch.bfloat16))
         flash_fwd.launches += 1
     return o, lse
 
 
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True,
              window: Optional[int] = None):
-    """The dq kernel.  Returns dq in q's dtype and strides."""
+    """The dq kernel (bf16: on the tensor cores).  Returns dq in q's dtype
+    and strides."""
     _check("flash_dq", q, k, v, window, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_dq_ref(q, k, v, do, lse, delta, causal=causal,
                             window=window)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_async_copies("flash_dq", q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     if dq.numel():
-        _launch("flash_dq_launch",
-                [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
-                _strides(q, k, v, do, dq), q, k, causal, window)
+        pointers = [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)]
+        strides = _strides(q, k, v, do, dq)
+        if bf16:
+            _launch("flash_dq_sm90_launch", pointers, strides, q, k, causal,
+                    window)
+            flash_dq.tensor_core_launches += 1
+        else:
+            _launch("flash_dq_launch", pointers, strides, q, k, causal,
+                    window, 0)
         flash_dq.launches += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
               window: Optional[int] = None):
-    """The dk/dv kernel, the sum over each group's query heads included.
-    Returns (dk, dv) in k's and v's dtype and strides."""
+    """The dk/dv kernel, the sum over each group's query heads included
+    (bf16: on the tensor cores, a block per query head; with G > 1 query
+    heads a kv head it writes f32 partials that :func:`group_sum` adds
+    up).  Returns (dk, dv) in k's and v's dtype and strides."""
     _check("flash_dkv", q, k, v, window, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                              window=window)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_async_copies("flash_dkv", q=q, k=k, v=v, do=do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
-        _launch("flash_dkv_launch",
-                [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
-                _strides(q, k, v, do, dk, dv), q, k, causal, window)
+        outs = (dk, dv)
+        partial = bf16 and k.shape[1] != q.shape[1]
+        if partial:                     # G > 1: per query head, in f32
+            outs = torch.empty((2, *q.shape), dtype=torch.float32,
+                               device=q.device)
+        pointers = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
+        strides = _strides(q, k, v, do, dk, dv)
+        if bf16:
+            _launch("flash_dkv_sm90_launch", pointers, strides, q, k, causal,
+                    window, int(partial))
+            if partial:
+                group_sum(outs[0], dk)
+                group_sum(outs[1], dv)
+            flash_dkv.tensor_core_launches += 1
+        else:
+            _launch("flash_dkv_launch", pointers, strides, q, k, causal,
+                    window, 0)
         flash_dkv.launches += 1
     return dk, dv
 
 
 flash_fwd.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
+flash_dq.launches = flash_dq.tensor_core_launches = 0
+flash_dkv.launches = flash_dkv.tensor_core_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -178,7 +247,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         causal, window = ctx.mask
-        if do.stride(-1) != 1:          # e.g. the expanded grad of a sum
+        # e.g. the expanded grad of a sum, or rows off 16 bytes
+        if do.stride(-1) != 1 or (do.is_cuda and not _aligned(do)):
             do = do.contiguous()
         delta = flash_delta(o, do)
         dq = flash_dq(q, k, v, do, lse, delta, causal=causal, window=window)

@@ -270,23 +270,36 @@ def _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd=True, seed=5):
     (4, 14, 2, 64, 64, True, None, torch.bfloat16, True),   # qwen2 round
     (4, 4, 2, 64, 64, True, None, torch.float32, True),     # smoke round
     (1, 14, 2, 256, 64, True, 100, torch.bfloat16, True),   # qwen2 GQA 7
+    # the tensor-core dq and dk/dv (bf16)
+    (1, 4, 4, 100, 128, True, None, torch.bfloat16, True),   # ragged S
+    (1, 4, 4, 256, 128, True, 200, torch.bfloat16, True),    # window, 4 tiles
+    (1, 14, 2, 512, 64, True, None, torch.bfloat16, True),   # 7 heads a kv
+    (2, 4, 4, 128, 128, True, None, torch.bfloat16, False),  # contiguous
+    (1, 14, 2, 128, 64, False, None, torch.bfloat16, False),  # contiguous
+    (1, 2, 1, 128, 32, True, 48, torch.bfloat16, True),      # d = 32, padded
 ])
 def test_cuda_flash_kernels_match_plain_versions(cuda, B, H, KV, S, d, causal,
                                                  window, dtype, bshd):
     """The forward, dq and dk/dv kernels against their plain versions on
     the same inputs (f32: 1e-4, the order of summation; bf16 outputs:
     2**-7 of the plain value plus 1e-4, one bf16 step, since both sides
-    compute in f32 and cast once), each launched once; outputs keep their
-    inputs' strides."""
+    compute in f32 and cast once, the tensor-core dq and dk/dv taking p
+    and ds as two bf16 terms), each launched once, bf16 dq and dk/dv on
+    the tensor cores; outputs keep their inputs' strides."""
     q, k, v, do = _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd)
     mask = dict(causal=causal, window=window)
     before = [fn.launches for fn in FLASH]
+    tc_before = [fa.flash_dq.tensor_core_launches,
+                 fa.flash_dkv.tensor_core_launches]
     o, lse = fa.flash_fwd(q, k, v, **mask)
     delta = wire_ref.flash_delta(o, do)
     dq_ = fa.flash_dq(q, k, v, do, lse, delta, **mask)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **mask)
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(FLASH, before)] == [1, 1, 1]
+    tc = int(dtype == torch.bfloat16)
+    assert [fa.flash_dq.tensor_core_launches - tc_before[0],
+            fa.flash_dkv.tensor_core_launches - tc_before[1]] == [tc, tc]
     ro, rlse = wire_ref.flash_fwd_ref(q, k, v, **mask)
     rdq = wire_ref.flash_dq_ref(q, k, v, do, lse, delta, **mask)
     rdk, rdv = wire_ref.flash_dkv_ref(q, k, v, do, lse, delta, **mask)
@@ -327,3 +340,24 @@ def test_cuda_flash_wrappers_raise_instead_of_falling_back(cuda):
         fa.flash_fwd(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_fwd(q[..., :48], k[..., :48], v[..., :48])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_raises_on_rows_off_16_bytes(cuda):
+    """The bf16 dq and dk/dv kernels copy rows in 16-byte chunks: a view
+    whose base address or row stride is off 16 bytes raises; nothing
+    falls back."""
+    q, k, v, do = _flash_inputs(1, 4, 2, 64, 64, torch.bfloat16, cuda)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = wire_ref.flash_delta(o, do)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = flat[1:].view(q.shape)                   # base 2 bytes off
+    wide = torch.zeros(1, 64, 4, 68, dtype=q.dtype, device=cuda)
+    ragged = wide[..., :64].transpose(1, 2)            # rows 136 bytes apart
+    before = (fa.flash_dq.launches, fa.flash_dkv.launches)
+    for bad in (shifted, ragged):
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_dq(bad, k, v, do, lse, delta)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_dkv(q, k, v, bad, lse, delta)
+    assert (fa.flash_dq.launches, fa.flash_dkv.launches) == before

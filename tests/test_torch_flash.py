@@ -164,3 +164,100 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fa.flash_fwd(tq.to("meta"), tk.to("meta"), tv.to("meta"))
     with pytest.raises(ValueError, match="do not fit"):
         fa.flash_fwd(tq, tk[:, :3], tv[:, :3])
+
+
+# ------------------------------------------ the tensor-core backward (bf16)
+# (B, H, KV, S, d, causal, window): a d = 128 head at S = 64, qwen2-0.5b's
+# 14 query heads over 2 at d = 64, a window of 48 over S = 256
+TC_CASES = {
+    "d128-s64": (1, 2, 2, 64, 128, True, None),
+    "gqa7-d64-s64": (1, 14, 2, 64, 64, True, None),
+    "window48-s256": (1, 2, 1, 256, 64, True, 48),
+}
+
+
+def _split(x):
+    """x as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi), in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _tensor_core_backward(q, k, v, do, lse, delta, causal, window):
+    """The arithmetic of the bf16 dq and dk/dv kernels
+    (``csrc/flash_bwd_sm90.cu``): q unscaled in the products, s = scale
+    (q . k) in f32 with scale = f32(d**-0.5), p and ds each entering the
+    second products as two bf16 terms, dq and dk scaled once at the end,
+    the group sum in f32 and one cast."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    scale = float(np.float32(d ** -0.5))
+    qf, dof = q.float(), do.float()
+    kf, vf = (t.float().repeat_interleave(G, 1) for t in (k, v))
+    pos = torch.arange(S)
+    s = ref._flash_mask(scale * (qf @ kf.transpose(-1, -2)), pos, pos,
+                        causal, window)
+    p = torch.exp(s - lse.view(B, H, S, 1))
+    ds = p * (dof @ vf.transpose(-1, -2) - delta.view(B, H, S, 1))
+    (p_hi, p_lo), (ds_hi, ds_lo) = _split(p), _split(ds)
+    dq = scale * (ds_hi @ kf + ds_lo @ kf)
+    dk = scale * (ds_hi.transpose(-1, -2) @ qf + ds_lo.transpose(-1, -2) @ qf)
+    dv = p_hi.transpose(-1, -2) @ dof + p_lo.transpose(-1, -2) @ dof
+    dk, dv = (t.view(B, -1, G, S, d).sum(2) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _tc_inputs(case, seed=3):
+    B, H, KV, S, d, causal, window = TC_CASES[case]
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((B, H, S, d), (B, KV, S, d), (B, KV, S, d),
+                            (B, H, S, d))]
+    jx = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+    tx = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    return jx, tx, dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_tensor_core_arithmetic_holds_one_bf16_step(case):
+    """The bf16 kernels' arithmetic (the two-term p and ds) against the
+    reference's ``_flash_bwd_call`` in interpret mode, at the card tests'
+    and chip smoke's gate: 2**-7 |ref| + 1e-4, one bf16 step of the
+    output (rounding p and ds once to bf16 breaks it)."""
+    (q, k, v, do), (tq, tk, tv, tdo), mask = _tc_inputs(case)
+    S = tq.shape[2]
+    block = min(ref.FLASH_BLOCK, S)
+    o, lse = ref_fa._flash_fwd_call(q, k, v, mask["causal"], mask["window"],
+                                    block, block, True)
+    want = ref_fa._flash_bwd_call(q, k, v, o, lse, do, mask["causal"],
+                                  mask["window"], block, block, True)
+    to = torch.from_numpy(np.array(o.astype(jnp.float32))).to(torch.bfloat16)
+    tlse = torch.from_numpy(np.array(lse))
+    got = _tensor_core_backward(tq, tk, tv, tdo, tlse,
+                                ref.flash_delta(to, tdo), **mask)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == tuple(w.shape) and g.dtype == torch.bfloat16
+        err = np.abs(_np(g) - _np(w))
+        assert np.all(err <= BF16_STEP * np.abs(_np(w)) + 1e-4), \
+            (name, case, float(err.max()))
+
+
+def test_group_sum_matches_the_plain_group_sum():
+    """``group_sum`` over per-query-head f32 partials (the bf16 dk/dv
+    kernel's output for G > 1: here the plain version run with k and v
+    repeated to every query head, in f32) against ``flash_dkv_ref``'s own
+    sum over the group, at one bf16 step."""
+    _, (tq, tk, tv, tdo), mask = _tc_inputs("gqa7-d64-s64")
+    G = tq.shape[1] // tk.shape[1]
+    o, lse = ref.flash_fwd_ref(tq, tk, tv, **mask)
+    delta = ref.flash_delta(o, tdo)
+    want = ref.flash_dkv_ref(tq, tk, tv, tdo, lse, delta, **mask)
+    partials = ref.flash_dkv_ref(
+        tq.float(), tk.float().repeat_interleave(G, 1),
+        tv.float().repeat_interleave(G, 1), tdo.float(), lse, delta, **mask)
+    for p, w in zip(partials, want):
+        assert p.dtype == torch.float32 and p.shape == tq.shape
+        got = fa.group_sum(p, torch.empty_like(w))
+        assert got.dtype == w.dtype and got.shape == w.shape
+        err = (got.float() - w.float()).abs()
+        assert bool((err <= BF16_STEP * w.float().abs() + 1e-4).all()), \
+            float(err.max())
