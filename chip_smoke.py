@@ -15,13 +15,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
    source, started together) and prints the seconds, each kernel's
    registers and spills from ``-Xptxas -v``, and the shared memory of the
-   tensor-core dq and dk/dv kernels.
-3. kernel vs plain version -- ``paged_attention`` against
-   ``paged_attention_ref`` on the card at (H, KV, hd) = (16, 16, 128) and
-   (14, 2, 64), f32 and bf16, with and without a window, a ctx-0 row and
-   ragged contexts over several pages; every row of batch 8 must be
-   bit-identical to the same row alone.  Then both are timed at the
-   decode shape of phase 4, beside the kernel's bound.
+   tensor-core forward, dq and dk/dv kernels and of the paged kernel.
+3. kernel vs plain version -- ``paged_attention`` (split over 64-position
+   chunks) against ``paged_attention_ref`` on the card at (H, KV, hd) =
+   (16, 16, 128) and (14, 2, 64), f32 and bf16, with and without a window,
+   a ctx-0 row and ragged contexts over several pages, then contexts up
+   to 2048 over 128 pages (up to 32 chunks, merged); every row of batch 8
+   must be bit-identical to the same row alone, with a table only as wide
+   as its pages, and a CUDA graph of the kernel replayed must equal the
+   eager call.  Then kernel and plain version are timed at phase 4's
+   decode shape for eris-gptneo-1.3b and for qwen2-0.5b (14 query heads
+   over 2), beside the kernel's bound and the first design's time.
 4. serving -- ``ServeEngine`` on eris-gptneo-1.3b (24 layers, d_model
    2048, bf16 params made from ``--seed``, bf16 cache): 8 requests of
    32-256 prompt tokens and 32 new tokens, greedy and sampled.  Asserts
@@ -46,8 +50,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    64) and contiguous (2, 4, 4, 128, 128) bf16, causal, full, and causal
    with windows 100 and 200 (four k-tiles), mostly on (B, S, H, d)
    tensors seen as (B, H, S, d), as the model hands them over: o, lse,
-   dq, dk and dv; every bf16 dq and dk/dv on the tensor cores.  Then
-   each kernel, its plain version and scaled_dot_product_attention
+   dq, dk and dv; every bf16 forward, dq and dk/dv on the tensor cores.
+   Then each kernel, its plain version and scaled_dot_product_attention
    (forward; forward + backward less the forward) are timed at the two
    rounds' shapes and at S = 2048 for both models, causal, bf16, beside
    the kernel's bound and its first (SIMT) version's time.
@@ -143,7 +147,7 @@ KERNELS = (
      "src/repro/kernels/quantize.py:52"),
     ("dsc_quantize", dq.dsc_quantize, "dsc_quantize.cu",
      "src/repro/kernels/dsc_quantize.py:36"),
-    ("flash_fwd", fa.flash_fwd, "flash_attention.cu",
+    ("flash_fwd", fa.flash_fwd, "flash_fwd_sm90.cu",
      "src/repro/kernels/flash_attention.py:50"),
     ("flash_dq", fa.flash_dq, "flash_bwd_sm90.cu",
      "src/repro/kernels/flash_attention.py:90"),
@@ -153,7 +157,8 @@ KERNELS = (
 WIRE = {name: fn for name, fn, _, _ in KERNELS[1:5]}
 FLASH = {name: fn for name, fn, _, _ in KERNELS[5:]}
 ROUND = {**WIRE, **FLASH}        # every kernel the ERIS round may launch
-TENSOR_CORE = (fa.flash_dq, fa.flash_dkv)   # their bf16 launches counted apart
+# their bf16 launches, on the tensor cores, counted apart
+TENSOR_CORE = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
 
 # kernel vs plain version: f32 agrees to summation order; with bf16 pools
 # the plain version rounds its softmax weights to bf16 before the PV
@@ -225,12 +230,23 @@ def build_phase() -> None:
         if log.exists():
             for kernel, report in _ptxas_report(log.read_text()):
                 print(f"  ptxas {name}: {kernel}: {report}")
+    fwd_smem = _build.bind("flash_fwd_sm90", "flash_fwd_sm90_smem",
+                           [ctypes.c_int])
     smem = _build.bind("flash_bwd_sm90", "flash_bwd_sm90_smem",
                        [ctypes.c_int, ctypes.c_int])
-    print("  flash_bwd_sm90 dynamic shared memory a block, bytes: " +
-          json.dumps({f"{kind} d={d}": smem(i, d)
-                      for i, kind in enumerate(("dq", "dk/dv"))
-                      for d in fa.HEAD_DIMS}))
+    print("  flash_fwd_sm90 and flash_bwd_sm90 dynamic shared memory a "
+          "block, bytes: " +
+          json.dumps({**{f"forward d={d}": fwd_smem(d)
+                         for d in fa.HEAD_DIMS},
+                      **{f"{kind} d={d}": smem(i, d)
+                         for i, kind in enumerate(("dq", "dk/dv"))
+                         for d in fa.HEAD_DIMS}}))
+    paged_smem = _build.bind("paged_attention", "paged_attention_smem",
+                             [ctypes.c_int] * 4)
+    print("  paged_attention dynamic shared memory a block (bf16 pools, "
+          "bs 16), bytes: " + json.dumps(
+              {f"G={G} hd={hd}": paged_smem(G, hd, pa.chunk_positions(16), 2)
+               for G, hd in ((1, 128), (7, 64))}))
 
 
 def _ptxas_report(log: str):
@@ -275,45 +291,75 @@ def _inputs(gen, dev, B, H, KV, hd, bs, P, ctx, qdt, kvdt, n_pools=1):
 
 
 def kernel_cases(dev, seed):
-    """Kernel vs plain version at the listed shapes.  Returns the largest
-    absolute error seen."""
+    """Kernel vs plain version at the listed shapes, over short contexts
+    (one or a few 64-position chunks) and long ones (up to 32 chunks, so
+    the merge of the chunks' partials runs); then a CUDA graph of the
+    kernel replayed against an eager call.  Returns the largest absolute
+    error seen."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    bs, P = 16, 18
-    # an inactive row, single tokens, page edges, and contexts over many
-    # pages up to the table's reach
-    ctx = [0, 1, 15, 16, 17, 100, 203, P * bs]
+    bs = 16
+    # an inactive row, single tokens, page and chunk edges, and contexts
+    # over many pages up to the table's reach; then up to 2048 over 128
+    # pages
+    contexts = ((18, [0, 1, 15, 16, 17, 100, 203, 18 * bs]),
+                (128, [0, 63, 65, 700, 1024, 1500, 2047, 128 * bs]))
     worst = 0.0
-    for H, KV, hd in ((16, 16, 128), (14, 2, 64)):
-        for window in (None, 40):
-            for qdt, kvdt in ((torch.float32, torch.float32),
-                              (torch.bfloat16, torch.bfloat16),
-                              (torch.float32, torch.bfloat16)):
-                q, kp, vp, tbl, c = _inputs(gen, dev, len(ctx), H, KV, hd,
-                                            bs, P, ctx, qdt, kvdt)
-                kp, vp = kp[0], vp[0]
-                out = pa.paged_attention(q, kp, vp, tbl, c, window=window)
-                ref = pa.paged_attention_ref(q, kp, vp, tbl, c,
-                                             window=window)
-                torch.cuda.synchronize()
-                tol = TOL_F32 if kvdt == torch.float32 else TOL_BF16
-                err = (out.float() - ref.float()).abs()
-                bound = tol + tol * ref.float().abs()
-                check(bool((err <= bound).all()),
-                      f"kernel disagrees with the plain version at H={H} "
-                      f"KV={KV} hd={hd} window={window} q={qdt} "
-                      f"pool={kvdt}: max err {float(err.max())}")
-                check(not bool(out[0].any()), "ctx-0 row is not exact zeros")
-                for b in range(len(ctx)):
-                    one = pa.paged_attention(q[b:b + 1], kp, vp,
-                                             tbl[b:b + 1], c[b:b + 1],
-                                             window=window)
-                    check(torch.equal(one[0], out[b]),
-                          f"row {b} alone differs from row {b} of batch 8")
-                worst = max(worst, float(err.max()))
-                print(f"  H={H:2d} KV={KV:2d} hd={hd:3d} window={window} "
-                      f"q={str(qdt)[6:]} pool={str(kvdt)[6:]}: max abs err "
-                      f"{float(err.max()):.3e} (tol {tol:g}), ctx-0 row "
-                      f"zero, batch-8 rows == batch-1 rows")
+    for P, ctx in contexts:
+        for H, KV, hd in ((16, 16, 128), (14, 2, 64)):
+            for window in (None, 40 if P < 100 else 1000):
+                for qdt, kvdt in ((torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.bfloat16)):
+                    q, kp, vp, tbl, c = _inputs(gen, dev, len(ctx), H, KV,
+                                                hd, bs, P, ctx, qdt, kvdt)
+                    kp, vp = kp[0], vp[0]
+                    out = pa.paged_attention(q, kp, vp, tbl, c, window=window)
+                    ref = pa.paged_attention_ref(q, kp, vp, tbl, c,
+                                                 window=window)
+                    torch.cuda.synchronize()
+                    tol = TOL_F32 if kvdt == torch.float32 else TOL_BF16
+                    err = (out.float() - ref.float()).abs()
+                    bound = tol + tol * ref.float().abs()
+                    check(bool((err <= bound).all()),
+                          f"kernel disagrees with the plain version at H={H} "
+                          f"KV={KV} hd={hd} window={window} q={qdt} "
+                          f"pool={kvdt} ctx={ctx}: max err "
+                          f"{float(err.max())}")
+                    check(not bool(out[0].any()),
+                          "ctx-0 row is not exact zeros")
+                    for b in range(len(ctx)):
+                        pages = max(1, pages_for(ctx[b], bs))
+                        one = pa.paged_attention(q[b:b + 1], kp, vp,
+                                                 tbl[b:b + 1, :pages],
+                                                 c[b:b + 1], window=window)
+                        check(torch.equal(one[0], out[b]),
+                              f"row {b} alone differs from row {b} of "
+                              f"batch 8 (ctx {ctx[b]}, window {window})")
+                    worst = max(worst, float(err.max()))
+                    print(f"  H={H:2d} KV={KV:2d} hd={hd:3d} P={P:3d} "
+                          f"window={window} q={str(qdt)[6:]} "
+                          f"pool={str(kvdt)[6:]}: max abs err "
+                          f"{float(err.max()):.3e} (tol {tol:g}), ctx-0 row "
+                          f"zero, batch-8 rows == rows alone")
+    # a CUDA graph of the kernel at the long contexts, replayed twice
+    eager = pa.paged_attention(q, kp, vp, tbl, c, window=window)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        pa.paged_attention(q, kp, vp, tbl, c, window=window)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        replayed = pa.paged_attention(q, kp, vp, tbl, c, window=window)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(replayed, eager),
+              "paged kernel: a CUDA graph replay differs from the eager call")
+    check(not bool(pa._workspaces[dev.index][1].any()),
+          "paged kernel: a merge counter was left non-zero")
+    print(f"  CUDA graph of the kernel (ctx {ctx}, window {window}) replayed "
+          f"twice == the eager call, bit for bit; merge counters zero")
     return worst
 
 
@@ -343,8 +389,14 @@ def _graph_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / (reps * n)
 
 
+# the first design's time at eris-gptneo-1.3b's decode shape, one block a
+# (request, kv head) (PERF.md's kernel table: NVIDIA H100 80GB HBM3,
+# 700.00 W); qwen2-0.5b's decode shape was not timed then
+PAGED_FIRST_DESIGN_US = {"eris-gptneo-1.3b": 21.42}
+
+
 def decode_shape_timing(dev, seed, cfg, ctx, block_size):
-    """The kernel and its plain version at phase 4's decode shape: batch 8
+    """The kernel and its plain version at a model's decode shape: batch 8
     at the given contexts, one layer's pools out of n_layers so that,
     as in the decode step, each call finds its pool cold in L2."""
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -370,11 +422,14 @@ def decode_shape_timing(dev, seed, cfg, ctx, block_size):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"  decode shape B={B} H={H} KV={KV} hd={hd} bs={block_size} "
-          f"ctx={ctx}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
-          f"us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
-          f"({nbytes} bytes, {ops} ops), kernel at "
-          f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, max abs err {err:.3e}")
+    was = PAGED_FIRST_DESIGN_US.get(cfg.name)
+    print(f"  {cfg.name} decode shape B={B} H={H} KV={KV} hd={hd} "
+          f"bs={block_size} ctx={ctx}: kernel {ms * 1e3:.2f} us (first "
+          f"design: {'not timed' if was is None else f'{was:.2f} us'}), "
+          f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by "
+          f"{bound_by} ({nbytes} bytes, {ops} ops), kernel at "
+          f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+          f"{100 * bound_ms / ms:.1f}% of its bound, max abs err {err:.3e}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=err)
 
@@ -752,13 +807,15 @@ FLASH_TIMED = (("gptneo-round", (4, 16, 16, 64, 128)),
                ("qwen2-s2048", (1, 14, 2, 2048, 64)))
 # each kernel's first version's time in us at those shapes: f32 FMAs on
 # the CUDA cores (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700.00 W),
-# printed beside this run's; qwen2 at S = 2048 was not timed then
+# printed beside this run's; at qwen2's S = 2048 only the SIMT forward
+# was timed
 FIRST_VERSION_US = {"gptneo-round": {"flash_fwd": 23.24, "flash_dq": 28.82,
                             "flash_dkv": 30.68},
            "qwen2-round": {"flash_fwd": 12.12, "flash_dq": 16.40,
                            "flash_dkv": 105.57},
            "gptneo-s2048": {"flash_fwd": 1582.0, "flash_dq": 2058.5,
-                            "flash_dkv": 1964.9}}
+                            "flash_dkv": 1964.9},
+           "qwen2-s2048": {"flash_fwd": 622.90}}
 # f32 operations per visible (query, key) pair, per unit of head dim:
 # forward q.k and p v; dq adds do.v and ds k; dk/dv do.v, p^T do, ds^T q
 FLASH_FLOPS = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
@@ -793,9 +850,9 @@ def flash_cases(dev, seed) -> dict:
     """Each flash kernel against its plain version at every listed shape
     and mask (f32: TOL_F32 absolute and relative, the order of summation;
     bf16 outputs: FLASH_BF16_STEP relative plus TOL_F32, one bf16 step;
-    lse is f32 throughout); every bf16 dq and dk/dv call launches the
-    tensor-core kernels.  Prints each kernel's largest error as a share of
-    its bound; returns its largest absolute error."""
+    lse is f32 throughout); every bf16 forward, dq and dk/dv call
+    launches the tensor-core kernels.  Prints each kernel's largest error
+    as a share of its bound; returns its largest absolute error."""
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     worst = dict.fromkeys(FLASH, 0.0)
     share = dict.fromkeys(FLASH, 0.0)
@@ -809,9 +866,9 @@ def flash_cases(dev, seed) -> dict:
             torch.cuda.synchronize()
             added = [fn.tensor_core_launches - n
                      for fn, n in zip(TENSOR_CORE, tc)]
-            check(added == [int(dtype == torch.bfloat16)] * 2,
-                  f"flash dq, dk/dv at {dtype}: {added} tensor-core "
-                  f"launches")
+            check(added == [int(dtype == torch.bfloat16)] * 3,
+                  f"flash forward, dq, dk/dv at {dtype}: {added} "
+                  f"tensor-core launches")
             errs = []
             for kname, what, a, b in zip(owner, ("o", "lse", "dq", "dk", "dv"),
                                          got, want):
@@ -1083,9 +1140,9 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
         wall = time.monotonic() - t0
         launches = {k: fn.launches for k, fn in ROUND.items()}
         tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
-        check(tc == [flash_per_round] * 2 or cfg.dtype != "bfloat16",
-              f"{name} round {t + 1}: tensor-core dq, dk/dv launched {tc} "
-              f"times, want {flash_per_round} (bf16)")
+        check(tc == [flash_per_round] * 3 or cfg.dtype != "bfloat16",
+              f"{name} round {t + 1}: tensor-core forward, dq, dk/dv "
+              f"launched {tc} times, want {flash_per_round} (bf16)")
         for k, count in launches.items():       # the main path ended
             totals[k] += count
             want = (flash_per_round if k in FLASH else
@@ -1272,9 +1329,9 @@ def context_phase(dev, seed) -> None:
     _set_round_launches(0)
     g_on, loss_on, ms_on, peak_on = _client_grad(on, params, toks)
     tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
-    check(tc == [on.n_layers] * 2 and on.dtype == "bfloat16",
-          f"S = {CONTEXT} flash gradient: tensor-core dq, dk/dv launched "
-          f"{tc} times, want {on.n_layers} each")
+    check(tc == [on.n_layers] * 3 and on.dtype == "bfloat16",
+          f"S = {CONTEXT} flash gradient: tensor-core forward, dq, dk/dv "
+          f"launched {tc} times, want {on.n_layers} each")
     g_off, loss_off, ms_off, peak_off = _client_grad(off, params, toks)
     diff = sum(float((a.float() - b.float()).square().sum())
                for a, b in zip(g_on, g_off))
@@ -1328,7 +1385,7 @@ def fl_small_input_phase(dev, seed) -> None:
     launched = [fn.launches for fn in FLASH.values()]
     check(launched == [2 * K_CLIENTS * cfg.n_layers] * 3,
           f"smoke rounds: flash kernels launched {launched} times")
-    check([fn.tensor_core_launches for fn in TENSOR_CORE] == [0, 0],
+    check([fn.tensor_core_launches for fn in TENSOR_CORE] == [0, 0, 0],
           "smoke rounds in f32 launched the bf16 tensor-core kernels")
     # one host-made gradient through the kernel and the plain version
     g = host._grad(host.x, toks[0])
@@ -1366,10 +1423,13 @@ def main() -> None:
 
     phase("3 kernel vs plain version")
     worst = kernel_cases(dev, args.seed)
-    # mid-generation contexts of phase 4's requests
-    timing = decode_shape_timing(dev, args.seed, cfg,
-                                 [len(p) + GEN // 2 for p, _ in requests],
+    # mid-generation contexts of phase 4's requests, at both models' shapes
+    mid = [len(p) + GEN // 2 for p, _ in requests]
+    timing = decode_shape_timing(dev, args.seed, cfg, mid,
                                  settings.block_size)
+    qwen_timing = decode_shape_timing(dev, args.seed,
+                                      get_config("qwen2-0.5b"), mid,
+                                      settings.block_size)
 
     phase("4 serving eris-gptneo-1.3b at full width")
     t0 = time.monotonic()
@@ -1410,10 +1470,14 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:52",
         "launches": launches,
-        "max_abs_err": max(worst, timing["max_abs_err"]),
+        "max_abs_err": max(worst, timing["max_abs_err"],
+                           qwen_timing["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]
+        "library_ms": None,
+        "shape": "eris-gptneo-1.3b decode, B=8 H=KV=16 hd=128 bf16",
+        "qwen2_decode": {key: qwen_timing[key] for key in
+                         ("ms", "plain_ms", "bound_ms", "bound_by")}}]
     for name, _, source, replaces in KERNELS[1:5]:
         t = wire_timing_[name]
         rows.append({

@@ -13,10 +13,10 @@
 //                        dv = sum p^T do, dk = sum ds^T q_hat over the G
 //                        query heads of a kv head, in f32, cast once
 //
-// The forward takes bf16 and f32; dq and dk/dv here take f32 only.  bf16
-// dq and dk/dv run on the tensor cores, in flash_bwd_sm90.cu.
+// All three take f32 only.  bf16 runs on the tensor cores: the forward
+// in flash_fwd_sm90.cu, dq and dk/dv in flash_bwd_sm90.cu.
 //
-//   q, do, o, dq (B, H, S, d)   bf16 or f32, any strides with d contiguous
+//   q, do, o, dq (B, H, S, d)   f32, any strides with d contiguous
 //   k, v, dk, dv (B, KV, S, d)  q's dtype, H = KV * G (query head h reads
 //                               kv head h / G, the reference's _kv_index)
 //   lse, delta   (B * H, S)     f32, contiguous
@@ -83,16 +83,9 @@ struct Strides {                      // element strides; d has stride 1
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // rows r0 .. r0 + kTile - 1 of one head into a (kTile, D + 1) f32 tile,
@@ -558,25 +551,8 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-// one switch over the head dims and dtypes every entry point takes
-#define FLASH_DISPATCH(FN, ...)                                         \
-  switch (d * 2 + (bf16 ? 1 : 0)) {                                     \
-    case 16 * 2: return static_cast<int>(FN<16, float>(__VA_ARGS__));   \
-    case 16 * 2 + 1:                                                    \
-      return static_cast<int>(FN<16, __nv_bfloat16>(__VA_ARGS__));      \
-    case 32 * 2: return static_cast<int>(FN<32, float>(__VA_ARGS__));   \
-    case 32 * 2 + 1:                                                    \
-      return static_cast<int>(FN<32, __nv_bfloat16>(__VA_ARGS__));      \
-    case 64 * 2: return static_cast<int>(FN<64, float>(__VA_ARGS__));   \
-    case 64 * 2 + 1:                                                    \
-      return static_cast<int>(FN<64, __nv_bfloat16>(__VA_ARGS__));      \
-    case 128 * 2: return static_cast<int>(FN<128, float>(__VA_ARGS__)); \
-    case 128 * 2 + 1:                                                   \
-      return static_cast<int>(FN<128, __nv_bfloat16>(__VA_ARGS__));     \
-    default: return static_cast<int>(cudaErrorInvalidValue);            \
-  }
-
-// the f32 instantiations alone (dq, dk/dv: bf16 runs in flash_bwd_sm90.cu)
+// the f32 instantiations alone (bf16 runs on the tensor cores, in
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu)
 #define FLASH_DISPATCH_F32(FN, ...)                                     \
   if (bf16) return static_cast<int>(cudaErrorInvalidValue);             \
   switch (d) {                                                          \
@@ -592,13 +568,15 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // strides: (b, h, s) element strides of q, k, v, o, in that order.
-// window <= 0 means none.  Returns the cudaError_t of the launch.
+// window <= 0 means none; f32 only (bf16 returns cudaErrorInvalidValue).
+// Returns the cudaError_t of the launch.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      void* lse, const long long* strides, int B, int H, int KV,
                      int S, int d, float scale, int causal, int window,
                      int bf16, void* stream) {
-  FLASH_DISPATCH(fwd, q, k, v, o, static_cast<float*>(lse), strides, B, H, KV,
-                 S, scale, causal, window, static_cast<cudaStream_t>(stream))
+  FLASH_DISPATCH_F32(fwd, q, k, v, o, static_cast<float*>(lse), strides, B,
+                     H, KV, S, scale, causal, window,
+                     static_cast<cudaStream_t>(stream))
 }
 
 // strides of q, k, v, do, dq; f32 only (bf16 returns cudaErrorInvalidValue)

@@ -6,22 +6,21 @@ lse) and its backward computes delta = rowsum(do * o) as one torch
 expression, as the reference does outside its kernels, then the dq and
 the dk/dv kernels.  The three kernel wrappers, :func:`flash_fwd`,
 :func:`flash_dq` and :func:`flash_dkv`, launch the hand-written CUDA
-kernels on CUDA tensors: the forward, and dq and dk/dv in f32, from
-``csrc/flash_attention.cu``; dq and dk/dv in bf16 on the tensor cores,
-from ``csrc/flash_bwd_sm90.cu``.  Their designs and bounds are set out in
-those files.  On CPU tensors they compute the plain versions in
-``kernels/ref.py``, and only there: on a CUDA tensor they launch a kernel
-or raise.  ``flash_fwd.launches``, ``flash_dq.launches`` and
-``flash_dkv.launches`` count the kernels' launches, and
-``flash_dq.tensor_core_launches`` and ``flash_dkv.tensor_core_launches``
-the bf16 ones among them.
+kernels on CUDA tensors: in bf16 on the tensor cores, the forward from
+``csrc/flash_fwd_sm90.cu`` and dq and dk/dv from ``csrc/flash_bwd_sm90.cu``;
+in f32 the SIMT kernels of ``csrc/flash_attention.cu``.  Their designs
+and bounds are set out in those files.  On CPU tensors they compute the
+plain versions in ``kernels/ref.py``, and only there: on a CUDA tensor
+they launch a kernel or raise.  ``flash_fwd.launches``,
+``flash_dq.launches`` and ``flash_dkv.launches`` count the kernels'
+launches, and their ``tensor_core_launches`` the bf16 ones among them.
 
 Layout is the reference's, q (B, H, S, d) and k, v (B, KV, S, d), with
 any strides so long as d is contiguous: the model hands over transposed
 views of its (B, S, H, d) projections and the kernels read them in
 place, without a copy.  Outputs take their input's strides
 (``torch.empty_like``), so o comes back as a view of a contiguous
-(B, S, H, d) tensor.  The bf16 dq and dk/dv kernels copy rows with 16-byte
+(B, S, H, d) tensor.  The bf16 kernels copy rows with 16-byte
 asynchronous copies, so there every row must start on 16 bytes (base
 address and the b, h and s strides); the model's views do.
 """
@@ -44,6 +43,7 @@ _MASK = [_I] * 5 + [ctypes.c_float, _I, _I]    # B H KV S d scale causal window
 # symbol: (source, argument types); the SIMT kernels end (bf16, stream),
 # the tensor-core dk/dv (partial, stream)
 _ARGS = {"flash_fwd_launch": ("flash_attention", [_P] * 6 + _MASK + [_I, _P]),
+         "flash_fwd_sm90_launch": ("flash_fwd_sm90", [_P] * 6 + _MASK + [_P]),
          "flash_dq_launch": ("flash_attention", [_P] * 8 + _MASK + [_I, _P]),
          "flash_dkv_launch": ("flash_attention", [_P] * 9 + _MASK + [_I, _P]),
          "flash_dq_sm90_launch": ("flash_bwd_sm90", [_P] * 8 + _MASK + [_P]),
@@ -110,8 +110,8 @@ def _aligned(t) -> bool:
 
 
 def _check_async_copies(op: str, **tensors) -> None:
-    """The bf16 dq and dk/dv kernels copy 16-byte chunks of rows: raise on
-    a row that does not start on 16 bytes (never fall back)."""
+    """The bf16 kernels copy 16-byte chunks of rows: raise on a row that
+    does not start on 16 bytes (never fall back)."""
     for name, t in tensors.items():
         if not _aligned(t):
             raise ValueError(f"{op}: {name}'s rows must start on 16 bytes "
@@ -148,19 +148,27 @@ def _launch(symbol: str, pointers, strides, q, k, causal, window,
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None):
-    """The forward kernel.  Returns (o in q's dtype and strides, lse
-    (B * H, S) f32)."""
+    """The forward kernel (bf16: on the tensor cores).  Returns (o in q's
+    dtype and strides, lse (B * H, S) f32)."""
     _check("flash_fwd", q, k, v, window)
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal=causal, window=window)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_async_copies("flash_fwd", q=q, k=k, v=v)
     B, H, S, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     if o.numel():
-        _launch("flash_fwd_launch",
-                [t.data_ptr() for t in (q, k, v, o, lse)],
-                _strides(q, k, v, o), q, k, causal, window,
-                int(q.dtype == torch.bfloat16))
+        pointers = [t.data_ptr() for t in (q, k, v, o, lse)]
+        strides = _strides(q, k, v, o)
+        if bf16:
+            _launch("flash_fwd_sm90_launch", pointers, strides, q, k, causal,
+                    window)
+            flash_fwd.tensor_core_launches += 1
+        else:
+            _launch("flash_fwd_launch", pointers, strides, q, k, causal,
+                    window, 0)
         flash_fwd.launches += 1
     return o, lse
 
@@ -227,7 +235,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     return dk, dv
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.tensor_core_launches = 0
 flash_dq.launches = flash_dq.tensor_core_launches = 0
 flash_dkv.launches = flash_dkv.tensor_core_launches = 0
 

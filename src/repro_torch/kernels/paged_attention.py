@@ -2,16 +2,23 @@
 (``repro/kernels/paged_attention.py``).
 
 :func:`paged_attention` launches the hand-written CUDA kernel
-``csrc/paged_attention.cu`` on CUDA tensors; its design and its bound are
-set out in that file.  On CPU tensors it computes
-:func:`paged_attention_ref`, the plain torch version, and only there: on
-a CUDA tensor it launches the kernel or raises, whatever the shape.
-``paged_attention.launches`` counts the kernel's launches.
+``csrc/paged_attention.cu`` on CUDA tensors; its design (split over chunks
+of the context, merged by the last chunk to finish) and its bound are set
+out in that file.  On CPU tensors it computes :func:`paged_attention_ref`,
+the plain torch version, and only there: on a CUDA tensor it launches the
+kernel or raises, whatever the shape.  ``paged_attention.launches``
+counts the kernel's launches.
+
+The kernel's f32 workspace for the chunks' partials and its counters
+belong to this module, one of each per device, grown as a call needs and
+never shrunk; a grown-out buffer is kept alive, since a captured CUDA
+graph may still point at it.  Calls on one device therefore run on one
+stream at a time, as the serving engine's do.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -19,23 +26,40 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-WARPS = 8                     # warps per block, as kWarps in the kernel
+THREADS = 256                 # threads per block, as kThreads in the kernel
+CHUNK = 64                    # positions a block takes, rounded to pages
 SMEM_LIMIT = 232448           # dynamic shared memory per block on sm_90
 
 
-def smem_bytes(group: int, head_dim: int) -> int:
-    """Dynamic shared memory the kernel takes for G query rows of hd: the
-    scaled queries, and each warp's accumulators, running max and sum."""
-    return group * ((1 + WARPS) * head_dim * 4 + 2 * WARPS * 4)
+def chunk_positions(block_size: int) -> int:
+    """C, the positions of one chunk (one thread block): whole pages, 64
+    positions where the block size divides 64.  It depends on the block
+    size alone, so a row's chunks do not depend on the batch."""
+    return block_size * max(1, CHUNK // block_size)
 
 
-def supports(n_heads: int, n_kv_heads: int, head_dim: int) -> bool:
-    """Shapes the CUDA kernel takes: whole GQA groups, an even head dim
-    from 8 to 256, and the group's rows within one block's shared
-    memory."""
-    return (n_heads % n_kv_heads == 0 and head_dim % 2 == 0
+def smem_bytes(group: int, head_dim: int, block_size: int = 16,
+               kv_itemsize: int = 4) -> int:
+    """Dynamic shared memory a block takes (``smem_bytes`` in the kernel):
+    the chunk's K and V rows, the G scaled queries, the slices of the PV
+    sum, the scores, m and l, and a flag."""
+    C = chunk_positions(block_size)
+    items = group * (head_dim * kv_itemsize // 16)
+    slices = 1 if items >= THREADS else THREADS // items
+    return (2 * C * head_dim * kv_itemsize
+            + 4 * (group * head_dim * (1 + slices) + group * C + 2 * group
+                   + 1))
+
+
+def supports(n_heads: int, n_kv_heads: int, head_dim: int,
+             block_size: int = 16, kv_itemsize: int = 4) -> bool:
+    """Shapes the CUDA kernel takes: whole GQA groups, a head dim from 8
+    to 256 in 16-byte rows (a multiple of 8), and a block within one
+    block's shared memory."""
+    return (n_heads % n_kv_heads == 0 and head_dim % 8 == 0
             and 8 <= head_dim <= MAX_HEAD_DIM
-            and smem_bytes(n_heads // n_kv_heads, head_dim) <= SMEM_LIMIT)
+            and smem_bytes(n_heads // n_kv_heads, head_dim, block_size,
+                           kv_itemsize) <= SMEM_LIMIT)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -73,21 +97,34 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_lib_handle: Optional[ctypes.CDLL] = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# q k v tables ctx out ws counters; B H KV hd N bs P window; scale; C
+# q_bf16 kv_bf16; stream
+_ARGS = [_P] * 8 + [_I] * 8 + [ctypes.c_float] + [_I] * 3 + [_P]
+# device index -> (f32 workspace, int32 counters)
+_workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+_retired: List[torch.Tensor] = []   # outgrown, maybe still in a CUDA graph
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = _build.load("paged_attention")
-        lib.paged_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        lib.paged_attention_launch.restype = ctypes.c_int
-        lib.paged_attention_error_string.argtypes = [ctypes.c_int]
-        lib.paged_attention_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+def _workspace(device: torch.device, floats: int,
+               rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device's workspace of at least ``floats`` f32 and its counters
+    of at least ``rows``, grown by doubling.  The counters are zeroed only
+    when they are allocated: the kernel returns each to zero."""
+    ws, counters = _workspaces.get(device.index, (None, None))
+    if ws is None or ws.numel() < floats:
+        if ws is not None:
+            _retired.append(ws)
+        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < rows:
+        if counters is not None:
+            _retired.append(counters)
+        counters = torch.zeros(
+            max(rows, 2 * (0 if counters is None else counters.numel())),
+            dtype=torch.int32, device=device)
+    _workspaces[device.index] = (ws, counters)
+    return ws, counters
 
 
 def _check(q, k_pool, v_pool, block_tables, context_lens, window):
@@ -119,17 +156,18 @@ def _check(q, k_pool, v_pool, block_tables, context_lens, window):
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, block_tables "
             f"{tuple(block_tables.shape)}, context_lens "
             f"{tuple(context_lens.shape)}")
-    if not supports(H, KV, hd):
+    bs = k_pool.shape[2]
+    if not supports(H, KV, hd, bs, k_pool.element_size()):
         raise ValueError(f"paged_attention: the CUDA kernel does not take "
-                         f"n_heads={H}, n_kv_heads={KV}, head_dim={hd}")
+                         f"n_heads={H}, n_kv_heads={KV}, head_dim={hd}, "
+                         f"block_size={bs}, {k_pool.dtype} pools")
     if B > 65535:
         raise ValueError(f"paged_attention: batch {B} beyond the kernel's "
                          f"grid (65535)")
     for name in ("q", "k_pool", "v_pool"):
-        t = tensors[name]
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"paged_attention: {name} is not aligned for "
-                             f"paired loads")
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"paged_attention: {name} does not start on "
+                             f"16 bytes (the kernel's 16-byte copies)")
     if window is not None and window < 0:
         raise ValueError(f"paged_attention: window must be >= 0, got {window}")
 
@@ -159,22 +197,25 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check(q, k_pool, v_pool, block_tables, context_lens, window)
     B, H, hd = q.shape
     N, KV, bs, _ = k_pool.shape
+    P = block_tables.shape[1]
     out = torch.empty_like(q)
     if B == 0:
         return out
+    C = chunk_positions(bs)
+    n_chunks = max(1, -(-P * bs // C))
+    ws, counters = _workspace(q.device, B * H * n_chunks * (hd + 2),
+                              B * KV)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        lib = _lib()
-        err = lib.paged_attention_launch(
+        err = _build.bind("paged_attention", "paged_attention_launch",
+                          _ARGS)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            B, H, KV, hd, N, bs, block_tables.shape[1],
-            -1 if window is None else int(window), hd ** -0.5,
+            ws.data_ptr(), counters.data_ptr(), B, H, KV, hd, N, bs, P,
+            -1 if window is None else int(window), hd ** -0.5, C,
             int(q.dtype == torch.bfloat16),
-            int(k_pool.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError("paged_attention kernel launch failed: "
-                           + lib.paged_attention_error_string(err).decode())
+            int(k_pool.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on_error("paged_attention", err)
     paged_attention.launches += 1
     return out
 

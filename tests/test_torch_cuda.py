@@ -6,6 +6,7 @@ port only (the machine with the card has no jax), so it runs there as
 Tests that need the card carry the ``cuda`` marker and skip without one,
 naming what is missing; whether there is a card is decided inside the
 fixture, never at import."""
+import ctypes
 import dataclasses
 import os
 import shutil
@@ -284,13 +285,12 @@ def test_cuda_flash_kernels_match_plain_versions(cuda, B, H, KV, S, d, causal,
     the same inputs (f32: 1e-4, the order of summation; bf16 outputs:
     2**-7 of the plain value plus 1e-4, one bf16 step, since both sides
     compute in f32 and cast once, the tensor-core dq and dk/dv taking p
-    and ds as two bf16 terms), each launched once, bf16 dq and dk/dv on
+    and ds as two bf16 terms), each launched once, every bf16 kernel on
     the tensor cores; outputs keep their inputs' strides."""
     q, k, v, do = _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd)
     mask = dict(causal=causal, window=window)
     before = [fn.launches for fn in FLASH]
-    tc_before = [fa.flash_dq.tensor_core_launches,
-                 fa.flash_dkv.tensor_core_launches]
+    tc_before = [fn.tensor_core_launches for fn in FLASH]
     o, lse = fa.flash_fwd(q, k, v, **mask)
     delta = wire_ref.flash_delta(o, do)
     dq_ = fa.flash_dq(q, k, v, do, lse, delta, **mask)
@@ -298,8 +298,8 @@ def test_cuda_flash_kernels_match_plain_versions(cuda, B, H, KV, S, d, causal,
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(FLASH, before)] == [1, 1, 1]
     tc = int(dtype == torch.bfloat16)
-    assert [fa.flash_dq.tensor_core_launches - tc_before[0],
-            fa.flash_dkv.tensor_core_launches - tc_before[1]] == [tc, tc]
+    assert [fn.tensor_core_launches - b
+            for fn, b in zip(FLASH, tc_before)] == [tc] * 3
     ro, rlse = wire_ref.flash_fwd_ref(q, k, v, **mask)
     rdq = wire_ref.flash_dq_ref(q, k, v, do, lse, delta, **mask)
     rdk, rdv = wire_ref.flash_dkv_ref(q, k, v, do, lse, delta, **mask)
@@ -361,3 +361,148 @@ def test_cuda_flash_backward_raises_on_rows_off_16_bytes(cuda):
         with pytest.raises(ValueError, match="16 bytes"):
             fa.flash_dkv(q, k, v, bad, lse, delta)
     assert (fa.flash_dq.launches, fa.flash_dkv.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,d,causal,window,bshd", [
+    (2, 4, 4, 128, 16, True, None, True),       # d = 16, padded to 64
+    (1, 2, 1, 100, 32, True, 48, True),         # d = 32, ragged S, window
+    (1, 14, 2, 320, 64, True, None, True),      # GQA 7, five k-tiles
+    (1, 14, 2, 256, 64, True, 100, False),      # GQA 7, window, contiguous
+    (2, 4, 4, 200, 128, False, None, True),     # full, ragged S
+    (1, 4, 4, 1024, 128, True, 300, True),      # window over many tiles
+])
+def test_cuda_tensor_core_forward_matches_flash_fwd_ref(cuda, B, H, KV, S, d,
+                                                        causal, window, bshd):
+    """The bf16 forward on the tensor cores (``csrc/flash_fwd_sm90.cu``)
+    against ``flash_fwd_ref``: o within one bf16 step (2**-7 |ref| + 1e-4),
+    lse within 1e-4 + 1e-4 |ref|; one launch, on the tensor cores, o in
+    q's strides."""
+    q, k, v, _ = _flash_inputs(B, H, KV, S, d, torch.bfloat16, cuda, bshd,
+                               seed=9)
+    mask = dict(causal=causal, window=window)
+    before = (fa.flash_fwd.launches, fa.flash_fwd.tensor_core_launches)
+    o, lse = fa.flash_fwd(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches - before[0],
+            fa.flash_fwd.tensor_core_launches - before[1]) == (1, 1)
+    block = 64 if S % 64 == 0 else S            # blocks that tile S
+    ro, rlse = wire_ref.flash_fwd_ref(q, k, v, **mask, block_q=block,
+                                      block_k=block)
+    assert o.dtype == torch.bfloat16 and o.stride() == q.stride()
+    err = (o.float() - ro.float()).abs()
+    assert bool((err <= 2.0 ** -7 * ro.float().abs() + 1e-4).all()), \
+        float(err.max())
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_forward_raises_on_rows_off_16_bytes(cuda):
+    """The bf16 forward copies rows in 16-byte chunks: a view off 16 bytes
+    raises before any launch; f32 takes it on the SIMT kernel."""
+    q, k, v, _ = _flash_inputs(1, 4, 2, 64, 64, torch.bfloat16, cuda)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    wide = torch.zeros(1, 64, 4, 68, dtype=q.dtype, device=cuda)
+    ragged = wide[..., :64].transpose(1, 2)
+    before = fa.flash_fwd.launches
+    for bad in (shifted, ragged):
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_fwd(bad, k, v)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_attention(q, bad[:, :2], v)
+    assert fa.flash_fwd.launches == before
+    tc = fa.flash_fwd.tensor_core_launches
+    fa.flash_fwd(ragged.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_fwd.tensor_core_launches) == \
+        (before + 1, tc)
+
+
+# ------------------------------------------------ the paged kernel, split-K
+def _long_inputs(H, KV, hd, dtype, cuda, seed=13):
+    """8 requests over 128 pages of 16 (2048 positions): contexts from one
+    page to the table's reach, most over several 64-position chunks."""
+    B, bs, P = 8, 16, 128
+    q, kp, vp, tbl, _ = _inputs(B, H, KV, bs, P, hd, seed)
+    ctx = torch.tensor([0, 63, 65, 700, 1024, 1500, 2047, 2048],
+                       dtype=torch.int32)
+    return [t.to(cuda) for t in (q.to(dtype), kp.to(dtype), vp.to(dtype),
+                                 tbl, ctx)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,hd,window,dtype", [
+    (16, 16, 128, None, torch.bfloat16),
+    (14, 2, 64, None, torch.bfloat16),
+    (14, 2, 64, 1000, torch.float32),
+    (16, 16, 128, 130, torch.float32),
+])
+def test_cuda_paged_kernel_long_contexts_batch_invariant(cuda, H, KV, hd,
+                                                         window, dtype):
+    """Contexts up to 2048 over many chunks (the merge of the chunks'
+    partials runs): the plain version's tolerance, the ctx-0 row exact
+    zeros, and each row alone, with a table only as wide as its pages,
+    bit-identical to the same row of the batch."""
+    q, kp, vp, tbl, ctx = _long_inputs(H, KV, hd, dtype, cuda)
+    out = pa.paged_attention(q, kp, vp, tbl, ctx, window=window)
+    ref = pa.paged_attention_ref(q, kp, vp, tbl, ctx, window=window)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert not out[0].any()
+    for b in range(len(ctx)):
+        pages = max(1, -(-int(ctx[b]) // 16))
+        one = pa.paged_attention(q[b:b + 1], kp, vp, tbl[b:b + 1, :pages],
+                                 ctx[b:b + 1], window=window)
+        assert torch.equal(one[0], out[b]), b
+
+
+@pytest.mark.cuda
+def test_cuda_paged_kernel_graph_replay_equals_eager(cuda):
+    """A CUDA graph of the kernel, replayed twice, gives the eager call's
+    bits: the merge's counters are zero again after every launch."""
+    q, kp, vp, tbl, ctx = _long_inputs(14, 2, 64, torch.bfloat16, cuda)
+    eager = pa.paged_attention(q, kp, vp, tbl, ctx)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        pa.paged_attention(q, kp, vp, tbl, ctx)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = pa.paged_attention(q, kp, vp, tbl, ctx)
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    _, counters = pa._workspaces[cuda.index or 0]
+    assert not counters.any()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_smem_matches_the_kernel(cuda):
+    """The wrapper's shared-memory count (``supports``) is the kernel's."""
+    from repro_torch.kernels import _build
+    fn = _build.bind("paged_attention", "paged_attention_smem",
+                     [ctypes.c_int] * 4)
+    for G, hd, bs, size in ((1, 128, 16, 2), (7, 64, 16, 2), (12, 128, 16, 2),
+                            (1, 256, 16, 4), (8, 8, 5, 4)):
+        assert fn(G, hd, pa.chunk_positions(bs), size) == \
+            pa.smem_bytes(G, hd, bs, size)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    pool = torch.zeros(3, 2, 16, 12, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(2, 4, 12, dtype=torch.bfloat16, device=cuda)
+    tbl = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    ctx = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):   # rows of 24 B
+        pa.paged_attention(q, pool, pool, tbl, ctx)
+    flat = torch.zeros(3 * 2 * 16 * 16 + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    shifted = flat[1:].view(3, 2, 16, 16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pa.paged_attention(q[..., :8].contiguous().repeat(1, 1, 2), shifted,
+                           shifted, tbl, ctx)

@@ -206,8 +206,8 @@ def _tensor_core_backward(q, k, v, do, lse, delta, causal, window):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _tc_inputs(case, seed=3):
-    B, H, KV, S, d, causal, window = TC_CASES[case]
+def _tc_inputs(case, cases=TC_CASES, seed=3):
+    B, H, KV, S, d, causal, window = cases[case]
     rng = np.random.default_rng(seed)
     arrays = [rng.standard_normal(shape).astype(np.float32)
               for shape in ((B, H, S, d), (B, KV, S, d), (B, KV, S, d),
@@ -261,3 +261,87 @@ def test_group_sum_matches_the_plain_group_sum():
         err = (got.float() - w.float()).abs()
         assert bool((err <= BF16_STEP * w.float().abs() + 1e-4).all()), \
             float(err.max())
+
+
+# ------------------------------------------- the tensor-core forward (bf16)
+# TC_CASES and a causal S = 512 at d = 128 (eight q-tiles over eight k-tiles)
+FWD_CASES = {**TC_CASES, "d128-s512": (1, 2, 1, 512, 128, True, None)}
+TILE = 64                                     # the kernel's q- and k-tiles
+
+
+def _tensor_core_forward(q, k, v, causal, window, terms=2):
+    """The arithmetic of the bf16 forward kernel (``csrc/flash_fwd_sm90.cu``):
+    q unscaled in the product, s = scale (q . k) in f32 with
+    scale = f32(d**-0.5), online softmax over 64-key tiles within the
+    reference's lo/hi bounds (a masked key takes p = 0), p entering
+    acc += P V as ``terms`` bf16 terms (hi = bf16(p), lo = bf16(p - hi)),
+    o = acc / max(l, 1e-30) cast once, lse = m + log(max(l, 1e-30))."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    scale = float(np.float32(d ** -0.5))
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(G, 1) for t in (k, v))
+    n = -(-S // TILE)
+    o = torch.zeros(B, H, S, d)
+    lse = torch.zeros(B, H, S)
+    for qt in range(n):
+        rows = torch.arange(qt * TILE, min(qt * TILE + TILE, S))
+        hi = min(n, qt + 1) if causal else n
+        lo = max(0, (qt * TILE - window + 1) // TILE) if window else 0
+        m = torch.full((B, H, len(rows)), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, len(rows), d)
+        for kt in range(lo, hi):
+            cols = torch.arange(kt * TILE, min(kt * TILE + TILE, S))
+            s = scale * (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2))
+            seen = torch.ones(len(rows), len(cols), dtype=torch.bool)
+            if causal:
+                seen &= cols[None] <= rows[:, None]
+            if window:
+                seen &= cols[None] > rows[:, None] - window
+            m_new = torch.maximum(m, torch.where(seen, s, -1e30).amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(seen, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            p_hi = p.to(torch.bfloat16).float()
+            pv = p_hi @ vf[:, :, cols]
+            if terms == 2:
+                pv = pv + (p - p_hi).to(torch.bfloat16).float() @ vf[:, :, cols]
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        l_safe = l.clamp_min(1e-30)
+        o[:, :, rows] = acc / l_safe[..., None]
+        lse[:, :, rows] = m + torch.log(l_safe)
+    return o.to(q.dtype), lse.reshape(B * H, S)
+
+
+def _forward_gate_shares(case, terms):
+    """The emulated forward against the reference's ``_flash_fwd_call`` in
+    interpret mode: the largest error of o and of lse as a share of its
+    gate (o: 2**-7 |ref| + 1e-4; lse: 1e-4 + 1e-4 |ref|)."""
+    (q, k, v, _), (tq, tk, tv, _), mask = _tc_inputs(case, FWD_CASES)
+    block = min(ref.FLASH_BLOCK, tq.shape[2])
+    o, lse = ref_fa._flash_fwd_call(q, k, v, mask["causal"], mask["window"],
+                                    block, block, True)
+    got_o, got_lse = _tensor_core_forward(tq, tk, tv, **mask, terms=terms)
+    assert got_o.dtype == torch.bfloat16 and got_o.shape == tq.shape
+    o_err = np.abs(_np(got_o) - _np(o)) / (BF16_STEP * np.abs(_np(o)) + 1e-4)
+    want_lse = np.asarray(lse, np.float64).reshape(got_lse.shape)
+    lse_err = np.abs(_np(got_lse) - want_lse) / (1e-4 + 1e-4 * np.abs(want_lse))
+    return float(o_err.max()), float(lse_err.max())
+
+
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_tensor_core_forward_arithmetic_holds_one_bf16_step(case):
+    """The bf16 forward's arithmetic, p as two bf16 terms, holds the card's
+    gate against the reference: o within one bf16 step, lse within
+    1e-4 + 1e-4 |lse|."""
+    o_share, lse_share = _forward_gate_shares(case, terms=2)
+    assert o_share <= 1.0 and lse_share <= 1.0, (case, o_share, lse_share)
+
+
+def test_one_bf16_term_of_p_breaks_the_forward_gate():
+    """Why the kernel keeps two terms: p rounded once to bf16 misses the
+    one-step gate on o many times over, even at S = 64."""
+    o_share, _ = _forward_gate_shares("d128-s64", terms=1)
+    assert o_share > 4.0, o_share

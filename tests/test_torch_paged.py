@@ -137,6 +137,8 @@ def test_supports_bounds():
     assert not pa.supports(4, 4, 63)        # odd head dim
     assert not pa.supports(4, 4, 6)         # below 8
     assert not pa.supports(4, 4, 258)       # above 256
+    assert not pa.supports(4, 4, 12)        # rows off 16 bytes in bf16
+    assert not pa.supports(4, 4, 256, block_size=256)   # K, V too large
 
 
 def _good():
@@ -166,6 +168,107 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc, match):
     args.update(bad)
     with pytest.raises(exc, match=match):
         pa._check(*(args[n] for n in names), args["window"])
+
+
+# ------------------------------------- the CUDA kernel's split over chunks
+def _split_k(q, k_pool, v_pool, tables, ctx, window=None):
+    """The arithmetic of the CUDA kernel (``csrc/paged_attention.cu``): each
+    row's range [max(ctx - window, 0), ctx) cut at multiples of
+    C = ``chunk_positions(bs)``; per chunk, in f32, m = max s, p = e^(s - m),
+    l = sum p, acc = p V with q pre-scaled by f32(hd**-0.5); a row of one
+    chunk writes acc / max(l, 1e-30), a longer one merges its chunks in
+    order, sum e^(m_c - M) acc_c / max(sum e^(m_c - M) l_c, 1e-30); an
+    empty range writes zeros.  Nothing but the row's own ctx and window
+    decides its chunks."""
+    B, H, hd = q.shape
+    N, KV, bs, _ = k_pool.shape
+    P = tables.shape[1]
+    G = H // KV
+    C = pa.chunk_positions(bs)
+    scale = float(np.float32(hd ** -0.5))
+    out = torch.zeros(B, H, hd)
+    for b in range(B):
+        ctx_in = max(int(ctx[b]), 0)
+        hi = min(ctx_in, P * bs)
+        lo = max(ctx_in - window, 0) if window is not None else 0
+        if hi <= lo:
+            continue
+        for h in range(KV):
+            qg = q[b, h * G:(h + 1) * G].float() * scale
+            parts = []
+            for c in range(lo // C, -(-hi // C)):
+                pos = torch.arange(max(c * C, lo), min(c * C + C, hi))
+                blk = tables[b, pos // bs].long().clamp(0, N - 1)
+                s = qg @ k_pool[blk, h, pos % bs].float().T
+                m = s.amax(-1)
+                p = torch.exp(s - m[:, None])
+                parts.append((m, p.sum(-1), p @ v_pool[blk, h, pos % bs].float()))
+            if len(parts) == 1:
+                m, l, acc = parts[0]
+                o = acc / l.clamp_min(1e-30)[:, None]
+            else:
+                M = torch.stack([m for m, _, _ in parts]).amax(0)
+                w = [torch.exp(m - M) for m, _, _ in parts]
+                l_sum = sum(wc * l for wc, (_, l, _) in zip(w, parts))
+                acc = sum(wc[:, None] * a for wc, (_, _, a) in zip(w, parts))
+                o = acc / l_sum.clamp_min(1e-30)[:, None]
+            out[b, h * G:(h + 1) * G] = o
+    return out.to(q.dtype)
+
+
+# contexts: an inactive row, one token, page edges (16, 17), chunk edges
+# (64, 65, 128, 129) and the table's reach (12 pages of 16: three chunks)
+SPLIT_CTX = [0, 1, 16, 17, 64, 65, 128, 129, 191, 192]
+
+
+@pytest.mark.parametrize("H,KV,hd,window", [
+    (4, 4, 32, None),              # MHA
+    (14, 2, 16, None),             # qwen2-0.5b's group of 7
+    (4, 2, 32, 70),                # a window across a chunk edge
+    (4, 1, 16, 64),                # a window of exactly one chunk
+])
+def test_split_k_matches_pallas_interpret(H, KV, hd, window):
+    """The kernel's split over chunks and its merge, emulated, against the
+    reference's Pallas kernel in interpret mode, with rows of one, two and
+    three chunks and rows whose range starts inside a chunk; the ctx-0 row
+    is exact zeros."""
+    B, bs, P = len(SPLIT_CTX), 16, 12
+    q, kp, vp, tbl, _ = _paged_inputs(B, H, KV, bs, P, hd, 11 + H)
+    ctx = np.array(SPLIT_CTX, np.int32)
+    want = ref_pa.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tbl),
+        jnp.asarray(ctx), window=window, interpret=True)
+    got = _split_k(_t(q), _t(kp), _t(vp), _t(tbl), _t(ctx), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("window", [None, 70])
+def test_split_k_row_alone_equals_row_in_a_batch(window):
+    """A row's chunks and merge order come from its own ctx and window:
+    each row of the batch, computed alone with a table only as wide as its
+    pages, is bit-identical."""
+    B, H, KV, hd, bs, P = len(SPLIT_CTX), 4, 2, 32, 16, 12
+    q, kp, vp, tbl, _ = (_t(a) for a in _paged_inputs(B, H, KV, bs, P, hd, 5))
+    ctx = _t(np.array(SPLIT_CTX, np.int32))
+    batch = _split_k(q, kp, vp, tbl, ctx, window=window)
+    for b in range(B):
+        pages = max(1, pages_for(int(ctx[b]), bs))
+        alone = _split_k(q[b:b + 1], kp, vp, tbl[b:b + 1, :pages],
+                         ctx[b:b + 1], window=window)
+        assert torch.equal(alone[0], batch[b]), b
+
+
+def test_chunks_are_whole_pages_and_do_not_depend_on_the_batch():
+    assert pa.chunk_positions(16) == 64 and pa.chunk_positions(8) == 64
+    assert pa.chunk_positions(5) == 60 and pa.chunk_positions(48) == 48
+    assert pa.chunk_positions(128) == 128
+    for bs in (1, 5, 16, 48, 128):
+        assert pa.chunk_positions(bs) % bs == 0
+    # bf16 pools of eris-gptneo-1.3b and qwen2-0.5b fit several blocks an SM
+    assert pa.smem_bytes(1, 128, 16, 2) < 48 * 1024
+    assert pa.smem_bytes(7, 64, 16, 2) < 48 * 1024
 
 
 # ------------------------------------------------------------- allocator
