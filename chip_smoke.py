@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``): builds its
 CUDA kernels, holds each to its plain torch version, serves
-eris-gptneo-1.3b at full width, and runs ERIS rounds of it and of
-qwen2-0.5b at full width, training through the flash-attention kernels,
-on one NVIDIA card.
+eris-gptneo-1.3b at full width, runs ERIS rounds of it and of qwen2-0.5b
+at full width, training through the flash-attention kernels, and runs
+the reference's default round (threefry DSC) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -33,7 +33,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ran n_layers times per decode step; then replays one decode step of
    the same engine state through the kernel and through the plain
    version and compares the logits; then serves qwen2-0.5b's smoke
-   variant in f32 on the card and on the host and compares the tokens.
+   variant in f32 on the card and on the host and compares the tokens,
+   greedy and sampled (the threefry sampler).
    A torch.profiler breakdown of three decode steps says where the
    step's time goes.
 5. wire kernels vs plain versions -- ``dsc_update``, ``quantize``,
@@ -57,7 +58,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the kernel's bound and its first (SIMT) version's time.
 7. the ERIS round -- ``FLRun`` on eris-gptneo-1.3b at full width (bf16
    params from ``--seed``, flash_attention on, K = 4, A = 8, lr 0.1,
-   4 x 64 random tokens a client), two rounds in each of three
+   4 x 64 tokens a client from ``lm_token_batches``), two rounds in each
+   of three
    configurations: DSC on the int8 wire through the fused kernel, DSC
    through ``dsc_update``, and the int8 wire alone; the first again with
    flash off (the plain chunked attention, right after itself, to compare
@@ -84,7 +86,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the host (plain versions) with the same seeds: a host-made gradient
    compressed on both gives the same codes, scales and s', and x agrees
    to 1e-4 relative norm.
-10. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+10. the key stream and the reference's default round -- ``random``'s
+    bits, split, fold_in, uniform, bernoulli, randint, permutation and
+    gumbel on the card against the host under both threefry layouts
+    (bit for bit; gumbel within 8 ulps), with jax 0.9.0's values where
+    known, and the last 2**24 elements of a chunked full-width bernoulli
+    on both; then two full-width rounds of eris-gptneo-1.3b in the
+    configuration of ``examples/fl_train_lm.py`` (``use_dsc``,
+    ``RandP(p=0.25)``, ``compress_impl="jnp"``), and two with
+    participation 0.5 on the int8 wire: splits, peaks (under 80 GB),
+    client 3's round-2 compression replayed on the card and the host,
+    the round-2 keys split on the card equal to the host's, and the mask
+    draw's ms a client; then, at the smoke size in f32, error feedback
+    with TopK, RandK, QSGD and fresh random masks on the card and the
+    host.
+11. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -109,17 +125,23 @@ import time
 # gigabytes between them, so let segments grow (set before torch starts)
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import random  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.core import dsc as dsc_lib  # noqa: E402
 from repro_torch.core import fl  # noqa: E402
-from repro_torch.core.compressors import RandP  # noqa: E402
-from repro_torch.core.pipeline import DSCCompress, Int8Wire  # noqa: E402
+from repro_torch.core.compressors import QSGD, RandK, RandP, TopK  # noqa: E402
+from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.core.pipeline import (DSCCompress, Int8Wire,  # noqa: E402
+                                       _seed_of, split_round_keys)
+from repro_torch.data import lm_token_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import dsc_quantize as dq  # noqa: E402
 from repro_torch.kernels import dsc_update as du  # noqa: E402
@@ -594,11 +616,13 @@ def profile_steps(engine, cfg, tables, ctxs, toks, step_ms):
 
 def small_input_phase(dev, seed):
     """qwen2-0.5b's smoke variant (GQA 4/2, qkv bias, tied embeddings) in
-    f32: greedy tokens on the card, through the kernel, equal the host's
-    plain-torch tokens, which the CPU tests hold to the JAX reference."""
+    f32: greedy and sampled tokens on the card, through the kernel and
+    the threefry sampler, equal the host's plain-torch tokens, which the
+    CPU tests hold to the JAX reference."""
     cfg = get_config("qwen2-0.5b").smoke()
-    requests = [(p, SamplingParams()) for p, _ in serve_lib.random_requests(
-        cfg.vocab, 3, 5, 40, seed)]
+    requests = [(p, serve_lib.SAMPLED if i % 2 else SamplingParams())
+                for i, (p, _) in enumerate(serve_lib.random_requests(
+                    cfg.vocab, 6, 5, 40, seed))]
     settings = serve_lib.settings_for(requests, 8, 3, cache_dtype="float32")
     host = tr.init_params(cfg, seed=seed, device="cpu")
     card = {k: (v.to(dev) if not isinstance(v, dict) else
@@ -609,9 +633,9 @@ def small_input_phase(dev, seed):
     b = serve_lib.serve(ServeEngine(cfg, host, settings, device="cpu"),
                         requests)
     check([o.tokens for o in a] == [o.tokens for o in b],
-          "qwen2-0.5b smoke: card and host greedy tokens differ")
-    print(f"  qwen2-0.5b smoke f32: {len(a)} greedy streams on the card == "
-          f"on the host")
+          "qwen2-0.5b smoke: card and host tokens differ")
+    print(f"  qwen2-0.5b smoke f32: {len(a)} streams (greedy and sampled, "
+          f"{serve_lib.SAMPLED}) on the card == on the host")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -998,7 +1022,7 @@ class TimedStage:
     def __init__(self, stage, events: list, capture: dict):
         self.stage, self.events, self.capture = stage, events, capture
 
-    def apply(self, seeds, state, v, k):
+    def apply(self, keys, state, v, k):
         grab = self.capture.get("round") == REPLAY_ROUND and \
             k == REPLAY_CLIENT
         lo, hi = self.capture["window"]
@@ -1009,7 +1033,7 @@ class TimedStage:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.stage.apply(seeds, state, v, k)
+        out = self.stage.apply(keys, state, v, k)
         end.record()
         self.events.append((start, end))
         if grab:
@@ -1020,17 +1044,32 @@ class TimedStage:
         return out
 
 
-def _replay(stage, seeds, capture, n) -> None:
-    """Client 3's round-2 compression, on a 2**24 window at index base
-    3 * n_pad + lo (past 2**32), through the kernel and through the plain
-    version: codes (or v) and s' bit for bit, and both equal to what the
-    round transmitted."""
+def _replay(stage, keys, capture, n) -> None:
+    """Client 3's round-2 compression, on a 2**24 window, with the
+    round's keys: for a kernel's path at index base 3 * n_pad + lo (past
+    2**32), through the kernel and through the plain version; for the
+    threefry (jnp) path, the window [lo, lo + 2**24) of client 3's draw,
+    on the card and on the host.  Codes (or v) and s' bit for bit, and
+    equal to what the round transmitted."""
     lo, _ = capture["window"]
     g, out = capture["g"], capture["out"]
     inner = stage.stage
-    if isinstance(inner, DSCCompress) and inner.impl == "fused":
+    if isinstance(inner, DSCCompress) and inner.impl == "jnp":
+        base = lo
+        key = random.split(keys.comp, K_CLIENTS)[REPLAY_CLIENT]
+        card_s, host_s = capture["s"].clone(), capture["s"].cpu()
+        v = dsc_lib.compress_client(card_s, g, inner.compressor, inner.gamma,
+                                    key, offset=lo, n=n)
+        hv = dsc_lib.compress_client(host_s, g.cpu(), inner.compressor,
+                                     inner.gamma, key, offset=lo, n=n)
+        _same("replay v, card vs host", v.cpu(), hv)
+        _same("replay s', card vs host", card_s.cpu(), host_s)
+        _same("replay v vs the round", v, out)
+        _same("replay s' vs the round", card_s, capture["s_after"])
+    elif isinstance(inner, DSCCompress) and inner.impl == "fused":
         base = REPLAY_CLIENT * qz.padded(n) + lo
-        args = (seeds.comp_mask, seeds.comp_round)
+        k_in, k_q = random.split(keys.comp)
+        args = (_seed_of(k_in), _seed_of(k_q))
         kw = dict(p=inner.p, gamma=inner.gamma, index_base=base)
         q, sc, s_new = dq.dsc_quantize(g, capture["s"].clone(), *args, **kw)
         rq, rsc, rs = wire_ref.dsc_quantize_ref(g, capture["s"], *args, **kw)
@@ -1043,8 +1082,9 @@ def _replay(stage, seeds, capture, n) -> None:
     elif isinstance(inner, DSCCompress):
         base = REPLAY_CLIENT * qz.padded(n, du.LANES) + lo
         kw = dict(p=inner.p, gamma=inner.gamma, index_base=base)
-        v, s_new = du.dsc_update(g, capture["s"].clone(), seeds.comp, **kw)
-        rv, rs = wire_ref.dsc_update_ref(g, capture["s"], seeds.comp, **kw)
+        seed = _seed_of(keys.comp)
+        v, s_new = du.dsc_update(g, capture["s"].clone(), seed, **kw)
+        rv, rs = wire_ref.dsc_update_ref(g, capture["s"], seed, **kw)
         _same("replay v", v, rv)
         _same("replay s'", s_new, rs)
         _same("replay v vs the round", rv, out)
@@ -1052,8 +1092,9 @@ def _replay(stage, seeds, capture, n) -> None:
     else:
         check(isinstance(inner, Int8Wire), f"no replay for {inner}")
         base = REPLAY_CLIENT * qz.padded(n) + lo
-        q, sc = qz.quantize(g, seeds.wire, index_base=base)
-        rq, rsc = wire_ref.quantize_ref(g, seeds.wire, index_base=base)
+        seed = _seed_of(keys.wire)
+        q, sc = qz.quantize(g, seed, index_base=base)
+        rq, rsc = wire_ref.quantize_ref(g, seed, index_base=base)
         _same("replay codes", q, rq)
         _same("replay scales", sc, rsc)
         _same("replay wire value vs the round",
@@ -1061,8 +1102,9 @@ def _replay(stage, seeds, capture, n) -> None:
     torch.cuda.synchronize()
     print(f"  replayed client {REPLAY_CLIENT}'s round-{REPLAY_ROUND + 1} "
           f"compression on [{lo}, {lo + g.numel()}) at index base {base} "
-          f"(mod 2**32: {base % 2**32}): kernel == plain version == the "
-          f"round, bit for bit")
+          f"(mod 2**32: {base % 2**32}): "
+          + ("card == host == the round" if base == lo else
+             "kernel == plain version == the round") + ", bit for bit")
 
 
 def _set_round_launches(value: int = 0) -> None:
@@ -1092,10 +1134,13 @@ def _expect_free_card(what: str) -> None:
           f"{_live_cuda_tensors()}")
 
 
-def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
+def _run_config(dev, seed, cfg, toks, name, fields, path, totals,
+                check_keys: bool = False) -> dict:
     """Two rounds of one configuration; adds its launches to ``totals``.
-    Each wire kernel of ``path`` launches once a client, each flash kernel
-    once a layer a client."""
+    Each wire kernel of ``path`` launches once a client (the threefry
+    path's int8 round trip: once a 2**24 chunk a client), each flash
+    kernel once a layer a client.  ``check_keys`` splits the round-2
+    keys on the card and holds them to the host's the run stepped with."""
     _expect_free_card(f"before {name}")
     torch.cuda.reset_peak_memory_stats()
     fcfg = fl.FLConfig(method="eris", K=K_CLIENTS, A=A_AGGS, lr=LR,
@@ -1124,6 +1169,8 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
     run._grad = timed_grad
     flash_per_round = (cfg.n_layers * K_CLIENTS
                        if tr.uses_flash_kernel(cfg, toks.shape[-1]) else 0)
+    per_client = (math.ceil(n / random.CHUNK) if fields.get("use_dsc") and
+                  fields.get("compress_impl", "jnp") == "jnp" else 1)
     rounds = []
     for t in range(2):
         capture["round"] = t
@@ -1146,7 +1193,7 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
         for k, count in launches.items():       # the main path ended
             totals[k] += count
             want = (flash_per_round if k in FLASH else
-                    K_CLIENTS if k in path else 0)
+                    K_CLIENTS * per_client if k in path else 0)
             check(count == want, f"{name} round {t + 1}: {k} launched "
                   f"{count} times, want {want}")
         losses = [float(x) for x in run.client_losses[-1]]
@@ -1158,6 +1205,10 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
         if run.state.dsc is not None:
             check(bool(run.state.dsc.s_agg.isfinite().all()),
                   f"{name} round {t + 1}: s_agg is not finite")
+        weights = pipeline.participation_weights(
+            run.keys.part, K_CLIENTS, fcfg.participation)
+        participants = (K_CLIENTS if weights is None
+                        else int(weights.count_nonzero()))
         total = start.elapsed_time(end)
         grad_ms = sum(a.elapsed_time(b) for a, b in grad_events)
         comp_ms = sum(a.elapsed_time(b) for a, b in comp_events)
@@ -1165,19 +1216,23 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals) -> dict:
                            compress_ms=comp_ms,
                            aggregate_server_ms=total - grad_ms - comp_ms,
                            wall_s=wall, client_losses=losses,
-                           launches=launches,
+                           participants=participants, launches=launches,
                            allocated_gb=torch.cuda.memory_allocated() / 1e9,
                            peak_gb=torch.cuda.max_memory_allocated() / 1e9))
         print(f"  {name} round {t + 1}: {total:.1f} ms = client "
               f"gradients {grad_ms:.1f} + compression {comp_ms:.1f} + "
               f"aggregation and server {total - grad_ms - comp_ms:.1f} "
-              f"(wall {wall:.2f} s); x {run.x.dtype}; launches "
+              f"(wall {wall:.2f} s); {participants} of {K_CLIENTS} "
+              f"clients aggregated; x {run.x.dtype}; launches "
               f"{ {k: v for k, v in launches.items() if v} }; client "
               f"losses {[round(x, 4) for x in losses]}; device memory "
               f"{rounds[-1]['allocated_gb']:.2f} GB held, "
               f"{rounds[-1]['peak_gb']:.2f} GB peak", flush=True)
-    _replay(run.pipeline.compress[0], fl.round_seeds(seed, REPLAY_ROUND),
-            capture, n)
+    _replay(run.pipeline.compress[0], run.keys, capture, n)
+    if check_keys:
+        _check_round_keys(dev, seed, run.keys, REPLAY_ROUND + 1)
+        print(f"  round-{REPLAY_ROUND + 1} keys split on the card == the "
+              f"host's")
     if name == FL_CONFIGS[0][0]:
         profile_round(run, toks, rounds[-1]["round_ms"])
     peak = torch.cuda.max_memory_allocated()
@@ -1237,8 +1292,8 @@ def fl_round_phase(dev, seed) -> dict:
     for arch, configs in FL_RUNS:
         cfg = fl_train.model_config(arch, full=True)
         check(cfg.flash_attention, f"{arch}: flash attention is off")
-        toks = torch.from_numpy(fl_train.lm_token_batches(
-            seed + 1, K_CLIENTS, BATCH, SEQ, cfg.vocab)).to(dev)
+        toks = fl_train.client_tokens(seed, K_CLIENTS, BATCH, SEQ,
+                                      cfg.vocab, dev)
         for name, fields, path in configs:
             label = name if arch == "eris-gptneo-1.3b" else f"{arch} {name}"
             results[label] = _run_config(dev, seed, cfg, toks, label, fields,
@@ -1305,13 +1360,13 @@ def context_phase(dev, seed) -> None:
     off = dataclasses.replace(on, flash_attention=False)
     check(tr.uses_flash_kernel(on, CONTEXT), "S = 2048 does not take flash")
     params = tr.init_params(on, seed=seed, device=dev)
-    toks = torch.from_numpy(fl_train.lm_token_batches(
-        seed + 3, 1, 1, CONTEXT, on.vocab)[0]).to(dev)
+    toks = lm_token_batches(random.fold_in(random.PRNGKey(seed), 3), 1, 1,
+                            CONTEXT, on.vocab, device=dev)[0]
     short = toks[:, :128]
     for cfg in (on, off):                      # cuBLAS handles, the library
         _client_grad(cfg, params, short)
-    round_toks = torch.from_numpy(fl_train.lm_token_batches(
-        seed + 1, 1, BATCH, SEQ, on.vocab)[0]).to(dev)
+    round_toks = fl_train.client_tokens(seed, 1, BATCH, SEQ, on.vocab,
+                                        dev)[0]
     for cfg in (off, on):
         syncs = _host_syncs(cfg, params, round_toks)
         print(f"  one client gradient at {BATCH} x {SEQ} tokens, flash "
@@ -1368,8 +1423,7 @@ def fl_small_input_phase(dev, seed) -> None:
           "the flash kernels")
     fcfg = fl.FLConfig(method="eris", K=K_CLIENTS, A=A_AGGS, lr=LR,
                        seed=seed, **FL_CONFIGS[0][1])
-    toks = torch.from_numpy(fl_train.lm_token_batches(
-        seed + 1, K_CLIENTS, BATCH, SEQ, cfg.vocab))
+    toks = fl_train.client_tokens(seed, K_CLIENTS, BATCH, SEQ, cfg.vocab)
 
     def loss(p, b):
         return tr.loss_fn(p, cfg, {"tokens": b})
@@ -1390,11 +1444,10 @@ def fl_small_input_phase(dev, seed) -> None:
     # one host-made gradient through the kernel and the plain version
     g = host._grad(host.x, toks[0])
     s = host.state.dsc.s_clients[0]
-    seeds = fl.round_seeds(seed, 2)
+    seeds = [_seed_of(k) for k in random.split(host.keys.comp)]
     kw = dict(p=0.25, gamma=0.5, index_base=3 * qz.padded(g.numel()))
-    on_card = dq.dsc_quantize(g.to(dev), s.to(dev), seeds.comp_mask,
-                              seeds.comp_round, **kw)
-    on_host = dq.dsc_quantize(g, s, seeds.comp_mask, seeds.comp_round, **kw)
+    on_card = dq.dsc_quantize(g.to(dev), s.to(dev), *seeds, **kw)
+    on_host = dq.dsc_quantize(g, s, *seeds, **kw)
     for what, a, b in zip(("codes", "scales", "s'"), on_card, on_host):
         _same(f"smoke gradient {what}, card vs host", a.cpu(), b)
     rel = float((card.x.cpu() - host.x).norm() / host.x.norm())
@@ -1404,6 +1457,243 @@ def fl_small_input_phase(dev, seed) -> None:
           f"x card vs host relative error {rel:.3e} (tol 1e-4); flash "
           f"kernels {launched} launches; a host gradient compressed on the "
           f"card == on the host (codes, scales, s')")
+
+
+# --------------------------------------------------------------- phase 10
+# jax 0.9.0's draws (jax.random on the CPU, both values of
+# jax_threefry_partitionable): the card's machine has no jax
+JAX_0_9_0 = {
+    True: {"bits": [4070199207, 4202968722, 1427181096, 2012915765],
+           "split": [[1832780943, 270669613], [64467757, 2916123636]],
+           "permutation": [0, 1, 8, 5, 6, 4, 3, 2, 7, 9],
+           "uniform_bits": [1054905456, 1057530888, 1055149928],
+           "last_of_full_width_draw": 881270661},
+    False: {"bits": [4146024105, 967050713, 2718843009, 1272950319],
+            "split": [[2465931498, 3679230171], [255383827, 267815257]],
+            "permutation": [2, 7, 9, 6, 0, 8, 1, 3, 4, 5],
+            "uniform_bits": [1058114728, 1048864696, 1063496476],
+            "last_of_full_width_draw": 3636358454},
+}
+JAX_FOLD_IN_0_1 = [928981903, 3453687069]    # fold_in(PRNGKey(0), 1)
+# gumbel, card vs host: both logs within an ulp of the true value, so
+# within the bound the CPU tests hold the host to against jax
+GUMBEL_ULPS = 8
+STREAM_N = 1_000_003
+
+
+def _same_keys(what, card, host) -> None:
+    _same(what, card.cpu(), host)
+
+
+def stream_phase(dev) -> None:
+    """The threefry stream on the card against the host, under both
+    counter layouts: integer draws bit for bit, Gumbel noise within its
+    ulp bound, jax 0.9.0's values where they are known, and the last
+    2**24 elements of a full-width (n = 1,816,565,760) bernoulli drawn
+    in 2**24-element chunks."""
+    for layout in (True, False):
+        random.partitionable = layout
+        name = "partitionable" if layout else "original"
+        want = JAX_0_9_0[layout]
+        host, card = random.PRNGKey(0), random.PRNGKey(0).to(dev)
+        for k in (host, card):
+            check(random.bits(k, (4,), device=k.device).tolist()
+                  == want["bits"], f"{name}: bits(PRNGKey(0)) is not jax's")
+            check(random.split(random.PRNGKey(42).to(k.device)).tolist()
+                  == want["split"], f"{name}: split(PRNGKey(42)) is not jax's")
+            check(random.permutation(k, 10).tolist() == want["permutation"],
+                  f"{name}: permutation(PRNGKey(0), 10) is not jax's")
+            u = random.uniform(random.PRNGKey(1).to(k.device), (3,))
+            check((u.view(torch.int32).long() & 0xFFFFFFFF).tolist()
+                  == want["uniform_bits"], f"{name}: uniform is not jax's")
+            check(random.fold_in(k, 1).tolist() == JAX_FOLD_IN_0_1,
+                  f"{name}: fold_in(PRNGKey(0), 1) is not jax's")
+            big = random.fold_in(random.PRNGKey(7).to(k.device), 3)
+            check(int(random.bits(big, (FULL_N,), window=(FULL_N - 1,
+                                                           FULL_N))[0])
+                  == want["last_of_full_width_draw"],
+                  f"{name}: the full-width draw's last element is not jax's")
+        key, ckey = random.PRNGKey(5), random.PRNGKey(5).to(dev)
+        _same_keys(f"{name} split", random.split(ckey, 7),
+                   random.split(key, 7))
+        _same_keys(f"{name} fold_in", random.fold_in(ckey, 2**31 + 3),
+                   random.fold_in(key, 2**31 + 3))
+        _same(f"{name} bits", random.bits(key, (STREAM_N,), device=dev).cpu(),
+              random.bits(key, (STREAM_N,)))
+        _same(f"{name} uniform",
+              random.uniform(key, (STREAM_N,), device=dev).cpu(),
+              random.uniform(key, (STREAM_N,)))
+        _same(f"{name} bernoulli",
+              random.bernoulli(key, 0.3, (STREAM_N,), device=dev).cpu(),
+              random.bernoulli(key, 0.3, (STREAM_N,)))
+        _same(f"{name} randint",
+              random.randint(key, (STREAM_N,), -5, 100003, device=dev).cpu(),
+              random.randint(key, (STREAM_N,), -5, 100003))
+        _same(f"{name} permutation", random.permutation(ckey, STREAM_N).cpu(),
+              random.permutation(key, STREAM_N))
+        g = random.gumbel(key, (STREAM_N,), device=dev).cpu()
+        hg = random.gumbel(key, (STREAM_N,))
+        ulp = torch.from_numpy(np.spacing(
+            hg.abs().clamp_min(1.0).numpy()))
+        worst = float(((g - hg).abs() / ulp).max())
+        check(worst <= GUMBEL_ULPS, f"{name} gumbel: card vs host "
+              f"{worst:.1f} ulps of max(|g|, 1), bound {GUMBEL_ULPS}")
+        window = (FULL_N - (1 << 24), FULL_N)
+        big = random.fold_in(random.PRNGKey(7), 3)
+        t0 = time.monotonic()
+        on_card = random.bernoulli(big, 0.25, (FULL_N,), device=dev,
+                                   window=window)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        on_host = random.bernoulli(big, 0.25, (FULL_N,), device="cpu",
+                                   window=window)
+        t2 = time.monotonic()
+        _same(f"{name} full-width bernoulli window", on_card.cpu(), on_host)
+        print(f"  {name}: jax 0.9.0's values and card == host for bits, "
+              f"split, fold_in, uniform, bernoulli, randint, permutation; "
+              f"gumbel within {worst:.1f} ulps; bernoulli on "
+              f"[{window[0]}, {window[1]}) of n = {FULL_N}: card == host "
+              f"({(t1 - t0) * 1e3:.1f} ms on the card, "
+              f"{(t2 - t1) * 1e3:.0f} ms on the host)")
+    random.partitionable = True
+
+
+def _check_round_keys(dev, seed, keys, rounds: int) -> None:
+    """The round keys of round ``rounds``, split on the card from
+    PRNGKey(seed), equal the host's that the run stepped with."""
+    key = random.PRNGKey(seed).to(dev)
+    for _ in range(rounds):
+        key, sub = random.split(key)
+    on_card = split_round_keys(sub)
+    for field in keys._fields:
+        _same_keys(f"round key {field}", getattr(on_card, field),
+                   getattr(keys, field))
+
+
+def _draw_ms(dev, n: int) -> float:
+    """Device ms of one client's RandP mask at n coordinates: the
+    chunked bernoulli alone, each chunk consumed (summed) as drawn."""
+    key = random.PRNGKey(1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    kept = torch.zeros((), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    start.record()
+    for lo in range(0, n, random.CHUNK):
+        kept += random.bernoulli(key, 0.25, (n,), device=dev,
+                                 window=(lo, min(n, lo + random.CHUNK))
+                                 ).sum()
+    end.record()
+    end.synchronize()
+    check(abs(int(kept) / n - 0.25) < 1e-3, f"mask keeps {int(kept) / n}")
+    return start.elapsed_time(end)
+
+
+# the reference example's round (examples/fl_train_lm.py: FLConfig with
+# use_dsc and RandP(p=0.25), compress_impl left at "jnp"), then the same
+# with client sampling and the int8 wire (Int8RoundTrip(RandP) under jnp,
+# its round trip on the quantize kernels, one launch a 2**24 chunk)
+DEFAULT_CONFIGS = (
+    ("dsc-jnp", dict(use_dsc=True, compressor=RandP(p=0.25)), ()),
+    ("dsc-jnp-int8-participation",
+     dict(use_dsc=True, compressor=RandP(p=0.25), int8_wire=True,
+          participation=0.5), ("quantize", "dequantize")),
+)
+
+
+def default_round_phase(dev, seed) -> dict:
+    """Two full-width rounds of eris-gptneo-1.3b in each DEFAULT_CONFIG:
+    the split and peak as phase 7 prints them, client 3's round-2
+    compression replayed on the card and the host, the round-2 keys split
+    on the card == the host's; then the mask draw's ms a client.  Returns
+    the kernels' launches over the four rounds."""
+    totals = {name: 0 for name in ROUND}
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=True)
+    toks = fl_train.client_tokens(seed, K_CLIENTS, BATCH, SEQ, cfg.vocab,
+                                  dev)
+    results = {}
+    for name, fields, path in DEFAULT_CONFIGS:
+        results[name] = _run_config(dev, seed, cfg, toks, name, fields, path,
+                                    totals, check_keys=True)
+        peak = results[name]["peak_mem_gb"]
+        check(peak < 80, f"{name}: peak {peak:.2f} GB does not fit the card")
+    _expect_free_card("after the default rounds")
+    n = results[DEFAULT_CONFIGS[0][0]]["n"]
+    draw = [_draw_ms(dev, n) for _ in range(3)]
+    results["mask_draw_ms_a_client"] = draw
+    print(f"  RandP mask draw (random.bernoulli, 2**24-element chunks) at "
+          f"n = {n}: {', '.join(f'{ms:.1f}' for ms in draw)} ms a client")
+    print("default_round " + json.dumps(results))
+    return totals
+
+
+# (name, FLConfig fields, integer-keyed): the dense compressors and the
+# keyed aggregation at the smoke size (k = n / 10 of its 1,443,072
+# parameters), card vs host
+KEYED_CONFIGS = (
+    ("ef-topk", dict(use_ef=True, compressor=TopK(k=144_307)), True),
+    ("dsc-rand_k", dict(use_dsc=True, compressor=RandK(k=144_307)), False),
+    ("dsc-qsgd", dict(use_dsc=True, compressor=QSGD(s=16)), True),
+    ("fresh-masks-random", dict(fresh_masks=True, mask_scheme="random"),
+     True),
+)
+
+
+def keyed_small_input_phase(dev, seed) -> None:
+    """eris-gptneo-1.3b's smoke variant in f32, K = 2: two rounds on the
+    card and on the host in each KEYED_CONFIG, x within 1e-4 relative
+    norm; one host-made gradient through the stage on both with the same
+    state and keys: v and the state bit for bit where the draws are
+    integer-keyed (RandK ranks Gumbel scores, a few ulps apart)."""
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
+    toks = fl_train.client_tokens(seed, 2, BATCH, SEQ, cfg.vocab)
+
+    def loss(p, b):
+        return tr.loss_fn(p, cfg, {"tokens": b})
+
+    for name, fields, exact in KEYED_CONFIGS:
+        fcfg = fl.FLConfig(method="eris", K=2, A=A_AGGS, lr=LR, seed=seed,
+                           **fields)
+        host = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"),
+                        loss, device="cpu")
+        card = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"),
+                        loss, device=dev)
+        for _ in range(2):
+            host.step(toks)
+            card.step(toks.to(dev))
+        rel = float((card.x.cpu() - host.x).norm() / host.x.norm())
+        check(rel <= 1e-4, f"{name}: x card vs host relative error "
+              f"{rel:.3e} after 2 rounds")
+        g = host._grad(host.x, toks[0])
+        if fields.get("fresh_masks"):
+            stage = host.pipeline.aggregate
+            a = stage.assignment(host.keys, g.numel(), dev)
+            b = stage.assignment(host.keys, g.numel(), "cpu")
+            _same(f"{name} assignment, card vs host", a.cpu(), b)
+            what = "the random assignment"
+        else:
+            stage = host.pipeline.compress[0]
+            states = [host.state._replace(
+                dsc=None if host.state.dsc is None else
+                type(host.state.dsc)(*(t.to(d).clone()
+                                       for t in host.state.dsc)),
+                ef=None if host.state.ef is None else
+                type(host.state.ef)(*(t.to(d).clone()
+                                      for t in host.state.ef)))
+                for d in (dev, "cpu")]
+            v = [stage.apply(host.keys, st, g.to(d), 0)
+                 for st, d in zip(states, (dev, "cpu"))]
+            if exact:
+                _same(f"{name} v, card vs host", v[0].cpu(), v[1])
+                for a, b in zip(states[0].dsc or states[0].ef,
+                                states[1].dsc or states[1].ef):
+                    _same(f"{name} state, card vs host", a.cpu(), b)
+                what = "v and the state bit for bit"
+            else:
+                agree = float((v[0].cpu() == v[1]).float().mean())
+                what = f"v equal in {100 * agree:.4f}% of coordinates"
+        print(f"  {name}: x card vs host {rel:.3e} after 2 rounds (tol "
+              f"1e-4); a host gradient through the stage: {what}")
 
 
 # ------------------------------------------------------------------- main
@@ -1464,7 +1754,14 @@ def main() -> None:
     phase("9 ERIS round, small input, card vs host")
     fl_small_input_phase(dev, args.seed)
 
-    phase("10 result")
+    phase("10 the key stream and the reference's default round")
+    stream_phase(dev)
+    default_launches = default_round_phase(dev, args.seed)
+    keyed_small_input_phase(dev, args.seed)
+    for name in round_launches:
+        round_launches[name] += default_launches[name]
+
+    phase("11 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -13,6 +13,13 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
+# On torch 2.13.0+cpu the first call of a transcendental op (log, exp,
+# sqrt, erfinv) in a process, when it runs on several threads, can leave
+# one thread's share of the output wrong (about one process in four; a
+# lazily initialised dispatch raced by the threads).  One call on a single
+# element initialises it on this thread first.
+torch.log(torch.ones(1))
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means the CUDA card and raises when there is none; any

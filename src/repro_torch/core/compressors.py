@@ -1,13 +1,15 @@
 """Unbiased omega-compression operators (``repro/core/compressors.py``,
 Definition 3.1 of the paper).
 
-The port keeps the operators' constants (``omega``, ``retention``,
-``wire_bits``), which size DSC's shift step and the wire accounting, and
-runs the compressors themselves only inside the wire kernels: RandP in
-``kernels/dsc_update`` and ``kernels/dsc_quantize``, the int8 round trip
-in ``kernels/quantize``.  Calling a compressor densely draws its mask from
-``jax.random`` in the reference; the port has no threefry stream yet
-(ROADMAP queue 1.2), so ``__call__`` raises.
+Each compressor's ``__call__(key, x)`` draws from the port's threefry
+stream (``repro_torch.random``) with the reference's keys, and rounds as
+XLA compiles the reference's jitted round on the CPU: a division by a
+constant is a multiply by its f32 reciprocal (``x / p`` in RandP, ``q /
+s`` in QSGD).  Draws keyed by integers (RandP's mask, QSGD's rounding,
+the int8 codes) are the reference's bit for bit; RandK ranks Gumbel
+scores, which agree with jax's to a few ulps (``random.gumbel``).  The
+constants (``omega``, ``retention``, ``wire_bits``) size DSC's shift
+step and the wire accounting.
 
 As in the reference, the dataclass fields of a subclass follow the base's
 ``name``: ``RandP(0.25)`` sets the name and keeps p = 0.1.  Write
@@ -19,20 +21,26 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
+
+from repro_torch import random
+
+
+def reciprocal(c: float) -> float:
+    """The f32 constant XLA multiplies by for a division by the constant
+    c: ``1 / c`` folded in f32."""
+    return float(np.float32(1.0) / np.float32(c))
 
 
 @dataclasses.dataclass(frozen=True)
 class Compressor:
-    """Base class: the identity."""
+    """Base class: the identity.  ``__call__(key, x)`` maps an f32 vector
+    to its compressed, densely represented value."""
 
     name: str = "identity"
 
-    def __call__(self, key, x):
-        raise NotImplementedError(
-            f"{type(self).__name__}.__call__ draws from jax.random in the "
-            f"reference; the port has no threefry key stream yet (ROADMAP "
-            f"queue 1.2).  RandP runs inside the wire kernels instead "
-            f"(DSCCompress impl='pallas' or 'fused')")
+    def __call__(self, key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return x
 
     def omega(self, n: int) -> float:
         """Variance parameter of Definition 3.1."""
@@ -45,6 +53,10 @@ class Compressor:
     def wire_bits(self, n: int) -> float:
         """Expected number of bits on the wire for an n-vector."""
         return 32.0 * n
+
+    @property
+    def unbiased(self) -> bool:
+        return True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +71,10 @@ class RandP(Compressor):
 
     p: float = 0.1
     name: str = "rand_p"
+
+    def __call__(self, key, x):
+        keep = random.bernoulli(key, self.p, tuple(x.shape), device=x.device)
+        return torch.where(keep, x * reciprocal(self.p), 0.0)
 
     def omega(self, n):
         return (1.0 - self.p) / self.p
@@ -79,12 +95,29 @@ class Int8RoundTrip(Compressor):
     """Wire-format composition: inner omega-compressor followed by
     per-block stochastic int8 quantize->dequantize.  The int8 stage is
     unbiased and its variance negligible next to a sparsifying inner
-    compressor, so ``omega`` reports the inner bound.  In the port only
-    the fused kernel (``DSCCompress(impl='fused')``) runs it."""
+    compressor, so ``omega`` reports the inner bound.  The round trip
+    runs the ``quantize`` kernels on a CUDA tensor and their plain
+    versions on the host, which compute the reference's ``quantize_ref``
+    bit for bit (``max|x| / 127`` as XLA compiles it)."""
 
     inner: Compressor = Identity()
     block: int = 256
     name: str = "int8_round_trip"
+
+    def codes(self, key, x):
+        """The wire payload of x: (int8 codes (n_pad,), f32 block
+        scales), the inner compressor drawing with ``split(key)[0]`` and
+        the rounding with ``split(key)[1]``."""
+        from repro_torch.kernels import quantize as q_kernel
+        if self.block != q_kernel.QBLOCK:
+            raise ValueError(f"the int8 wire quantizes blocks of "
+                             f"{q_kernel.QBLOCK}, not {self.block}")
+        k_in, k_q = random.split(key)
+        return q_kernel.quantize(self.inner(k_in, x), int(random.bits(k_q)))
+
+    def __call__(self, key, x):
+        from repro_torch.kernels import quantize as q_kernel
+        return q_kernel.dequantize(*self.codes(key, x))[:x.numel()]
 
     def omega(self, n):
         return self.inner.omega(n)
@@ -95,3 +128,91 @@ class Int8RoundTrip(Compressor):
     def wire_bits(self, n):
         # a dense int8 vector + one f32 scale per block
         return 8.0 * n + 32.0 * math.ceil(n / self.block)
+
+    @property
+    def unbiased(self) -> bool:
+        return self.inner.unbiased
+
+
+@dataclasses.dataclass(frozen=True)
+class RandK(Compressor):
+    """Random-k sparsification: keep exactly k uniformly chosen
+    coordinates (Gumbel top-k), scale by n/k.  omega = n/k - 1."""
+
+    k: int = 128
+    name: str = "rand_k"
+
+    def __call__(self, key, x):
+        n = x.shape[-1]
+        scores = random.gumbel(key, (n,), device=x.device)
+        thresh = torch.topk(scores, self.k).values[-1]
+        return torch.where(scores >= thresh, x * float(np.float32(n / self.k)),
+                           0.0)
+
+    def omega(self, n):
+        return n / self.k - 1.0
+
+    def retention(self, n):
+        return self.k / n
+
+    def wire_bits(self, n):
+        return float(np.float32(self.k)
+                     * (np.float32(32.0)
+                        + np.ceil(np.log2(np.float32(max(n, 2))))))
+
+
+@dataclasses.dataclass(frozen=True)
+class QSGD(Compressor):
+    """QSGD stochastic quantization (Alistarh et al. 2017) with s levels:
+    ``||x|| sign(x_i) xi_i``, xi_i a stochastic rounding of
+    ``|x_i| / ||x|| * s`` to an integer, over s.  Unbiased."""
+
+    s: int = 16
+    name: str = "qsgd"
+
+    def __call__(self, key, x):
+        norm = torch.sqrt(random.reduce_sum(x * x))
+        safe = torch.where(norm > 0, norm, 1.0)
+        y = x.abs() / safe * float(self.s)
+        low = torch.floor(y)
+        up = random.bernoulli(key, y - low)
+        q = (low + up.float()) * reciprocal(self.s)
+        out = norm * torch.sign(x) * q
+        return torch.where(norm > 0, out, 0.0)
+
+    def omega(self, n):
+        return float(min(n / self.s**2, (n**0.5) / self.s))
+
+    def retention(self, n):
+        return 1.0
+
+    def wire_bits(self, n):
+        return 32.0 + n * (1 + math.ceil(math.log2(self.s + 1)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TopK(Compressor):
+    """Top-k by magnitude.  BIASED (not an omega-compressor): it runs
+    under error feedback (``core/error_feedback.py``)."""
+
+    k: int = 128
+    name: str = "top_k"
+
+    def __call__(self, key, x):
+        thresh = torch.topk(x.abs(), self.k).values[-1]
+        return torch.where(x.abs() >= thresh, x, 0.0)
+
+    def omega(self, n):
+        return float("nan")
+
+    def retention(self, n):
+        return self.k / n
+
+    def wire_bits(self, n):
+        return float(np.float32(self.k)
+                     * (np.float32(32.0)
+                        + np.ceil(np.log2(np.float32(max(n, 2))))))
+
+    @property
+    def unbiased(self) -> bool:
+        return False

@@ -8,11 +8,11 @@ update vectors.  ``FLRun.step`` runs one round of the method's
 ``run_fl_scan``, one fused XLA program in the reference, are a loop over
 ``step`` here and give the same trajectory.
 
-Seeds.  The reference splits a threefry key every round; the port draws
-each round's kernel seeds from a counter-based stream keyed on
-(``FLConfig.seed``, round, role) through ``kernels/common.hash_u32``
-(:func:`round_seeds`).  ``step`` also takes the seeds explicitly, which
-is how the tests replay the reference's own.
+Keys.  As the reference, ``FLRun`` holds ``PRNGKey(cfg.seed)`` and
+splits it every round into the round's role keys (``repro_torch.random``,
+jax's threefry stream bit for bit), and ``run_fl`` and ``run_fl_scan``
+key round t's batches from ``PRNGKey(cfg.seed + 1)``: the same seed
+gives the reference's draws.
 """
 from __future__ import annotations
 
@@ -21,20 +21,21 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, random, resolve_device
 from repro_torch.convert import ravel_params, tree_leaves, tree_unflatten
 from repro_torch.core import rounds as rounds_lib
 from repro_torch.core.compressors import Compressor, Identity
-from repro_torch.core.pipeline import RoundSeeds, RoundState, client_batch
-from repro_torch.kernels.common import hash_u32
+from repro_torch.core.pipeline import (RoundKeys, RoundState, client_batch,
+                                       participation_weights,
+                                       split_round_keys)
 
 
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
     """The reference's FLConfig, field for field with the same defaults.
-    The port runs the synchronous fedavg and eris rounds; ``ldp`` and the
-    async knobs belong to methods it does not run yet (ROADMAP queue 1.7)
-    and ``participation < 1`` draws from jax.random (queue 1.2)."""
+    The port runs the synchronous fedavg and eris rounds; ``ldp``, the
+    failure knobs and the async knobs belong to methods it does not run
+    yet (ROADMAP queue 1.7)."""
     method: str = "eris"          # fedavg | eris (rounds.METHODS)
     K: int = 8                    # clients
     A: int = 4                    # aggregators (eris)
@@ -68,34 +69,21 @@ class FLConfig:
     seed: int = 0
 
 
-_ROLES = len(RoundSeeds._fields)
-
-
-def round_seeds(seed: int, t: int) -> RoundSeeds:
-    """Round t's kernel seeds, one per role: murmur3 keyed on (seed,
-    round, role).  Not the reference's threefry stream (ROADMAP queue
-    1.2), so a trajectory equals the reference's only when the caller
-    hands ``step`` the reference's seeds."""
-    key = hash_u32(torch.tensor([seed]) ^ hash_u32(torch.tensor([t])))
-    bits = hash_u32(key ^ hash_u32(torch.arange(1, _ROLES + 1)))
-    return RoundSeeds(*(int(b) for b in bits))
-
-
 class FLRun:
     """The round pipeline and the training state it carries.
 
     ``params0`` is a tree of tensors (nested dicts, as the model's);
     ``loss_fn(params, batch)`` returns a scalar tensor.  The state lives
-    on ``device``: the CUDA card unless the caller asks for the CPU."""
+    on ``device``: the CUDA card unless the caller asks for the CPU.
+    ``key`` is the run's key (on the host), ``keys`` the last round's
+    role keys."""
 
     def __init__(self, cfg: FLConfig, params0: Any,
                  loss_fn: Callable[[Any, Any], torch.Tensor],
                  device: DeviceLike = None):
-        if cfg.participation < 1.0:
-            raise NotImplementedError(
-                "participation < 1 draws its clients from jax.random; the "
-                "port has no threefry key stream yet (ROADMAP queue 1.2)")
         self.cfg = cfg
+        self.key = random.PRNGKey(cfg.seed)
+        self.keys: Optional[RoundKeys] = None
         self.device = resolve_device(device)
         flat0, self.unravel = ravel_params(params0)
         flat0 = flat0.to(self.device)
@@ -137,17 +125,18 @@ class FLRun:
         return flat
 
     # ----------------------------------------------------------------- API
-    def step(self, batches, collect_views: bool = False,
-             seeds: Optional[RoundSeeds] = None):
-        """One round on ``batches`` (a pytree with a leading K axis).
-        ``seeds`` defaults to :func:`round_seeds` of this round."""
-        if seeds is None:
-            seeds = round_seeds(self.cfg.seed, self.t)
+    def step(self, batches, collect_views: bool = False):
+        """One round on ``batches`` (a pytree with a leading K axis), with
+        the next split of the run's key, as the reference's ``step``."""
+        self.key, sub = random.split(self.key)
+        self.keys = split_round_keys(sub)
+        weights = participation_weights(self.keys.part, self.cfg.K,
+                                        self.cfg.participation)
         self.t += 1
         self.client_losses.append([])
         self.state, views = self.pipeline.run_round(
-            self._grad, seeds, self.state, batches, self.cfg.K,
-            collect_views=collect_views)
+            self._grad, self.keys, self.state, batches, self.cfg.K,
+            weights=weights, collect_views=collect_views)
         return views if collect_views else None
 
     def run_scanned(self, batches_stacked) -> torch.Tensor:
@@ -169,18 +158,23 @@ class FLRun:
         return float(self.loss_fn(self.params(), batch))
 
 
-def _data_seed(cfg: FLConfig, t: int) -> int:
-    return round_seeds(cfg.seed + 1, t).comp
+def _data_keys(cfg: FLConfig) -> List[torch.Tensor]:
+    """Round t's data key: the t-th split of ``PRNGKey(cfg.seed + 1)``."""
+    key, subs = random.PRNGKey(cfg.seed + 1), []
+    for _ in range(cfg.rounds):
+        key, sub = random.split(key)
+        subs.append(sub)
+    return subs
 
 
 def run_fl(cfg: FLConfig, params0, loss_fn, batches_per_round,
            eval_batch=None, eval_every: int = 10, device: DeviceLike = None):
-    """Convenience driver.  ``batches_per_round(t, data_seed)`` returns
-    round t's per-client batches (leading K)."""
+    """Convenience runner.  ``batches_per_round(t, key)`` returns round
+    t's per-client batches (leading K)."""
     run = FLRun(cfg, params0, loss_fn, device=device)
     losses = []
-    for t in range(cfg.rounds):
-        run.step(batches_per_round(t, _data_seed(cfg, t)))
+    for t, key in enumerate(_data_keys(cfg)):
+        run.step(batches_per_round(t, key))
         if eval_batch is not None and (t % eval_every == 0
                                        or t == cfg.rounds - 1):
             losses.append((t, run.evaluate(eval_batch)))
@@ -194,8 +188,8 @@ def run_fl_scan(cfg: FLConfig, params0, loss_fn, batches_per_round,
     up front, the rounds run, the recorded iterates evaluated after.  The
     trajectory is :func:`run_fl`'s."""
     run = FLRun(cfg, params0, loss_fn, device=device)
-    per_round = [batches_per_round(t, _data_seed(cfg, t))
-                 for t in range(cfg.rounds)]
+    per_round = [batches_per_round(t, key)
+                 for t, key in enumerate(_data_keys(cfg))]
     xs = []
     for batches in per_round:
         run.step(batches)

@@ -6,17 +6,23 @@ is stored as one integer assignment vector ``assign`` (n,) with values in
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
+import numpy as np
 import torch
+
+from repro_torch import random
 
 
 def make_assignment(n: int, A: int, scheme: str = "strided",
+                    key: Optional[torch.Tensor] = None,
                     device=None) -> torch.Tensor:
     """The shard assignment of n coordinates over A aggregators.
 
     ``strided`` is round robin (i mod A); ``contiguous`` gives A
-    contiguous blocks.  ``random`` permutes the strided assignment with
-    ``jax.random``, which the port cannot reproduce until its threefry
-    stream exists (ROADMAP queue 1.2): it raises."""
+    contiguous blocks; ``random`` is a permutation of the strided
+    assignment drawn with ``key`` (fresh masks a round when the key is
+    the round's, the paper's m^t)."""
     if A < 1:
         raise ValueError("need A >= 1 aggregators")
     idx = torch.arange(n, dtype=torch.int32, device=device)
@@ -25,15 +31,24 @@ def make_assignment(n: int, A: int, scheme: str = "strided",
     if scheme == "contiguous":
         return torch.clamp(idx.long() * A // max(n, 1), max=A - 1).int()
     if scheme == "random":
-        raise NotImplementedError(
-            "mask scheme 'random' draws a jax.random permutation; the port "
-            "has no threefry key stream yet (ROADMAP queue 1.2)")
+        if key is None:
+            raise ValueError("random scheme needs a PRNG key")
+        return random.permutation(key, idx % A)
     raise ValueError(f"unknown scheme {scheme!r}")
 
 
 def mask_for(assign: torch.Tensor, a: int) -> torch.Tensor:
     """Binary mask m_(a) for aggregator a (float32, shape (n,))."""
     return (assign == a).float()
+
+
+def union_mask(assign: torch.Tensor, coalition: Sequence[int]
+               ) -> torch.Tensor:
+    """A colluding coalition's view mask (Cor. D.2): the union of its
+    members' masks."""
+    members = torch.as_tensor(coalition, dtype=assign.dtype,
+                              device=assign.device)
+    return (assign[None, :] == members[:, None]).any(0).float()
 
 
 def masks_stacked(assign: torch.Tensor, A: int) -> torch.Tensor:
@@ -52,3 +67,21 @@ def shard_sizes(assign: torch.Tensor, A: int) -> torch.Tensor:
     """Coordinates per aggregator (the largest shard drives worst-case
     leakage, Sec. 5 'Limitations')."""
     return torch.bincount(assign.long(), minlength=A)
+
+
+def make_weighted_assignment(n: int, weights: Sequence[float],
+                             key: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Heterogeneous shards (Sec. 5 'Limitations'): aggregator a takes a
+    fraction weights[a] of the coordinates, in contiguous runs, permuted
+    with ``key`` when one is given."""
+    w = np.asarray(weights, dtype=np.float64)
+    w = w / w.sum()
+    bounds = np.floor(np.cumsum(w) * n + 0.5).astype(np.int32)
+    assign = np.zeros(n, dtype=np.int32)
+    start = 0
+    for a, b in enumerate(bounds):
+        assign[start:b] = a
+        start = b
+    out = torch.from_numpy(assign)
+    return random.permutation(key, out) if key is not None else out

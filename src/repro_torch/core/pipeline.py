@@ -2,8 +2,8 @@
 Algorithm 1), synchronous stages only:
 
     ClientStep      local gradients                       (Alg. 1 line 3)
-    CompressStage*  what leaves the client                (line 4: DSC on
-                    the wire kernels, the int8 wire)
+    CompressStage*  what leaves the client                (line 4: DSC,
+                    error feedback, the int8 wire)
     AggregateStage  how shards meet                       (lines 5-13)
     ServerStage     how the global model moves            (line 14)
 
@@ -15,12 +15,15 @@ which folds it into one f32 accumulator.  The values are the reference's;
 the memory is one client's vectors at a time, so a round of
 eris-gptneo-1.3b (n = 1.8e9) fits one 80 GB card.  Only what the
 configuration uses is allocated: no shift state without DSC, no
-error-feedback state at all.
+error-feedback state without EF.
 
-Randomness.  The reference derives every kernel seed from threefry role
-keys (``split_round_keys``, ``_seed_of``); the port takes them as a
-:class:`RoundSeeds` of uint32 values.  ``core/fl.FLRun`` draws its own
-from a counter-based stream, and a test can hand in the reference's.
+Randomness.  As in the reference, every round splits its key into role
+keys (:func:`split_round_keys`, from ``repro_torch.random``'s threefry
+stream) and each stage takes the role it consumes: the dense compressors
+draw with their keys, the wire kernels take uint32 seeds
+``_seed_of(key)``.  Client k of a stage whose reference vmaps the
+clients uses ``split(key, K)[k]``, the key the reference's vmap hands
+it.
 
 The draws' global index.  A reference kernel call sees the flattened,
 padded (K, n_pad) block, so client k's coordinate i draws from index
@@ -35,7 +38,9 @@ from typing import Any, Callable, Iterator, List, NamedTuple, Optional
 
 import torch
 
+from repro_torch import random
 from repro_torch.core import dsc as dsc_lib
+from repro_torch.core import error_feedback as ef_lib
 from repro_torch.core import fsa as fsa_lib
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import server_opt as so_lib
@@ -52,18 +57,52 @@ class RoundState(NamedTuple):
     x: torch.Tensor                      # global model (n,)
     dsc: Optional[dsc_lib.DSCState]      # None unless a stage uses DSC
     server: Any                          # server optimizer state
+    ef: Optional[ef_lib.EFState] = None  # None unless a stage uses EF
 
 
-class RoundSeeds(NamedTuple):
-    """One round's kernel seeds (uint32), by the reference's role keys:
-    ``comp`` is ``_seed_of(keys.comp)`` (the ``pallas`` DSC kernel);
-    ``comp_mask`` and ``comp_round`` are the seeds of
-    ``split(keys.comp)`` (the fused kernel's mask and rounding draws);
-    ``wire`` is ``_seed_of(keys.wire)`` (the int8 wire stage)."""
-    comp: int
-    comp_mask: int
-    comp_round: int
-    wire: int
+class RoundKeys(NamedTuple):
+    """A round's role keys, as the reference splits them: the five-way
+    split, the two sub-keys of ``comp`` and a wire key folded from it."""
+    mask: torch.Tensor
+    comp: torch.Tensor
+    noise: torch.Tensor
+    fail: torch.Tensor
+    part: torch.Tensor
+    comp0: torch.Tensor      # split(comp)[0]
+    comp1: torch.Tensor      # split(comp)[1]
+    wire: torch.Tensor       # wire-format stages (int8 quantization)
+
+
+def split_round_keys(key: torch.Tensor) -> RoundKeys:
+    k_mask, k_comp, k_noise, k_fail, k_part = random.split(key, 5)
+    c0, c1 = random.split(k_comp)
+    return RoundKeys(k_mask, k_comp, k_noise, k_fail, k_part, c0, c1,
+                     random.fold_in(k_comp, 0x3177))
+
+
+def participation_weights(key: torch.Tensor, K: int, fraction: float
+                          ) -> Optional[torch.Tensor]:
+    """Client-sampling weights: Bernoulli(fraction) per client with one
+    participant forced (None when everyone participates)."""
+    if fraction >= 1.0:
+        return None
+    k_draw, k_force = random.split(key)
+    part = random.bernoulli(k_draw, fraction, (K,))
+    part[int(random.randint(k_force, (), 0, K))] = True
+    return part.float()
+
+
+def _seed_of(key: torch.Tensor) -> int:
+    """A kernel's uint32 seed: ``bits(key)``."""
+    return int(random.bits(key))
+
+
+def _client_key(key: torch.Tensor, state: RoundState, k: int
+                ) -> torch.Tensor:
+    """Client k's key, as the reference's vmap over ``split(key, K)``."""
+    K = (state.dsc.s_clients if state.dsc is not None else state.ef.e
+         ).shape[0]
+    return random.split(key, K)[k]
 
 
 def client_batch(batches, k: int):
@@ -95,7 +134,7 @@ class CompressStage:
     client k's vector to what it transmits, updating the state in
     place."""
 
-    def apply(self, seeds: RoundSeeds, state: RoundState, v: torch.Tensor,
+    def apply(self, keys: RoundKeys, state: RoundState, v: torch.Tensor,
               k: int) -> torch.Tensor:
         return v
 
@@ -105,25 +144,25 @@ class DSCCompress(CompressStage):
     """Distributed shifted compression, client side (Sec. 3.2.2):
     v_k = C(g_k - s_k);  s_k <- s_k + gamma v_k, s_k updated in place.
 
-    ``impl='pallas'`` runs a RandP compressor through the ``dsc_update``
-    kernel; ``impl='fused'`` runs ``Int8RoundTrip(RandP)`` (or RandP)
-    through the one-pass ``dsc_quantize`` kernel and transmits the
-    dequantized wire value, which the shift tracks.  ``impl='jnp'``
-    composes the dense compressor, whose draws come from ``jax.random``:
-    it waits for the port's key stream (ROADMAP queue 1.2)."""
+    ``impl='jnp'`` (the reference's default) runs the dense compressor,
+    its draws from the threefry stream with client k's key
+    ``split(keys.comp, K)[k]`` (``dsc.compress_client``; RandP chunk by
+    chunk).  ``impl='pallas'`` runs a RandP compressor through the
+    ``dsc_update`` kernel; ``impl='fused'`` runs ``Int8RoundTrip(RandP)``
+    (or RandP) through the one-pass ``dsc_quantize`` kernel and
+    transmits the dequantized wire value, which the shift tracks.  The
+    kernels take ``_seed_of`` the round's ``comp`` key (fused: of its two
+    halves)."""
 
     compressor: Compressor = Identity()
     gamma: float = 0.0
-    impl: str = "jnp"            # pallas | fused  (jnp: queue 1.2)
+    impl: str = "jnp"            # jnp | pallas | fused
 
     def __post_init__(self):
-        if self.impl == "jnp":
-            raise NotImplementedError(
-                "DSCCompress(impl='jnp') draws the compressor's mask from "
-                "jax.random; the port has no threefry key stream yet "
-                "(ROADMAP queue 1.2): use impl='pallas' or 'fused'")
-        if self.impl not in ("pallas", "fused"):
+        if self.impl not in ("jnp", "pallas", "fused"):
             raise ValueError(f"unknown DSC impl {self.impl!r}")
+        if self.impl == "jnp":
+            return
         inner = self.compressor
         if self.impl == "fused" and isinstance(inner, Int8RoundTrip):
             inner = inner.inner
@@ -137,16 +176,21 @@ class DSCCompress(CompressStage):
         comp = self.compressor
         return (comp.inner if isinstance(comp, Int8RoundTrip) else comp).p
 
-    def apply(self, seeds, state, g, k):
+    def apply(self, keys, state, g, k):
         s = state.dsc.s_clients[k]
         n = g.numel()
+        if self.impl == "jnp":
+            return dsc_lib.compress_client(
+                s, g, self.compressor, self.gamma,
+                _client_key(keys.comp, state, k))
         if self.impl == "pallas":
             v, _ = du_kernel.dsc_update(
-                g, s, seeds.comp, p=self.p, gamma=self.gamma,
+                g, s, _seed_of(keys.comp), p=self.p, gamma=self.gamma,
                 index_base=k * q_kernel.padded(n, du_kernel.LANES), out=s)
             return v
+        k_in, k_q = random.split(keys.comp)
         q, scales, _ = dq_kernel.dsc_quantize(
-            g, s, seeds.comp_mask, seeds.comp_round, p=self.p,
+            g, s, _seed_of(k_in), _seed_of(k_q), p=self.p,
             gamma=self.gamma,
             index_base=k * q_kernel.padded(n), out=s)
         # the simulator aggregates in f32, so reconstruct the wire value
@@ -158,11 +202,24 @@ class Int8Wire(CompressStage):
     """Beyond-paper wire format: per-256-block stochastic int8
     quantize -> dequantize round trip on the ``quantize`` kernels."""
 
-    def apply(self, seeds, state, v, k):
+    def apply(self, keys, state, v, k):
         n = v.numel()
         q, scales = q_kernel.quantize(
-            v, seeds.wire, index_base=k * q_kernel.padded(n))
+            v, _seed_of(keys.wire), index_base=k * q_kernel.padded(n))
         return q_kernel.dequantize(q, scales)[:n]
+
+
+@dataclasses.dataclass(frozen=True)
+class EFCompress(CompressStage):
+    """EF21-style error feedback for BIASED compressors:
+    v_k = C(g_k + e_k);  e_k <- g_k + e_k - v_k, client k with key
+    ``split(keys.comp, K)[k]`` (``core/error_feedback.py``)."""
+
+    compressor: Compressor = Identity()
+
+    def apply(self, keys, state, g, k):
+        return ef_lib.compress_client(state.ef.e[k], g, self.compressor,
+                                      _client_key(keys.comp, state, k))
 
 
 # ============================================================== aggregate
@@ -174,15 +231,15 @@ class AggregateResult(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class AggregateStage:
-    """Base: exact mean, FedAvg's all-reduce and equally FSA's algebraic
-    form (Theorem B.1).  ``vs`` yields the K transmitted vectors one at
-    a time.  The reference's per-client weights come from client
-    sampling, which waits for the key stream (ROADMAP queue 1.2): every
-    client weighs 1/K."""
+    """Base: exact weighted mean, FedAvg's all-reduce and equally FSA's
+    algebraic form (Theorem B.1).  ``vs`` yields the K transmitted
+    vectors one at a time; ``weights`` are the round's participation
+    weights (None: every client weighs 1/K)."""
 
-    def apply(self, seeds: RoundSeeds, state: RoundState,
-              vs: Iterator[torch.Tensor], K: int) -> AggregateResult:
-        return AggregateResult(fsa_lib.weighted_sum(vs, K=K), state)
+    def apply(self, keys: RoundKeys, state: RoundState,
+              vs: Iterator[torch.Tensor], K: int,
+              weights: Optional[torch.Tensor] = None) -> AggregateResult:
+        return AggregateResult(fsa_lib.weighted_sum(vs, weights, K=K), state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,8 +249,9 @@ class DSCAggregate(AggregateStage):
 
     gamma: float = 0.0
 
-    def apply(self, seeds, state, vs, K):
-        u, _ = dsc_lib.aggregate(state.dsc, vs, self.gamma, K=K)
+    def apply(self, keys, state, vs, K, weights=None):
+        u, _ = dsc_lib.aggregate(state.dsc, vs, self.gamma, K=K,
+                                 weights=weights)
         return AggregateResult(u, state)
 
 
@@ -203,9 +261,9 @@ class FSASharded(AggregateStage):
     aggregated independently and reassembled; iterate-identical to the
     mean (Theorem B.1), and it exposes the aggregators' views.  It holds
     all K vectors (and, with ``keep_views``, the (A, K, n) views), so it
-    is for simulator sizes.  ``fresh_masks`` redraws the assignment each
-    round from ``jax.random``: that waits for the key stream (ROADMAP
-    queue 1.2)."""
+    is for simulator sizes.  ``fresh_masks`` draws a new random
+    assignment every round (the paper's m^t) with the round's ``mask``
+    key."""
 
     A: int = 4
     mask_scheme: str = "strided"
@@ -214,21 +272,20 @@ class FSASharded(AggregateStage):
     use_dsc: bool = False
     gamma: float = 0.0
 
-    def __post_init__(self):
+    def assignment(self, keys: RoundKeys, n: int, device) -> torch.Tensor:
         if self.fresh_masks:
-            raise NotImplementedError(
-                "FSASharded(fresh_masks=True) draws its masks from "
-                "jax.random; the port has no threefry key stream yet "
-                "(ROADMAP queue 1.2)")
+            return masks_lib.make_assignment(n, self.A, "random",
+                                             key=keys.mask, device=device)
+        return masks_lib.make_assignment(n, self.A, self.mask_scheme,
+                                         device=device)
 
-    def apply(self, seeds, state, vs, K):
+    def apply(self, keys, state, vs, K, weights=None):
         v = torch.stack(list(vs))
         n = v.shape[1]
-        assign = masks_lib.make_assignment(n, self.A, self.mask_scheme,
-                                           device=v.device)
+        assign = self.assignment(keys, n, v.device)
         out = fsa_lib.fsa_round_sharded(
             torch.zeros(n, device=v.device), v, assign, self.A, 1.0,
-            keep_views=self.keep_views)
+            weights=weights, keep_views=self.keep_views)
         mean_v = -out.x_new
         if self.use_dsc:
             s_agg = state.dsc.s_agg
@@ -278,20 +335,29 @@ class RoundPipeline:
                 or isinstance(self.aggregate, DSCAggregate)
                 or getattr(self.aggregate, "use_dsc", False))
 
+    def uses_ef(self) -> bool:
+        return any(isinstance(s, EFCompress) for s in self.compress)
+
     def init_state(self, x0: torch.Tensor, K: int) -> RoundState:
         n = x0.shape[0]
         dsc = (dsc_lib.init_state(K, n, device=x0.device)
                if self.uses_dsc() else None)
-        return RoundState(x0, dsc, self.server.init(x0))
+        ef = (ef_lib.init_state(K, n, device=x0.device)
+              if self.uses_ef() else None)
+        return RoundState(x0, dsc, self.server.init(x0), ef)
 
-    def run_round(self, grad_fn: Callable, seeds: RoundSeeds,
+    def run_round(self, grad_fn: Callable, keys: RoundKeys,
                   state: RoundState, batches, K: int,
+                  weights: Optional[torch.Tensor] = None,
                   collect_views: bool = False
                   ) -> tuple[RoundState, Optional[torch.Tensor]]:
-        """One round.  Returns (new_state, adversary_views); the views are
-        kept only when ``collect_views`` asks for them (the transmitted
-        (K, n) stack under ``view='transmitted'``, or the aggregate
-        stage's override)."""
+        """One round.  Every client computes and compresses (its shift or
+        residual moves whether or not it participates, as in the
+        reference); ``weights`` weigh the aggregation.  Returns
+        (new_state, adversary_views); the views are kept only when
+        ``collect_views`` asks for them (the transmitted (K, n) stack
+        under ``view='transmitted'``, or the aggregate stage's
+        override)."""
         kept: List[torch.Tensor] = []
 
         def transmitted():
@@ -300,14 +366,14 @@ class RoundPipeline:
             k = 0
             for v in self.client(grad_fn, state.x, batches, K):
                 for stage in self.compress:
-                    v = stage.apply(seeds, state, v, k)
+                    v = stage.apply(keys, state, v, k)
                 if collect_views and self.view == "transmitted":
                     kept.append(v)
                 yield v
                 del v       # dropped before client k + 1's gradient
                 k += 1
 
-        agg = self.aggregate.apply(seeds, state, transmitted(), K)
+        agg = self.aggregate.apply(keys, state, transmitted(), K, weights)
         new_state = self.server.apply(agg.state, agg.update)
         if not collect_views:
             return new_state, None

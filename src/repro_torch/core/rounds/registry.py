@@ -4,15 +4,14 @@
   method   compress                   aggregate                server
   ------   ------------------------   ----------------------   -------
   fedavg   (identity)                 weighted mean            -lr*u
-  eris     [DSC | -] [+int8]          FSA (DSC-compensated)    fedavg |
+  eris     [DSC | EF | -] [+int8]     FSA (DSC-compensated)    fedavg |
                                                                fedadam |
                                                                fedyogi
 
 The other methods of the reference (min_leakage, fedavg_ldp, soteriafl,
 priprune, shatter, secure_agg, and the async fedbuff / eris_async), and
 the eris branches for LDP noise, secure masking and failure injection,
-come with ROADMAP queue 1.7; error feedback composes a dense compressor,
-whose draws wait for the key stream (queue 1.2).  They raise naming it.
+come with ROADMAP queue 1.7.  They raise naming it.
 
 Builders take (cfg, n) duck-typed and return a frozen RoundPipeline.
 """
@@ -23,8 +22,9 @@ from typing import Callable
 from repro_torch.core import dsc as dsc_lib
 from repro_torch.core.compressors import Int8RoundTrip
 from repro_torch.core.pipeline import (AggregateStage, ClientStep,
-                                       DSCAggregate, DSCCompress, FSASharded,
-                                       Int8Wire, RoundPipeline, ServerStage)
+                                       DSCAggregate, DSCCompress, EFCompress,
+                                       FSASharded, Int8Wire, RoundPipeline,
+                                       ServerStage)
 
 _LATER = ("min_leakage", "fedavg_ldp", "soteriafl", "priprune", "shatter",
           "secure_agg", "fedbuff", "eris_async")
@@ -61,20 +61,19 @@ def _build_eris(cfg, n):
     if cfg.agg_dropout > 0 or cfg.link_failure > 0:
         raise _not_ported("eris with failure injection (agg_dropout, "
                           "link_failure)", "1.7")
-    if cfg.use_ef:
-        raise _not_ported("error feedback (use_ef: EFCompress composes a "
-                          "dense compressor on jax.random)", "1.2")
-    if int8 and cfg.use_dsc:
-        # the wire format INSIDE the shifted compressor, so the client
-        # references update with exactly what the aggregators receive;
-        # only the fused kernel keeps the composition in one pass, any
-        # other impl routes through the dense compressor (queue 1.2)
+    if int8 and (cfg.use_dsc or cfg.use_ef):
+        # the wire format INSIDE the shifted / error-feedback compressor,
+        # so the client references update with exactly what the
+        # aggregators receive; only the fused kernel keeps the composition
+        # in one pass, any other impl routes through the dense compressor
         compressor = Int8RoundTrip(inner=compressor)
         impl = "fused" if impl == "fused" else "jnp"
     compress: tuple = ()
     if cfg.use_dsc:
         compress += (DSCCompress(compressor=compressor, gamma=gamma,
                                  impl=impl),)
+    elif cfg.use_ef:
+        compress += (EFCompress(compressor=compressor),)
     elif int8:
         compress += (Int8Wire(),)
     keep_views = getattr(cfg, "keep_views", False)

@@ -1,4 +1,4 @@
-"""Counter-based PRNG shared by the port's kernels and the sampler
+"""Counter-based PRNG of the port's wire kernels and their plain versions
 (``repro/kernels/common.py``).
 
 murmur3 fmix32 keyed on (seed, element index).  Torch has no uint32

@@ -57,13 +57,15 @@ def flat_index(n: int, index_base: int, device) -> torch.Tensor:
             + int(index_base)) & _MASK
 
 
-def fma_f32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``f32(a) * b + c`` for f32 tensors b, c, rounded once to f32 as a
-    fused multiply-add rounds it.  The product is exact in double (24 + 24
-    bits); the sum is taken in double rounded to odd (TwoSum for the
-    error, then a nudge to the odd neighbour when inexact), and rounding
-    that to f32 is the single rounding of the exact value."""
-    prod = b.double() * float(np.float32(a))
+def fma_f32(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``f32(a) * b + c`` for f32 tensors b, c (and a float or an f32
+    tensor a), rounded once to f32 as a fused multiply-add rounds it.  The
+    product is exact in double (24 + 24 bits); the sum is taken in double
+    rounded to odd (TwoSum for the error, then a nudge to the odd
+    neighbour when inexact), and rounding that to f32 is the single
+    rounding of the exact value."""
+    a = a.double() if isinstance(a, torch.Tensor) else float(np.float32(a))
+    prod = b.double() * a
     c = c.double()
     s = prod + c
     bb = s - prod

@@ -7,13 +7,17 @@ on its own data, DSC shift-compresses it (on the int8 wire with
 applies the update.  Without ``--full`` the config is the architecture's
 reduced smoke variant, as the example runs it; with ``--full`` it is the
 published width (eris-gptneo-1.3b: 1.8e9 parameters, one 80 GB card).
-Params are random from ``--seed``.  Training keeps the config's
-``flash_attention`` (on by default, as in the example), so every layer's
-attention runs the flash-attention kernels forward and backward.
+Params are random from ``--seed``; the clients' tokens are the example's,
+``lm_token_batches(fold_in(PRNGKey(seed), 1), ...)`` from the threefry
+stream.  ``--impl jnp`` (the default, as the example runs it) draws the
+RandP masks from that stream; ``pallas`` and ``fused`` run the wire
+kernels.  Training keeps the config's ``flash_attention`` (on by
+default, as in the example), so every layer's attention runs the
+flash-attention kernels forward and backward.
 
     PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --rounds 3
     PYTHONPATH=src python -m repro_torch.launch.fl_train --full --dsc \\
-        --int8-wire --impl fused --rounds 2
+        --impl jnp --rounds 2
 """
 from __future__ import annotations
 
@@ -22,28 +26,22 @@ import json
 import time
 
 import numpy as np
-import torch
 
-from repro_torch import resolve_device
+from repro_torch import random, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.convert import tree_leaves
 from repro_torch.core.compressors import RandP
 from repro_torch.core.fl import FLConfig, FLRun
+from repro_torch.data import lm_token_batches
 from repro_torch.models import transformer as tr
 
 
-def lm_token_batches(seed: int, K: int, batch: int, seq_len: int,
-                     vocab: int, zipf_a: float = 1.2) -> np.ndarray:
-    """(K, batch, seq_len) int32 Zipf token streams with a learnable next-
-    token rule (with prob. 1/2, token t+1 = (7 * token t + 3) mod vocab),
-    the recipe of ``repro/data/synthetic.lm_token_batches`` drawn from
-    numpy: the same distribution, not the same tokens."""
-    rng = np.random.default_rng(seed)
-    probs = np.arange(1, vocab + 1, dtype=np.float64) ** (-zipf_a)
-    base = rng.choice(vocab, size=(K, batch, seq_len), p=probs / probs.sum())
-    det = (np.roll(base, 1, axis=-1) * 7 + 3) % vocab
-    coin = rng.random(base.shape) < 0.5
-    return np.where(coin, det, base).astype(np.int32)
+def client_tokens(seed: int, K: int, batch: int, seq_len: int, vocab: int,
+                  device=None):
+    """The example's clients' tokens, (K, batch, seq_len) int32:
+    ``lm_token_batches(fold_in(PRNGKey(seed), 1), ...)``."""
+    return lm_token_batches(random.fold_in(random.PRNGKey(seed), 1), K,
+                            batch, seq_len, vocab, device=device)
 
 
 def model_config(arch: str, full: bool):
@@ -72,9 +70,11 @@ def main(argv=None):
     ap.add_argument("--A", type=int, default=8)
     ap.add_argument("--dsc", action="store_true")
     ap.add_argument("--int8-wire", action="store_true")
-    ap.add_argument("--impl", default="fused", choices=("pallas", "fused"),
-                    help="DSC kernel path: dsc_update or the fused "
-                         "dsc_quantize (int8 wire)")
+    ap.add_argument("--impl", default="jnp",
+                    choices=("jnp", "pallas", "fused"),
+                    help="DSC path: the threefry RandP of the reference's "
+                         "default, the dsc_update kernel, or the fused "
+                         "dsc_quantize kernel (int8 wire)")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--lr", type=float, default=0.1)
@@ -94,11 +94,11 @@ def main(argv=None):
           f"K={args.K} A={args.A} dsc={args.dsc} int8_wire={args.int8_wire} "
           f"impl={args.impl} device={device}", flush=True)
 
-    toks = torch.from_numpy(lm_token_batches(args.seed + 1, args.K,
-                                             args.batch, args.seq, cfg.vocab)
-                            ).to(device)
-    eval_toks = torch.from_numpy(lm_token_batches(
-        args.seed + 2, 1, 8, args.seq, cfg.vocab)[0]).to(device)
+    toks = client_tokens(args.seed, args.K, args.batch, args.seq, cfg.vocab,
+                         device)
+    eval_toks = lm_token_batches(
+        random.fold_in(random.PRNGKey(args.seed), 2), 1, 8, args.seq,
+        cfg.vocab, device=device)[0]
 
     def loss_fn(params, batch):
         return tr.loss_fn(params, cfg, {"tokens": batch})

@@ -33,11 +33,11 @@ from typing import Deque, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, random, resolve_device
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import cache as pc
-from repro_torch.serve.sampling import SamplingParams, sample, token_uniforms
+from repro_torch.serve.sampling import SamplingParams, sample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,23 +154,23 @@ class ServeEngine:
 
     def _sample(self, logits, reqs: Sequence[Optional[Request]],
                 indices: Sequence[int]) -> np.ndarray:
-        """Row-wise sampling; a None request is an inactive slot (greedy
-        on garbage logits, discarded by the caller)."""
+        """Row-wise sampling, token ``indices[i]`` of request i keyed with
+        ``fold_in(PRNGKey(seed), index)`` as the reference keys it; a None
+        request is an inactive slot (greedy on garbage logits, discarded
+        by the caller)."""
         n = len(reqs)
-        seeds = np.zeros((n,), np.int64)
+        keys = torch.zeros((n, 2), dtype=torch.int64)
         temps = np.zeros((n,), np.float32)
         tks = np.zeros((n,), np.int32)
         tps = np.ones((n,), np.float32)
         for i, r in enumerate(reqs):
             if r is None:
                 continue
-            seeds[i] = r.seed
+            keys[i] = random.fold_in(random.PRNGKey(r.seed), indices[i])
             temps[i] = r.sampling.temperature
             tks[i] = r.sampling.top_k
             tps[i] = r.sampling.top_p
-        u = token_uniforms(torch.from_numpy(seeds),
-                           torch.as_tensor(indices, dtype=torch.int64))
-        nxt = sample(u.to(self.device), logits, self._tensor(temps),
+        nxt = sample(keys.to(self.device), logits, self._tensor(temps),
                      self._tensor(tks), self._tensor(tps))
         return nxt.cpu().numpy()
 

@@ -3,16 +3,14 @@
 
 ``sample`` is row-wise: temperature/top_k/top_p come in as per-row
 tensors, so one decode step serves every request's sampling settings at
-once, and each row draws from its own uniform.  The uniforms come from a
-counter-based stream keyed on (request seed, token index) through the
-murmur3 hash of ``kernels/common``: a request's token stream depends only
-on its own seed and history, never on its batch or slot, which is what
-makes batched output token-identical to solo output.
-
-The reference keys its draws with threefry (``fold_in(PRNGKey(seed),
-i)``) and draws with the Gumbel-max trick; this stream is another one.
-Greedy requests match the reference exactly; sampled requests match it
-in distribution only.
+once, and each row draws with its own threefry key, as the reference's
+``vmap(jax.random.categorical)``: Gumbel noise over the vocabulary added
+to the filtered logits, then the argmax.  The engine keys token i of a
+request with ``fold_in(PRNGKey(seed), i)``, so a request's stream depends
+only on its own seed and history, never on its batch or slot: batched
+output is token-identical to solo output, and to the reference's for the
+same seed (the Gumbel noise agrees with jax's to a few ulps,
+``repro_torch.random.gumbel``).
 """
 from __future__ import annotations
 
@@ -20,7 +18,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.common import hash_u32, uniform_from_index
+from repro_torch import random
 
 NEG_INF = -1e30
 _MASK = 0xFFFFFFFF
@@ -46,21 +44,15 @@ class SamplingParams:
                              f"got {self.top_p}")
 
 
-def token_uniforms(seeds: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """U[0, 1) for token ``indices[b]`` of the stream ``seeds[b]`` (int64
-    tensors).  Both 32-bit halves of the seed key the stream."""
-    seeds = seeds.to(torch.int64)
-    stream = hash_u32((seeds & _MASK) ^ hash_u32((seeds >> 32) & _MASK))
-    return uniform_from_index(indices, stream)
-
-
-def sample(u: torch.Tensor, logits: torch.Tensor, temperature: torch.Tensor,
-           top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
-    """Per-row token selection.  u: (B,) uniforms in [0, 1); logits:
-    (B, V); temperature/top_k/top_p: (B,).  Order of the filters, as the
-    reference: temperature scale -> top-k -> top-p on the sorted
-    probabilities -> categorical draw; temperature 0 short-circuits to the
-    argmax (the first maximum).  Returns (B,) int32."""
+def sample(keys: torch.Tensor, logits: torch.Tensor,
+           temperature: torch.Tensor, top_k: torch.Tensor,
+           top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row token selection.  keys: (B, 2) threefry keys on the logits'
+    device; logits: (B, V); temperature/top_k/top_p: (B,).  Order of the
+    filters, as the reference: temperature scale -> top-k -> top-p on the
+    sorted probabilities -> categorical draw; temperature 0
+    short-circuits to the argmax (the first maximum).  Returns (B,)
+    int32."""
     B, V = logits.shape
     greedy = logits.argmax(-1)
     scaled = logits.float() / temperature.float().clamp_min(1e-6)[:, None]
@@ -75,11 +67,7 @@ def sample(u: torch.Tensor, logits: torch.Tensor, temperature: torch.Tensor,
     probs = torch.softmax(sorted_logits.masked_fill(~keep, NEG_INF), -1)
     cum = probs.cumsum(-1)
     keep &= (cum - probs) < top_p[:, None]
-    # inverse-CDF draw in sorted order: the first rank whose cumulative
-    # mass exceeds u * total; filtered ranks add no mass and never win
-    cdf = torch.softmax(sorted_logits.masked_fill(~keep, NEG_INF),
-                        -1).cumsum(-1)
-    target = u.to(cdf)[:, None] * cdf[:, -1:]
-    pick = (cdf <= target).sum(-1).clamp_max(V - 1)
-    drawn = order.gather(-1, pick[:, None])[:, 0]
+    filtered = torch.empty_like(scaled).scatter_(
+        -1, order, sorted_logits.masked_fill(~keep, NEG_INF))
+    drawn = random.categorical(keys, filtered)
     return torch.where(temperature <= 0, greedy, drawn).to(torch.int32)

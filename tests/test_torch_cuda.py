@@ -506,3 +506,94 @@ def test_cuda_paged_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="16 bytes"):
         pa.paged_attention(q[..., :8].contiguous().repeat(1, 1, 2), shifted,
                            shifted, tbl, ctx)
+
+
+# ------------------------------------------------- the threefry key stream
+from repro_torch import random  # noqa: E402
+from repro_torch.core import dsc as dsc_lib  # noqa: E402
+from repro_torch.core import compressors as comp  # noqa: E402
+from repro_torch.serve import sample  # noqa: E402
+
+
+@pytest.fixture(params=[True, False], ids=["partitionable", "original"])
+def layout(request, monkeypatch):
+    monkeypatch.setattr(random, "partitionable", request.param)
+    return request.param
+
+
+@pytest.mark.cuda
+def test_cuda_stream_equals_host(cuda, layout):
+    """Keys split and folded on the card, and every integer draw and
+    uniform made there, equal the host's bit for bit; Gumbel noise within
+    8 ulps of max(|g|, 1) (the two devices' logs)."""
+    key, ckey = random.PRNGKey(9), random.PRNGKey(9).to(cuda)
+    assert torch.equal(random.split(ckey, 6).cpu(), random.split(key, 6))
+    assert torch.equal(random.fold_in(ckey, 2**31 + 1).cpu(),
+                       random.fold_in(key, 2**31 + 1))
+    n = 300_007
+    for draw in (lambda d: random.bits(key, (n,), device=d),
+                 lambda d: random.uniform(key, (n,), device=d),
+                 lambda d: random.uniform(key, (n,), -3.3, 7.1, device=d),
+                 lambda d: random.bernoulli(key, 0.3, (n,), device=d),
+                 lambda d: random.randint(key, (n,), -5, 100003, device=d),
+                 lambda d: random.permutation(key, n, device=d)):
+        assert torch.equal(draw(cuda).cpu(), draw("cpu"))
+    g, hg = random.gumbel(key, (n,), device=cuda).cpu(), \
+        random.gumbel(key, (n,))
+    ulp = torch.from_numpy(np.spacing(hg.abs().clamp_min(1.0).numpy()))
+    assert float(((g - hg).abs() / ulp).max()) <= 8
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_draws_equal_one_piece(cuda, layout, monkeypatch):
+    key = random.PRNGKey(4)
+    whole = random.bernoulli(key, 0.25, (1_000_003,), device=cuda)
+    bits = random.bits(key, (1_000_003,), device=cuda)
+    monkeypatch.setattr(random, "CHUNK", 65536)
+    assert torch.equal(random.bernoulli(key, 0.25, (1_000_003,),
+                                        device=cuda), whole)
+    assert torch.equal(random.bits(key, (1_000_003,), device=cuda), bits)
+    lo = 123_456
+    assert torch.equal(random.bits(key, (1_000_003,), device=cuda,
+                                   window=(lo, lo + 5000)),
+                       bits[lo:lo + 5000])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_jnp_dsc_equals_host(cuda, int8, monkeypatch):
+    """The threefry DSC client step on the card (its int8 round trip on
+    the quantize kernels) equals the host's, v and s' bit for bit, over
+    several chunks."""
+    monkeypatch.setattr(random, "CHUNK", 65536)
+    c = comp.RandP(p=0.3)
+    c = comp.Int8RoundTrip(inner=c) if int8 else c
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.standard_normal(300_007).astype(np.float32))
+    s = torch.from_numpy((0.2 * rng.standard_normal(300_007)).astype(
+        np.float32))
+    s_card = s.to(cuda)
+    qz.quantize.launches = 0
+    v_card = dsc_lib.compress_client(s_card, g.to(cuda), c, 0.37,
+                                     random.PRNGKey(2))
+    v = dsc_lib.compress_client(s, g, c, 0.37, random.PRNGKey(2))
+    assert qz.quantize.launches == (5 if int8 else 0)
+    assert torch.equal(v_card.cpu(), v) and torch.equal(s_card.cpu(), s)
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_equals_host(cuda):
+    """The sampler on the card, with the host's keys and logits, draws
+    the host's tokens (the Gumbel noise a few ulps apart does not move an
+    argmax on this set)."""
+    rng = np.random.default_rng(9)
+    n, V = 64, 50257
+    logits = torch.from_numpy((2 * rng.standard_normal((n, V))).astype(
+        np.float32))
+    args = [torch.from_numpy(a) for a in (
+        rng.choice([0.0, 0.7, 1.0, 1.5], n).astype(np.float32),
+        rng.choice([0, 1, 20, 400], n).astype(np.int32),
+        rng.choice([1.0, 0.9, 0.5], n).astype(np.float32))]
+    keys = random.split(random.PRNGKey(3), n)
+    got = sample(keys.to(cuda), logits.to(cuda), *(a.to(cuda) for a in args))
+    assert torch.equal(got.cpu(), sample(keys, logits, *args))

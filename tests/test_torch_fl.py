@@ -1,11 +1,13 @@
 """The port's FL round against the reference, on the CPU: the flat-vector
 math (Theorem B.1, the compressors' constants, masks, server optimizers),
 the LM loss and its gradients, the parameter flattening order, and whole
-``FLRun`` trajectories with the reference's seeds handed to the port.
+``FLRun`` trajectories, each side drawing its own keys from the same
+seed (the port's threefry stream is jax's).
 
 Trajectories are held to 1e-5 relative norm, not to bits: the two
 frameworks' gradients differ in the last bits, and the streamed client
-sum adds in another order than the reference's einsum.
+sum adds in another order than the reference's einsum.  Given the same
+gradient, the compression is held to bits.
 """
 import dataclasses
 
@@ -26,18 +28,21 @@ from repro.core import server_opt as ref_so  # noqa: E402
 from repro.core.compressors import Identity as RefIdentity  # noqa: E402
 from repro.core.compressors import Int8RoundTrip as RefInt8RoundTrip  # noqa: E402
 from repro.core.compressors import RandP as RefRandP  # noqa: E402
+from repro.core.compressors import TopK as RefTopK  # noqa: E402
 from repro.core.pipeline import split_round_keys  # noqa: E402
 from repro.models import transformer as ref_tr  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax, ravel_params  # noqa: E402
-from repro_torch.core import dsc, fl, fsa, masks, server_opt  # noqa: E402
+from repro_torch import random  # noqa: E402
+from repro_torch.core import dsc, fl, fsa, masks, pipeline  # noqa: E402
+from repro_torch.core import server_opt  # noqa: E402
 from repro_torch.core.compressors import (Identity, Int8RoundTrip,  # noqa: E402
-                                          RandP)
-from repro_torch.core.pipeline import DSCCompress, RoundSeeds  # noqa: E402
+                                          RandP, TopK)
 from repro_torch.launch import fl_train  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 
 DIM, HID, CLASSES, K, S = 8, 16, 3, 3, 16
+SMOKE_N = 1_443_072        # eris-gptneo-1.3b's smoke variant's parameters
 
 
 # ------------------------------------------------------------ helpers
@@ -79,33 +84,19 @@ def _mlp_loss(p, batch):
     return -logp.gather(1, y.long()[:, None]).mean()
 
 
-def _seeds_of(key) -> RoundSeeds:
-    """The kernel seeds the reference's round derives from its key."""
-    keys = split_round_keys(key)
-    k_in, k_q = jax.random.split(keys.comp)
-
-    def bits(k):
-        return int(jax.random.bits(k, dtype=jnp.uint32))
-
-    return RoundSeeds(bits(keys.comp), bits(k_in), bits(k_q),
-                      bits(keys.wire))
-
-
 def _run_both(ref_cfg, cfg, rounds=3):
-    """Both FLRuns on the quickstart MLP; the port steps with the seeds
-    the reference's own round keys give.  Returns the two x per round."""
+    """Both FLRuns on the quickstart MLP, each with its own keys from the
+    configs' seed.  Returns the two x per round."""
     p0 = _mlp_params()
     x, y = _mlp_data()
     ref_run = ref_fl.FLRun(ref_cfg, {k: jnp.asarray(v) for k, v in p0.items()},
                            _ref_mlp_loss)
     run = fl.FLRun(cfg, {k: torch.from_numpy(v.copy()) for k, v in p0.items()},
                    _mlp_loss, device="cpu")
-    key, out = ref_run.key, []
+    out = []
     for _ in range(rounds):
-        key, sub = jax.random.split(key)
         ref_run.step((jnp.asarray(x), jnp.asarray(y)))
-        run.step((torch.from_numpy(x), torch.from_numpy(y)),
-                 seeds=_seeds_of(sub))
+        run.step((torch.from_numpy(x), torch.from_numpy(y)))
         out.append((run.x.numpy().copy(), np.asarray(ref_run.x)))
     return out
 
@@ -128,7 +119,7 @@ CASES = {
 def test_flrun_tracks_reference(case):
     """x after each of 3 rounds within 1e-5 relative norm of the
     reference's FLRun (K = 3, 16 samples a client, RandP(p=0.25) where DSC
-    is on), with the reference's kernel seeds."""
+    is on), each run keyed by its own seed."""
     kw = dict(CASES[case], K=K, lr=0.3)
     dsc_on = kw.get("use_dsc", False)
     ref_cfg = ref_fl.FLConfig(**kw, compressor=RefRandP(p=0.25) if dsc_on
@@ -279,23 +270,40 @@ def test_dsc_aggregate_equals_reference():
 
 
 def test_unported_paths_name_their_queue():
-    with pytest.raises(NotImplementedError, match="queue 1.2"):
-        RandP(p=0.5)(None, torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="queue 1.2"):
-        DSCCompress(compressor=RandP(p=0.5), impl="jnp")
-    with pytest.raises(NotImplementedError, match="queue 1.2"):
-        masks.make_assignment(10, 2, "random")
     p0 = {k: torch.from_numpy(v) for k, v in _mlp_params().items()}
-    for kw, queue in ((dict(use_dsc=True, compressor=RandP(p=0.5)), "1.2"),
-                      (dict(participation=0.5), "1.2"),
-                      (dict(fresh_masks=True), "1.2"),
-                      (dict(use_ef=True), "1.2"),
-                      (dict(agg_dropout=0.1), "1.7"),
+    for kw, queue in ((dict(agg_dropout=0.1), "1.7"),
+                      (dict(link_failure=0.1), "1.7"),
                       (dict(ldp=object()), "1.7"),
+                      (dict(secure_mask=True), "1.7"),
                       (dict(method="fedbuff"), "1.7"),
                       (dict(method="soteriafl"), "1.7")):
         with pytest.raises(NotImplementedError, match=f"queue {queue}"):
             fl.FLRun(fl.FLConfig(**kw), p0, _mlp_loss, device="cpu")
+
+
+# the paths that waited on the key stream and now run: each builds its
+# FLRun and steps once on the MLP, as the reference does
+KEYED_PATHS = {
+    "dsc-jnp": dict(use_dsc=True, compressor=RandP(p=0.5)),
+    "participation": dict(participation=0.5),
+    "fresh-masks": dict(fresh_masks=True),
+    "error-feedback": dict(use_ef=True, compressor=TopK(k=8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KEYED_PATHS))
+def test_keyed_paths_now_run(case):
+    x, y = _mlp_data()
+    p0 = {k: torch.from_numpy(v) for k, v in _mlp_params().items()}
+    run = fl.FLRun(fl.FLConfig(K=K, **KEYED_PATHS[case]), p0, _mlp_loss,
+                   device="cpu")
+    run.step((torch.from_numpy(x), torch.from_numpy(y)))
+    assert run.t == 1 and bool(run.x.isfinite().all())
+    assert RandP(p=0.5)(random.PRNGKey(0), torch.ones(64)).count_nonzero() \
+        < 64
+    assert masks.make_assignment(10, 2, "random",
+                                 key=random.PRNGKey(1)).bincount().tolist() \
+        == [5, 5]
 
 
 def test_flrun_runs_on_the_card_unless_asked(monkeypatch):
@@ -305,10 +313,41 @@ def test_flrun_runs_on_the_card_unless_asked(monkeypatch):
         fl.FLRun(fl.FLConfig(method="fedavg"), p0, _mlp_loss)
 
 
-def test_round_seeds_are_a_function_of_seed_and_round():
-    a, b = fl.round_seeds(0, 0), fl.round_seeds(0, 1)
-    assert a == fl.round_seeds(0, 0) and a != b and a != fl.round_seeds(1, 0)
-    assert len(set(a)) == 4 and all(0 <= s < 2**32 for s in a + b)
+@pytest.mark.parametrize("flag", [True, False])
+def test_flrun_round_keys_and_kernel_seeds_equal_reference(flag, monkeypatch):
+    """Round by round, FLRun's role keys and the kernel seeds its stages
+    take (``_seed_of`` the comp and wire keys, and of the comp key's two
+    halves) equal the reference's, under both threefry layouts; and so
+    do run_fl's data keys."""
+    monkeypatch.setattr(random, "partitionable", flag)
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", flag)
+    try:
+        run = fl.FLRun(fl.FLConfig(K=K, seed=11), {
+            k: torch.from_numpy(v) for k, v in _mlp_params().items()},
+            _mlp_loss, device="cpu")
+        x, y = _mlp_data()
+        key = jax.random.PRNGKey(11)
+        for _ in range(3):
+            run.step((torch.from_numpy(x), torch.from_numpy(y)))
+            key, sub = jax.random.split(key)
+            want = split_round_keys(sub)
+            for name in want._fields:
+                np.testing.assert_array_equal(
+                    getattr(run.keys, name).numpy(), getattr(want, name))
+            k_in, k_q = jax.random.split(want.comp)
+            got = [pipeline._seed_of(k) for k in
+                   (run.keys.comp, *random.split(run.keys.comp),
+                    run.keys.wire)]
+            assert got == [int(jax.random.bits(k, dtype=jnp.uint32))
+                           for k in (want.comp, k_in, k_q, want.wire)]
+        data_key = jax.random.PRNGKey(12)
+        for t, got in enumerate(fl._data_keys(fl.FLConfig(seed=11,
+                                                          rounds=3))):
+            data_key, sub = jax.random.split(data_key)
+            np.testing.assert_array_equal(got.numpy(), sub)
+    finally:
+        jax.config.update("jax_threefry_partitionable", old)
 
 
 # ---------------------------------------------------- model, flattening
@@ -426,45 +465,138 @@ def test_flash_attention_training_runs_the_flash_function_and_prefill_does_not(
     assert calls["flash_fwd_ref"] == L
 
 
-# the round on the smoke model with flash on both sides: DSC alone holds
-# the reference to 1e-5 like the MLP trajectories; on the int8 wire a
-# code flips where a draw falls within an ulp of its fraction, so two
-# gradients that differ in their last bits move x by a quantization step
-# here and there (1e-4, as the card-vs-host round in test_torch_cuda.py)
+# the round on the smoke model with flash on both sides, each run keyed
+# by its own seed: DSC alone, participation, error feedback and fresh
+# masks hold the reference to 1e-5 like the MLP trajectories; on the int8
+# wire a code flips where a draw falls within an ulp of its fraction, so
+# two gradients that differ in their last bits move x by a quantization
+# step here and there (1e-4, as the card-vs-host round in
+# test_torch_cuda.py).  (FLConfig fields, compressor, tolerance)
 FLASH_ROUNDS = {
-    "dsc-pallas": (dict(compress_impl="pallas"), 1e-5),
-    "dsc-int8-fused": (dict(int8_wire=True, compress_impl="fused"), 1e-4),
+    "dsc-pallas": (dict(use_dsc=True, compress_impl="pallas"), "rand_p",
+                   1e-5),
+    "dsc-int8-fused": (dict(use_dsc=True, int8_wire=True,
+                            compress_impl="fused"), "rand_p", 1e-4),
+    "dsc-jnp": (dict(use_dsc=True), "rand_p", 1e-5),
+    "dsc-jnp-int8": (dict(use_dsc=True, int8_wire=True), "rand_p", 1e-4),
+    "participation": (dict(participation=0.5, K=3), "identity", 1e-5),
+    "ef-topk": (dict(use_ef=True), "top_k", 1e-5),
+    "fresh-masks-random": (dict(fresh_masks=True, mask_scheme="random"),
+                           "identity", 1e-5),
 }
+
+
+def _compressors(name):
+    """(reference's, port's) compressor of a FLASH_ROUNDS case."""
+    if name == "rand_p":
+        return RefRandP(p=0.25), RandP(p=0.25)
+    if name == "top_k":
+        return RefTopK(k=SMOKE_N // 10), TopK(k=SMOKE_N // 10)
+    return RefIdentity(), Identity()
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_ROUNDS))
 def test_flrun_with_flash_tracks_reference_on_the_smoke_model(case):
-    """Two eris rounds (K = 2, A = 8, RandP(p=0.25), 2 x 16 tokens a
+    """Two eris rounds (K = 2 unless the case says, A = 8, 2 x 16 tokens a
     client) of eris-gptneo-1.3b's smoke variant with flash_attention on
-    both sides, the port stepping with the reference's own round seeds."""
-    extra, tol = FLASH_ROUNDS[case]
+    both sides, each run keyed by its own seed: no seed is handed over."""
+    fields, comp, tol = FLASH_ROUNDS[case]
+    ref_comp, port_comp = _compressors(comp)
     ref_cfg, cfg, p, pt = _smoke_pair(flash=True)
-    kw = dict(method="eris", K=2, A=8, lr=0.1, use_dsc=True, **extra)
-    ref_run = ref_fl.FLRun(
-        ref_fl.FLConfig(**kw, compressor=RefRandP(p=0.25)), p,
-        lambda q, b: ref_tr.loss_fn(q, ref_cfg, {"tokens": b}))
-    run = fl.FLRun(fl.FLConfig(**kw, compressor=RandP(p=0.25)), pt,
+    kw = dict(dict(method="eris", K=2, A=8, lr=0.1), **fields)
+    ref_run = ref_fl.FLRun(ref_fl.FLConfig(**kw, compressor=ref_comp), p,
+                           lambda q, b: ref_tr.loss_fn(q, ref_cfg,
+                                                       {"tokens": b}))
+    run = fl.FLRun(fl.FLConfig(**kw, compressor=port_comp), pt,
                    lambda q, b: tr.loss_fn(q, cfg, {"tokens": b}),
                    device="cpu")
     toks = np.random.default_rng(7).integers(
-        0, cfg.vocab, size=(2, 2, 16)).astype(np.int32)
-    key = ref_run.key
+        0, cfg.vocab, size=(kw["K"], 2, 16)).astype(np.int32)
+    dropped = 0
     for t in range(2):
-        key, sub = jax.random.split(key)
         ref_run.step(jnp.asarray(toks))
-        run.step(torch.from_numpy(toks), seeds=_seeds_of(sub))
+        run.step(torch.from_numpy(toks))
         assert _rel(run.x.numpy(), np.asarray(ref_run.x)) < tol, t
+        w = pipeline.participation_weights(run.keys.part, kw["K"],
+                                           run.cfg.participation)
+        dropped += 0 if w is None else int((w == 0).sum())
+    # the participation case drops a client in one of its rounds
+    assert (dropped > 0) == (case == "participation")
+
+
+@pytest.mark.parametrize("p,int8,chunk", [(0.25, False, None),
+                                          (0.3, False, 4096),
+                                          (0.25, True, 4096),
+                                          (0.3, True, None)])
+def test_jnp_round_compression_is_bit_identical(p, int8, chunk, monkeypatch):
+    """Given the same gradient (a loss whose gradient is the batch), two
+    jnp-DSC rounds leave every client's shift bit for bit as the
+    reference's jitted round leaves it: the threefry RandP mask, v =
+    (g - s) * f32(1/p), the int8 round trip, and s + gamma v fused into
+    one multiply-add as XLA compiles it.  ``chunk`` draws the mask 4096
+    coordinates at a time, as the full-width round draws it 2**24 at a
+    time."""
+    if chunk:
+        monkeypatch.setattr(random, "CHUNK", chunk)
+    K_, n = 3, 20_011
+    g = np.random.default_rng(10).standard_normal((2, K_, n)).astype(
+        np.float32)
+    kw = dict(method="eris", K=K_, A=4, lr=0.1, use_dsc=True,
+              int8_wire=int8, seed=3)
+    ref_run = ref_fl.FLRun(ref_fl.FLConfig(**kw, compressor=RefRandP(p=p)),
+                           {"w": jnp.zeros(n)},
+                           lambda q, b: jnp.sum(q["w"] * b))
+    run = fl.FLRun(fl.FLConfig(**kw, compressor=RandP(p=p)),
+                   {"w": torch.zeros(n)}, lambda q, b: (q["w"] * b).sum(),
+                   device="cpu")
+    for t in range(2):
+        ref_run.step(jnp.asarray(g[t]))
+        run.step(torch.from_numpy(g[t]))
+        np.testing.assert_array_equal(run.state.dsc.s_clients.numpy(),
+                                      np.asarray(ref_run.dsc.s_clients))
+        assert _rel(run.x.numpy(), np.asarray(ref_run.x)) < 1e-6
+
+
+def test_keyed_masks_equal_reference():
+    """The random scheme (a threefry permutation of the strided
+    assignment), the weighted assignment with and without its
+    permutation, and a coalition's union mask, as the reference's."""
+    for n, A, seed in ((10, 3, 0), (1000, 8, 1), (5000, 5, 2)):
+        key, jkey = random.PRNGKey(seed), jax.random.PRNGKey(seed)
+        ours = masks.make_assignment(n, A, "random", key=key)
+        theirs = ref_masks.make_assignment(n, A, "random", key=jkey)
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+        assert masks.check_disjoint_complete(ours, A)
+        w = [1.0, 2.0, 0.5][:min(A, 3)] + [1.0] * (A - 3)
+        for k, jk in ((None, None), (key, jkey)):
+            np.testing.assert_array_equal(
+                masks.make_weighted_assignment(n, w, key=k).numpy(),
+                np.asarray(ref_masks.make_weighted_assignment(n, w, key=jk)))
+        np.testing.assert_array_equal(
+            masks.union_mask(ours, [0, A - 1]).numpy(),
+            np.asarray(ref_masks.union_mask(theirs, [0, A - 1])))
+    with pytest.raises(ValueError, match="needs a PRNG key"):
+        masks.make_assignment(10, 2, "random")
+
+
+@pytest.mark.parametrize("vocab", [96, 50257])
+def test_fl_train_tokens_are_the_examples(vocab):
+    """The launcher's client tokens are examples/fl_train_lm.py's:
+    ``lm_token_batches(fold_in(PRNGKey(0), 1), 4, 4, 64, vocab)``, token
+    for token, at the smoke vocabulary and GPT-Neo's."""
+    from repro.data import lm_token_batches as ref_tokens
+    got = fl_train.client_tokens(0, 4, 4, 64, vocab)
+    want = ref_tokens(jax.random.fold_in(jax.random.PRNGKey(0), 1), 4, 4,
+                      64, vocab)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_fl_train_launcher_runs_on_the_cpu():
     run = fl_train.main(["--device", "cpu", "--rounds", "2", "--K", "2",
                          "--seq", "16", "--batch", "2", "--dsc",
                          "--int8-wire"])
+    assert run.cfg.compress_impl == "jnp"
     assert run.t == 2 and all(np.isfinite(float(v))
                               for v in run.client_losses[-1])
     assert run.x.dtype == torch.float32

@@ -1,13 +1,13 @@
 """The port's serving engine on the CPU, against the reference engine and
-its own contracts: greedy token streams equal to ``repro.serve``'s for the
-same params, batched output identical to solo output (sampled requests
-included), preemption replay, EOS, validation, and the sampler.
+its own contracts: greedy and sampled token streams equal to
+``repro.serve``'s for the same params and seeds, batched output identical
+to solo output (sampled requests included), preemption replay, EOS,
+validation, and the sampler.
 
-The port's sampler draws from its own counter-based stream (the murmur3
-hash of ``kernels/common`` keyed on request seed and token index), not
-from threefry: greedy requests match the reference exactly, sampled ones
-in distribution, which the last tests check against the filtered
-distribution both samplers draw from."""
+Both samplers key token i of a request with ``fold_in(PRNGKey(seed), i)``
+and draw with the Gumbel-max trick over the threefry stream; the last
+tests also check the draws against the filtered distribution both
+samplers draw from."""
 import dataclasses
 
 import jax
@@ -22,13 +22,14 @@ from repro.models import transformer as ref_tr  # noqa: E402
 from repro.serve import ServeEngine as RefServeEngine  # noqa: E402
 from repro.serve import ServeSettings as RefServeSettings  # noqa: E402
 from repro.serve import sample as ref_sample  # noqa: E402
+from repro.serve import SamplingParams as RefSamplingParams  # noqa: E402
+from repro_torch import random  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.serve import (SamplingParams, ServeEngine,  # noqa: E402
                                ServeSettings, pages_for, sample)
-from repro_torch.serve.sampling import token_uniforms  # noqa: E402
 
 
 def tiny_cfg(arch="qwen2-0.5b"):
@@ -73,6 +74,31 @@ def test_greedy_streams_equal_reference_engine(arch):
     outs = eng.run(prompts)
     assert [o.tokens for o in outs] == [o.tokens for o in ref]
     assert [o.finish_reason for o in outs] == ["length"] * 3
+
+
+# (temperature, top_k, top_p) of the sampled requests, one a request
+SAMPLED = ((1.0, 0, 1.0), (0.7, 8, 1.0), (1.3, 0, 0.8), (0.9, 20, 0.9),
+           (0.0, 0, 1.0), (2.0, 0, 1.0))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "eris-gptneo-1.3b"])
+def test_sampled_streams_equal_reference_engine(arch):
+    """Same params, same prompts and seeds: six requests sampled with
+    temperature, top-k and top-p (and one greedy) through the continuous
+    batch give the reference engine's tokens, token for token."""
+    cfg = dataclasses.replace(ref_get_config(arch).smoke(), n_layers=2,
+                              dtype="float32")
+    ref_params = ref_tr.init_params(jax.random.PRNGKey(0), cfg)
+    params = params_from_jax(jax.tree.map(np.asarray, ref_params), "cpu")
+    prompts = prompts_for(cfg.vocab, len(SAMPLED), seed=1, lo=5, hi=20)
+    ref = RefServeEngine(cfg, ref_params, RefServeSettings(**SETTINGS))
+    eng = ServeEngine(tiny_cfg(arch), params, tiny_settings(), device="cpu")
+    for i, (prompt, (t, k, p)) in enumerate(zip(prompts, SAMPLED)):
+        ref.submit(prompt, sampling=RefSamplingParams(t, k, p), seed=100 + i)
+        eng.submit(prompt, sampling=SamplingParams(t, k, p), seed=100 + i)
+    want, got = ref.run(), eng.run()
+    assert [o.tokens for o in got] == [o.tokens for o in want]
+    assert len({tuple(o.tokens) for o in got}) == len(SAMPLED)
 
 
 # ---------------------------------------------------- engine contracts
@@ -183,19 +209,23 @@ def test_launch_serve_main_smoke(capsys):
 
 
 # ------------------------------------------------------------- sampling
+def _keys(n, seed=0):
+    return random.split(random.PRNGKey(seed), n)
+
+
 def test_greedy_and_topk1_are_argmax():
     logits = torch.from_numpy(
         np.random.default_rng(0).standard_normal((5, 33)).astype(np.float32))
     am = logits.argmax(-1).to(torch.int32)
-    u = torch.rand(5, generator=torch.Generator().manual_seed(0))
+    keys = _keys(5)
     zeros = torch.zeros(5, dtype=torch.int32)
-    greedy = sample(u, logits, torch.zeros(5), zeros, torch.ones(5))
+    greedy = sample(keys, logits, torch.zeros(5), zeros, torch.ones(5))
     assert torch.equal(greedy, am)
-    topk1 = sample(u, logits, torch.full((5,), 1.3), zeros + 1,
+    topk1 = sample(keys, logits, torch.full((5,), 1.3), zeros + 1,
                    torch.ones(5))
     assert torch.equal(topk1, am)
     tie = torch.tensor([[0.0, 2.0, 2.0, 1.0]])        # first maximum wins
-    assert int(sample(u[:1], tie, torch.zeros(1), zeros[:1],
+    assert int(sample(keys[:1], tie, torch.zeros(1), zeros[:1],
                       torch.ones(1))[0]) == 1
 
 
@@ -203,23 +233,59 @@ def test_topk_topp_keep_draws_in_support():
     logits = torch.from_numpy(
         np.random.default_rng(2).standard_normal((1, 64)).astype(np.float32))
     top5 = set(torch.argsort(-logits[0])[:5].tolist())
-    u = token_uniforms(torch.full((200,), 7), torch.arange(200))
+    keys = _keys(200, seed=7)
     rows = logits.expand(200, 64)
-    k = sample(u, rows, torch.full((200,), 1.5),
+    k = sample(keys, rows, torch.full((200,), 1.5),
                torch.full((200,), 5, dtype=torch.int32), torch.ones(200))
     assert set(k.tolist()) <= top5 and len(set(k.tolist())) > 1
-    p = sample(u, rows, torch.full((200,), 2.0),
+    p = sample(keys, rows, torch.full((200,), 2.0),
                torch.zeros(200, dtype=torch.int32), torch.full((200,), 1e-6))
     assert set(p.tolist()) == {int(logits.argmax())}
 
 
-def test_token_stream_depends_only_on_seed_and_index():
-    seeds = torch.tensor([5, 5, 2**40 + 5, 9])
-    idx = torch.tensor([3, 3, 3, 0])
-    u = token_uniforms(seeds, idx)
-    assert u[0] == u[1] and u[0] != u[2]          # high seed bits count
-    assert torch.equal(token_uniforms(seeds[2:3], idx[2:3]), u[2:3])
-    assert bool(((u >= 0) & (u < 1)).all())
+def test_token_stream_depends_only_on_seed_and_index(params, monkeypatch):
+    """A token's key is ``fold_in(PRNGKey(seed), index)``, the reference
+    engine's: the same for the same (seed, index), different for another
+    index or seed, and blind to seed bits above 32, as jax's PRNGKey is
+    with 64-bit types off."""
+    import repro_torch.serve.engine as engine_mod
+    calls = []
+
+    def spy(keys, logits, *settings):
+        calls.append(keys.clone())
+        return torch.zeros(len(keys), dtype=torch.int32)
+
+    monkeypatch.setattr(engine_mod, "sample", spy)
+    eng = ServeEngine(tiny_cfg(), params, tiny_settings(), device="cpu")
+    pairs = ((5, 3), (5, 3), (2**40 + 5, 3), (9, 0))
+    reqs = [engine_mod.Request(rid=i, prompt=[1], max_new_tokens=1,
+                               sampling=SamplingParams(), seed=seed)
+            for i, (seed, _) in enumerate(pairs)]
+    eng._sample(torch.zeros(4, 8), reqs, [i for _, i in pairs])
+    keys = calls[0]
+    assert torch.equal(keys[0], keys[1]) and torch.equal(keys[0], keys[2])
+    assert not torch.equal(keys[0], keys[3])
+    for got, (seed, i) in zip(keys, pairs):
+        want = jax.random.fold_in(jax.random.PRNGKey(seed), i)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_sample_equals_reference_sampler():
+    """The sampler alone, fed the reference's keys and logits: the same
+    tokens as ``repro.serve.sample`` on 64 rows of mixed settings."""
+    rng = np.random.default_rng(9)
+    n, V = 64, 300
+    logits = (2 * rng.standard_normal((n, V))).astype(np.float32)
+    temp = rng.choice([0.0, 0.5, 1.0, 1.7], n).astype(np.float32)
+    top_k = rng.choice([0, 1, 5, 40], n).astype(np.int32)
+    top_p = rng.choice([1.0, 0.9, 0.5], n).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(4), n)
+    want = ref_sample(keys, jnp.asarray(logits), jnp.asarray(temp),
+                      jnp.asarray(top_k), jnp.asarray(top_p))
+    got = sample(torch.from_numpy(np.asarray(keys).astype(np.int64)),
+                 torch.from_numpy(logits), torch.from_numpy(temp),
+                 torch.from_numpy(top_k), torch.from_numpy(top_p))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("temp,top_k,top_p", [(1.0, 0, 1.0), (0.7, 8, 1.0),
@@ -227,9 +293,8 @@ def test_token_stream_depends_only_on_seed_and_index():
 def test_sampled_distribution_matches_reference(temp, top_k, top_p):
     """Both samplers draw from one filtered distribution (temperature,
     then top-k, then top-p on the sorted probabilities with
-    (cum - probs) < top_p).  The port's inverse-CDF draw over a uniform
-    grid of 4096 points reproduces it to 1/4096 per token; the
-    reference's threefry draws, 4000 of them, to five sigma."""
+    (cum - probs) < top_p): 4000 threefry draws of each, with other
+    keys for the two, reproduce it to five sigma."""
     V = 24
     logits = np.random.default_rng(3).standard_normal((1, V)).astype(
         np.float32) * 2
@@ -244,14 +309,15 @@ def test_sampled_distribution_matches_reference(temp, top_k, top_p):
     want[order] = np.where(keep, np.exp(srt - srt.max()), 0)
     want /= want.sum()
 
-    M = 4096
-    u = (torch.arange(M, dtype=torch.float64) + 0.5) / M
-    got = sample(u.float(), torch.from_numpy(logits).expand(M, V),
-                 torch.full((M,), temp), torch.full((M,), top_k,
+    n = 4000
+    keys = random.split(random.PRNGKey(1), n)
+    got = sample(keys, torch.from_numpy(logits).expand(n, V),
+                 torch.full((n,), temp), torch.full((n,), top_k,
                                                     dtype=torch.int32),
-                 torch.full((M,), top_p))
-    freq = np.bincount(got.numpy(), minlength=V) / M
-    np.testing.assert_allclose(freq, want, atol=1.5 / M)
+                 torch.full((n,), top_p))
+    freq = np.bincount(got.numpy(), minlength=V) / n
+    sigma = np.sqrt(want * (1 - want) / n)
+    assert np.all(np.abs(freq - want) <= 5 * sigma + 1e-12)
 
     n = 4000
     keys = jax.random.split(jax.random.PRNGKey(0), n)

@@ -36,8 +36,10 @@ from repro.kernels import dsc_update as ref_du  # noqa: E402
 from repro.kernels import quantize as ref_q  # noqa: E402
 from repro_torch.core import dsc as dsc_lib  # noqa: E402
 from repro_torch.core.compressors import Int8RoundTrip, RandP  # noqa: E402
+from repro_torch import random  # noqa: E402
+from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core.pipeline import (DSCCompress, Int8Wire,  # noqa: E402
-                                       RoundSeeds, RoundState)
+                                       RoundState)
 from repro_torch.kernels import dsc_quantize as dq  # noqa: E402
 from repro_torch.kernels import dsc_update as du  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -263,27 +265,22 @@ def test_out_updates_the_shift_in_place():
 
 
 # ---------------------------------------------- compress stages, (K, n)
-def _ref_seeds(key):
-    keys = split_round_keys(key)
-    k_in, k_q = jax.random.split(keys.comp)
-
-    def bits(k):
-        return int(jax.random.bits(k, dtype=jnp.uint32))
-
-    return keys, RoundSeeds(bits(keys.comp), bits(k_in), bits(k_q),
-                            bits(keys.wire))
-
-
 @pytest.mark.parametrize("config,dtype", [("pallas", "float32"),
                                           ("pallas", "bfloat16"),
                                           ("fused", "float32"),
-                                          ("int8", "float32")])
+                                          ("int8", "float32"),
+                                          ("jnp", "float32"),
+                                          ("jnp", "bfloat16"),
+                                          ("jnp-int8", "float32")])
 def test_compress_stage_matches_reference(config, dtype):
-    """The port's stage, fed the reference's (K, n) gradients and seeds
-    one client at a time, transmits the reference stage's values and
-    leaves its shift state, bit for bit, at K = 3 and the smoke
-    transformer's n (a multiple of 256 but not of 1024, so that a
-    per-client index base built from the wrong padding fails)."""
+    """The port's stage, fed the reference's (K, n) gradients and the
+    round keys of the same seed one client at a time, transmits the
+    reference stage's values and leaves its shift state, bit for bit, at
+    K = 3 and the smoke transformer's n (a multiple of 256 but not of
+    1024, so that a per-client index base built from the wrong padding
+    fails).  The kernels' paths at p = 0.25; the threefry (jnp) paths at
+    p = 0.3, whose 1/p is not exact (the reference's jit multiplies by
+    f32(1/p))."""
     K, n = 3, SMOKE_N
     rng = np.random.default_rng(16)
     grads = rng.standard_normal((K, n)).astype(np.float32)
@@ -291,7 +288,8 @@ def test_compress_stage_matches_reference(config, dtype):
     g_j = jnp.asarray(grads)
     if dtype == "bfloat16":
         g_j = g_j.astype(jnp.bfloat16)
-    keys, seeds = _ref_seeds(jax.random.PRNGKey(21))
+    keys = split_round_keys(jax.random.PRNGKey(21))
+    port_keys = pipeline.split_round_keys(random.PRNGKey(21))
     ref_state = ref_dsc.DSCState(jnp.asarray(s0), jnp.zeros(n))
     if config == "int8":
         ref_stage, stage = RefInt8Wire(), Int8Wire()
@@ -299,13 +297,15 @@ def test_compress_stage_matches_reference(config, dtype):
             lambda k, v: ref_stage.apply(k, None, v)[0])(keys, g_j))
         want_s = None
     else:
-        if config == "pallas":
-            rc, c = RefRandP(p=0.25), RandP(p=0.25)
+        p = 0.3 if config.startswith("jnp") else 0.25
+        impl = config.split("-")[0]
+        if config in ("pallas", "jnp"):
+            rc, c = RefRandP(p=p), RandP(p=p)
         else:
-            rc = RefInt8RoundTrip(inner=RefRandP(p=0.25))
-            c = Int8RoundTrip(inner=RandP(p=0.25))
-        ref_stage = RefDSCCompress(compressor=rc, gamma=GAMMA, impl=config)
-        stage = DSCCompress(compressor=c, gamma=GAMMA, impl=config)
+            rc = RefInt8RoundTrip(inner=RefRandP(p=p))
+            c = Int8RoundTrip(inner=RandP(p=p))
+        ref_stage = RefDSCCompress(compressor=rc, gamma=GAMMA, impl=impl)
+        stage = DSCCompress(compressor=c, gamma=GAMMA, impl=impl)
         v_j, st = jax.jit(ref_stage.compress)(keys.comp, ref_state, g_j)
         want_v, want_s = np.asarray(v_j.astype(jnp.float32)), \
             np.asarray(st.s_clients)
@@ -314,7 +314,7 @@ def test_compress_stage_matches_reference(config, dtype):
     if dtype == "bfloat16":
         g_t = g_t.bfloat16()
     for k in range(K):
-        v = stage.apply(seeds, state, g_t[k], k)
+        v = stage.apply(port_keys, state, g_t[k], k)
         np.testing.assert_array_equal(v.float().numpy(), want_v[k])
     if want_s is not None:
         np.testing.assert_array_equal(state.dsc.s_clients.numpy(), want_s)
