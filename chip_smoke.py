@@ -3,7 +3,8 @@
 CUDA kernels, holds each to its plain torch version, serves
 eris-gptneo-1.3b at full width, runs ERIS rounds of it and of qwen2-0.5b
 at full width, training through the flash-attention kernels, and runs
-the reference's default round (threefry DSC) on one NVIDIA card.
+the reference's default round (threefry DSC), and the distributed FSA
+train step over NCCL, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -46,7 +47,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    its byte bound, and each plain version on a 2**26 window.
 6. flash kernels vs plain versions -- ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` against ``kernels/ref.py`` at (B, H, KV, S, d) =
-   (2, 4, 2, 128, 64) f32, (4, 16, 16, 64, 128), (2, 14, 2, 256, 64),
+   (2, 4, 2, 128, 64) f32, phase 11's (8, 16, 16, 64, 128) f32 (the SIMT
+   kernels its steps 2-3 run), (4, 16, 16, 64, 128), (2, 14, 2, 256, 64),
    (1, 16, 16, 2048, 128), a ragged (1, 4, 4, 100, 128), (1, 14, 2, 512,
    64) and contiguous (2, 4, 4, 128, 128) bf16, causal, full, and causal
    with windows 100 and 200 (four k-tiles), mostly on (B, S, H, d)
@@ -54,8 +56,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    dq, dk and dv; every bf16 forward, dq and dk/dv on the tensor cores.
    Then each kernel, its plain version and scaled_dot_product_attention
    (forward; forward + backward less the forward) are timed at the two
-   rounds' shapes and at S = 2048 for both models, causal, bf16, beside
-   the kernel's bound and its first (SIMT) version's time.
+   rounds' shapes and at S = 2048 for both models, causal, bf16, and at
+   phase 11's f32 shape, beside the kernel's bound and its first (SIMT)
+   version's time.
 7. the ERIS round -- ``FLRun`` on eris-gptneo-1.3b at full width (bf16
    params from ``--seed``, flash_attention on, K = 4, A = 8, lr 0.1,
    4 x 64 tokens a client from ``lm_token_batches``), two rounds in each
@@ -100,7 +103,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     draw's ms a client; then, at the smoke size in f32, error feedback
     with TopK, RandK, QSGD and fresh random masks on the card and the
     host.
-11. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+11. the distributed FSA step (``launch/train.py``) over a one-rank
+    ``cpu:gloo,cuda:nccl`` group on a loopback port (a failure to
+    initialise NCCL fails the run): eris-gptneo-1.3b at full width (bf16
+    params from ``--seed``), the reference CLI's settings (adam lr 1e-2,
+    8 x 64 tokens from ``lm_token_batches(PRNGKey(0))``, keys
+    ``PRNGKey(i)``, ``grad_dtype="float32"``), three steps in each of (a)
+    FSA on the f32 wire, (b) DSC on the int8 wire through the fused
+    kernel, (c) the int8 wire, (d) DSC alone (threefry RandP), (e) (a) on
+    the default bf16 wire; then each at adam lr 1e-5, where the loss
+    must fall at every step (at lr 1e-2 the full-width loss rises: a
+    first step of ~1e-2 a weight is half the init's std).  The host's
+    plain path (gloo, no kernels) takes (a)'s step 1 from the card's
+    params and must land on the card's loss, grad_norm and raised loss
+    after the update (within 5e-2), so the rise is the configuration's
+    and not the card path's.  Asserts
+    finite loss and grad_norm every step, f32 params after each adam
+    step (the reference's promotion), peak memory under 80 GB, and each
+    kernel's launches a step (the fused path: one ``dsc_quantize`` and
+    one ``dequantize`` a leaf; the int8 wire: one ``quantize`` and one
+    ``dequantize`` a leaf; n_layers of each flash kernel, on the tensor
+    cores while the params are bf16).  Prints each step's ms split into
+    gather, gradient, wire (with the Eq. 4 compensation) and optimizer,
+    the peak, and ``mesh_wire_bytes`` at n_client 1, 4 and 8 (computed).
+    Then the smoke variant in f32, (a)-(d), two sgd steps on the card and
+    on the host (gloo) from the same params and keys (within 1e-4), and a
+    host-made leaf through the fused payload and host-made trees through
+    two adam updates on both, bit for bit.
+12. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -134,7 +164,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import random  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.convert import (tree_leaves, tree_map,  # noqa: E402
+                                 tree_unflatten)
 from repro_torch.core import dsc as dsc_lib  # noqa: E402
 from repro_torch.core import fl  # noqa: E402
 from repro_torch.core.compressors import QSGD, RandK, RandP, TopK  # noqa: E402
@@ -803,12 +834,15 @@ def wire_timing(dev, seed) -> dict:
 
 # ---------------------------------------------------------------- phase 6
 # (B, H, KV, S, d, dtype, bshd): a small f32 case, every shape phases 7-9
-# give the kernels (eris-gptneo-1.3b's round, qwen2-0.5b's round, the
-# smoke round of phase 9 in f32, the GPT-Neo context), qwen2-0.5b's GQA (7
-# heads a kv head) over four and eight k-tiles, a ragged S at d = 128, and
-# contiguous (B, H, S, d) inputs beside the model's (B, S, H, d) views;
-# each under every mask
+# and 11 give the kernels (eris-gptneo-1.3b's round, qwen2-0.5b's round,
+# the smoke round of phase 9 in f32, the GPT-Neo context, and phase 11's
+# step in f32: after adam's first step the params are f32, so steps 2-3
+# run the SIMT kernels at d = 128), qwen2-0.5b's GQA (7 heads a kv head)
+# over four and eight k-tiles, a ragged S at d = 128, and contiguous (B,
+# H, S, d) inputs beside the model's (B, S, H, d) views; each under every
+# mask
 FLASH_SHAPES = ((2, 4, 2, 128, 64, torch.float32, True),
+                (8, 16, 16, 64, 128, torch.float32, True),
                 (4, 16, 16, 64, 128, torch.bfloat16, True),
                 (4, 14, 2, 64, 64, torch.bfloat16, True),
                 (4, 4, 2, 64, 64, torch.float32, True),
@@ -829,6 +863,9 @@ FLASH_TIMED = (("gptneo-round", (4, 16, 16, 64, 128)),
                ("qwen2-round", (4, 14, 2, 64, 64)),
                ("gptneo-s2048", (1, 16, 16, 2048, 128)),
                ("qwen2-s2048", (1, 14, 2, 2048, 64)))
+# timed causal in f32 (the SIMT kernels): phase 11's step from its second
+# step on, 8 x 64 tokens on one rank
+FLASH_TIMED_F32 = (("gptneo-train-f32", (8, 16, 16, 64, 128)),)
 # each kernel's first version's time in us at those shapes: f32 FMAs on
 # the CUDA cores (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700.00 W),
 # printed beside this run's; at qwen2's S = 2048 only the SIMT forward
@@ -925,8 +962,8 @@ def _pairs(S: int, causal: bool) -> int:
     return S * (S + 1) // 2 if causal else S * S
 
 
-def _flash_bound(nbytes: int, flops: int) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS
+def _flash_bound(nbytes: int, flops: int, rate: float) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=flops)
@@ -934,20 +971,27 @@ def _flash_bound(nbytes: int, flops: int) -> dict:
 
 def flash_timing(dev, seed) -> dict:
     """Each flash kernel and its plain version at the rounds' shapes and
-    at S = 2048, causal, bf16, in CUDA graphs of back-to-back calls (the
-    host's enqueue is not measured); beside them
-    scaled_dot_product_attention: its forward, and its forward and
+    at S = 2048, causal, bf16, and at phase 11's f32 shape, in CUDA graphs
+    of back-to-back calls (the host's enqueue is not measured); beside
+    them scaled_dot_product_attention: its forward, and its forward and
     autograd backward less the forward (dq, dk and dv in one call).  The
     bound counts each input read once and each output written once at
     3.35 TB/s, and the visible pairs' products at the bf16 tensor-core
-    peak of 989 TFLOP/s."""
+    peak of 989 TFLOP/s (f32: 67 TFLOP/s outside the tensor cores, where
+    the f32 kernels run)."""
     gen = torch.Generator(device=dev).manual_seed(seed + 12)
     out = {}
-    for label, (B, H, KV, S, d) in FLASH_TIMED:
-        q, k, v, do = _flash_inputs(gen, dev, B, H, KV, S, d, torch.bfloat16)
+    timed = ([(label, shape, torch.bfloat16) for label, shape in FLASH_TIMED]
+             + [(label, shape, torch.float32)
+                for label, shape in FLASH_TIMED_F32])
+    for label, (B, H, KV, S, d), dtype in timed:
+        q, k, v, do = _flash_inputs(gen, dev, B, H, KV, S, d, dtype)
         o, lse = fa.flash_fwd(q, k, v)
         delta = wire_ref.flash_delta(o, do)
-        qb, kvb, rows = 2 * B * H * S * d, 2 * B * KV * S * d, 4 * B * H * S
+        size = q.element_size()
+        rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_OPS_PER_S
+        qb, kvb, rows = (size * B * H * S * d, size * B * KV * S * d,
+                         4 * B * H * S)
         nbytes = {"flash_fwd": 2 * qb + 2 * kvb + rows,
                   "flash_dq": 3 * qb + 2 * kvb + 2 * rows,
                   "flash_dkv": 2 * qb + 4 * kvb + 2 * rows}
@@ -981,10 +1025,12 @@ def flash_timing(dev, seed) -> dict:
             row[name] = dict(
                 ms=_graph_ms(kernel, n), plain_ms=_graph_ms(plain, n),
                 library_ms=lib_fwd_ms if name == "flash_fwd" else lib_bwd_ms,
-                **_flash_bound(nbytes[name], FLASH_FLOPS[name] * d * pairs))
+                **_flash_bound(nbytes[name], FLASH_FLOPS[name] * d * pairs,
+                               rate))
             r = row[name]
             was = FIRST_VERSION_US.get(label, {}).get(name)
-            print(f"  {label} B={B} H={H} KV={KV} S={S} d={d}: {name:9s} "
+            print(f"  {label} B={B} H={H} KV={KV} S={S} d={d} "
+                  f"{str(dtype)[6:]}: {name:9s} "
                   f"kernel {r['ms'] * 1e3:10.2f} us (first version: "
                   f"{'not timed' if was is None else f'{was:.2f} us'}), plain "
                   f"{r['plain_ms'] * 1e3:10.2f} us, bound "
@@ -1696,6 +1742,298 @@ def keyed_small_input_phase(dev, seed) -> None:
               f"1e-4); a host gradient through the stage: {what}")
 
 
+# --------------------------------------------------------------- phase 11
+# The distributed FSA step (launch/train.py) as the reference's CLI runs
+# it (python -m repro.launch.train): adam lr 1e-2, 8 x 64 tokens from
+# lm_token_batches(PRNGKey(0)), keys PRNGKey(i), grad_dtype float32; (e)
+# keeps TrainSettings' default bf16 wire.  One rank over NCCL: every leaf
+# is this aggregator's whole (n_client = 1).
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 3, 8, 64, 1e-2
+TRAIN_CONFIGS = (
+    # (name, TrainSettings fields, wire kernels launched once a sharded
+    # leaf a step)
+    ("a fsa f32 wire", dict(grad_dtype="float32"), ()),
+    ("b dsc int8 fused", dict(grad_dtype="float32", use_dsc=True,
+                              int8_wire=True), ("dsc_quantize", "dequantize")),
+    ("c int8", dict(grad_dtype="float32", int8_wire=True),
+     ("quantize", "dequantize")),
+    ("d dsc jnp", dict(grad_dtype="float32", use_dsc=True), ()),
+    ("e fsa bf16 wire", dict(), ()),
+)
+# At the CLI's lr 1e-2 adam's first step moves every weight by ~1e-2,
+# half the std of eris-gptneo-1.3b's init (fan_in**-0.5 = 0.022 at
+# d_model 2048), and the full-width loss rises (11.373 -> 18.943 in (a);
+# NVIDIA H100 80GB HBM3, 700.00 W).  At the smoke width the same lr is a
+# smaller share of the init std and the reference's first step lowers
+# the loss (FSA f32: 6.793, 4.989, 6.926; jax 0.9.0 on the CPU), so the
+# smoke size says nothing of the full width.  Two witnesses instead: the
+# host's plain path (gloo, no kernels, the CPU's bf16) takes step 1 of (a)
+# from the card's params and must land on the card's step-1 loss and
+# grad_norm and on the card's raised step-2 loss (TRAIN_WITNESS_TOL,
+# chosen before the first run: bf16 sums in other orders, and adam's
+# sign-like step flips coordinates whose gradients are near zero); and
+# every configuration runs again at lr 1e-5, where the loss must fall at
+# every step on the repeated batch.
+TRAIN_FALL_LR = 1e-5
+TRAIN_FALL_CONFIGS = tuple(name for name, _, _ in TRAIN_CONFIGS)
+TRAIN_WITNESS_TOL = 5e-2
+TRAIN_PARTS = ("gather", "gradient", "wire", "optimizer", "end")
+# the smoke steps, card (NCCL, kernels) vs host (gloo, plain versions),
+# with sgd (phase 9's precedent: the gradients differ in their last bits,
+# and an int8 code flips where a draw falls within an ulp of its
+# fraction).  Adam's first step is ~ lr sign(g): a gradient within that
+# noise of zero flips a whole 2 lr step, so adam's trajectories are held
+# apart from the gradients, by one update card == host bit for bit.
+TRAIN_SMOKE_LR, TRAIN_SMOKE_TOL = 0.05, 1e-4
+
+
+def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
+                  totals, lr=TRAIN_LR, witness=False) -> dict:
+    """TRAIN_STEPS steps of one configuration at full width; adds its
+    launches to ``totals``.  At ``TRAIN_FALL_LR`` the loss must fall at
+    every step.  With ``witness``, step 1 again on the host
+    (:func:`_train_witness`)."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adam
+    _expect_free_card(f"before {name}")
+    torch.cuda.reset_peak_memory_stats()
+    settings = train.TrainSettings(**fields)
+    opt = adam(lr)
+    events = {}
+
+    def mark(part):
+        events[part] = torch.cuda.Event(enable_timing=True)
+        events[part].record()
+
+    step = train.make_train_step(cfg, mesh, opt, settings, device=dev,
+                                 mark=mark)
+    params = train.store_params(tr.init_params(cfg, seed=seed, device=dev),
+                                cfg, mesh, settings)
+    params0 = tree_map(lambda t: t.cpu(), params) if witness else None
+    state = opt.init(params)
+    dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=dev)
+    n_leaves = len(tree_leaves(params))
+    flash = cfg.n_layers if tr.uses_flash_kernel(cfg, TRAIN_SEQ) else 0
+    steps = []
+    for i in range(TRAIN_STEPS):
+        bf16 = {t.dtype for t in tree_leaves(params)} == {torch.bfloat16}
+        _set_round_launches(0)                    # the main path starts
+        t0 = time.monotonic()
+        params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                         {"tokens": toks}, random.PRNGKey(i))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: fn.launches for k, fn in ROUND.items()}
+        tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
+        for k, count in launches.items():         # the main path ended
+            totals[k] += count
+            want = (flash if k in FLASH else n_leaves if k in path else 0)
+            check(count == want, f"{name} step {i + 1}: {k} launched "
+                  f"{count} times, want {want}")
+        check(tc == [flash if bf16 else 0] * 3, f"{name} step {i + 1}: "
+              f"tensor-core forward, dq, dk/dv launched {tc} times "
+              f"(params bf16: {bf16})")
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"{name} step {i + 1}: loss {loss}, grad_norm {gnorm}")
+        dtypes = sorted({str(t.dtype) for t in tree_leaves(params)})
+        check(dtypes == ["torch.float32"], f"{name} step {i + 1}: params "
+              f"{dtypes} after an adam step, want float32 (the "
+              f"reference's promotion)")
+        split = {part: events[part].elapsed_time(events[nxt])
+                 for part, nxt in zip(TRAIN_PARTS, TRAIN_PARTS[1:])}
+        total = events["gather"].elapsed_time(events["end"])
+        steps.append(dict(step_ms=total, **{f"{k}_ms": v for k, v in
+                                             split.items()},
+                          loss=loss, grad_norm=gnorm, wall_s=wall,
+                          launches={k: v for k, v in launches.items() if v},
+                          allocated_gb=torch.cuda.memory_allocated() / 1e9))
+        print(f"  {name} step {i + 1}: {total:.1f} ms = "
+              + " + ".join(f"{k} {v:.1f}" for k, v in split.items())
+              + f" (wall {wall:.2f} s); loss {loss:.4f}, grad_norm "
+              f"{gnorm:.4f}; launches {steps[-1]['launches']}; tensor "
+              f"cores {tc}; device memory {steps[-1]['allocated_gb']:.2f} "
+              f"GB held", flush=True)
+    losses = [s["loss"] for s in steps]           # loss i before update i
+    falls = all(b < a for a, b in zip(losses, losses[1:]))
+    check(falls or lr != TRAIN_FALL_LR, f"{name} at lr {lr}: the loss did "
+          f"not fall at every step on the repeated batch: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 80e9, f"{name}: peak {peak / 1e9:.2f} GB does not fit "
+          f"the card")
+    if witness:
+        _train_witness(cfg, mesh, toks, fields, lr, params0, steps)
+        del params0
+    print(f"  {name}, adam lr {lr}: losses {losses} (falls at every step: "
+          f"{falls}); peak device memory "
+          f"{peak / 1e9:.2f} GB "
+          f"({peak / 2**30:.2f} GiB); mu/nu "
+          f"{sorted({str(t.dtype) for t in tree_leaves(state.mu)})}")
+    del params, state, dsc_ref, step
+    return dict(lr=lr, steps=steps, peak_gb=peak / 1e9)
+
+
+def _train_witness(cfg, mesh, toks, fields, lr, params0, card) -> None:
+    """Step 1 of a full-width configuration on the host's plain path
+    (gloo, the kernels' plain versions, the CPU's bf16) from the card's
+    params and tokens, then the loss at the updated params: each within
+    TRAIN_WITNESS_TOL of the card's step-1 loss and grad_norm and of its
+    step-2 loss, which is the loss after update 1."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adam
+    t0 = time.monotonic()
+    cpu = torch.device("cpu")
+    settings = train.TrainSettings(**fields)
+    opt = adam(lr)
+    step = train.make_train_step(cfg, mesh, opt, settings, device=cpu)
+    batch = {"tokens": toks.cpu()}
+    params, _, _, m = step(params0, opt.init(params0),
+                           train.init_dsc_state(cfg, mesh, settings,
+                                                device=cpu),
+                           batch, random.PRNGKey(0))
+    with torch.no_grad():
+        after = float(tr.loss_fn(params, cfg, batch))
+    del params
+    host = (float(m["loss"]), float(m["grad_norm"]), after)
+    want = (card[0]["loss"], card[0]["grad_norm"], card[1]["loss"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(host, want)]
+    check(max(rel) <= TRAIN_WITNESS_TOL, f"host witness: step-1 loss, "
+          f"grad_norm and the loss after update 1 {host}, card {want} "
+          f"(relative {rel}, tol {TRAIN_WITNESS_TOL})")
+    print(f"  host witness, adam lr {lr}: step-1 loss {host[0]:.4f}, "
+          f"grad_norm {host[1]:.4f}, loss after update 1 {host[2]:.4f}; "
+          f"card {want[0]:.4f}, {want[1]:.4f}, {want[2]:.4f}; relative "
+          f"{' '.join(f'{r:.3e}' for r in rel)} (tol {TRAIN_WITNESS_TOL}); "
+          f"{time.monotonic() - t0:.1f} s on the host", flush=True)
+
+
+def _train_smoke(dev, mesh, seed) -> None:
+    """The smoke variant in f32, flash on: configurations (a)-(d), two
+    sgd steps on the card (NCCL, kernels) and on the host (gloo, plain
+    versions) from the same params and keys; a host-made leaf through the
+    fused wire payload, and host-made trees through two adam updates
+    (bf16 params), on both, bit for bit."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adam, sgd
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
+    check(tr.uses_flash_kernel(cfg, TRAIN_SEQ), "the smoke steps do not "
+          "take the flash kernels")
+    toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
+                            cfg.vocab)[0]
+    for name, fields, _ in TRAIN_CONFIGS[:4]:
+        settings = train.TrainSettings(**fields)
+        out = []                                  # the card's, the host's
+        for d in (dev, torch.device("cpu")):
+            opt = sgd(TRAIN_SMOKE_LR)
+            step = train.make_train_step(cfg, mesh, opt, settings, device=d)
+            params = train.store_params(
+                tr.init_params(cfg, seed=seed, device="cpu"), cfg, mesh,
+                settings)
+            params = tree_map(lambda t: t.to(d), params)
+            state = opt.init(params)
+            dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=d)
+            losses = []
+            for i in range(2):
+                params, state, dsc_ref, m = step(
+                    params, state, dsc_ref, {"tokens": toks.to(d)},
+                    random.PRNGKey(i))
+                losses.append(float(m["loss"]))
+            out.append((torch.cat([t.reshape(-1).float().cpu()
+                                   for t in tree_leaves(params)]), losses))
+        (cx, closs), (hx, hloss) = out
+        rel = float((cx - hx).norm() / hx.norm())
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(closs, hloss))
+        check(rel <= TRAIN_SMOKE_TOL and lrel <= TRAIN_SMOKE_TOL,
+              f"smoke {name}: params card vs host {rel:.3e}, losses "
+              f"{lrel:.3e} (tol {TRAIN_SMOKE_TOL})")
+        print(f"  smoke {name}: 2 steps, params card vs host {rel:.3e}, "
+              f"losses {lrel:.3e} (tol {TRAIN_SMOKE_TOL})")
+    # a host-made leaf through the fused payload (n_client 1), both ways
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (2, 256, 512)).astype(np.float32))
+    s = 0.3 * g.roll(1, 0)
+    seeds = (int(random.bits(random.PRNGKey(3))), 0x3177 + seed)
+    on_host = train.fused_payload(g, s.clone(), 2, 1, *seeds, 0.1, 0.5)
+    on_card = train.fused_payload(g.to(dev), s.to(dev), 2, 1, *seeds, 0.1,
+                                  0.5)
+    for what, a, b in zip(("codes", "scales", "s'"), on_card, on_host):
+        _same(f"fused payload {what}, card vs host", a.cpu(), b)
+    print("  a host-made (2, 256, 512) leaf through the fused payload: "
+          "codes, scales and s' card == host, bit for bit")
+    # two adam updates of host-made bf16 params (f32 from the first on)
+    rng = np.random.default_rng(seed + 1)
+    p0 = {"w": torch.from_numpy(rng.standard_normal((512, 300)).astype(
+        np.float32)).bfloat16(), "b": torch.zeros(300, dtype=torch.bfloat16)}
+    grads = [{k: torch.from_numpy(rng.standard_normal(tuple(v.shape))
+                                  .astype(np.float32)) for k, v in p0.items()}
+             for _ in range(2)]
+    ends = []
+    for d in (dev, torch.device("cpu")):
+        opt = adam(TRAIN_LR, weight_decay=0.1)
+        p = tree_map(lambda t: t.to(d), p0)
+        st = opt.init(p)
+        for g in grads:
+            g = tree_map(lambda x, q: x.to(d).to(q.dtype), g, p)
+            delta, st = opt.update(g, st, p)
+            p = tree_map(torch.add, p, delta)
+        ends.append(tree_leaves(p) + tree_leaves(st.mu) + tree_leaves(st.nu))
+    for a, b in zip(*ends):
+        _same("adam update, card vs host", a.cpu(), b)
+    print(f"  two adam updates of host-made bf16 params: params, mu, nu "
+          f"({sorted({str(t.dtype) for t in ends[1]})}) card == host, bit "
+          f"for bit")
+
+
+def train_phase(dev, seed) -> dict:
+    """The distributed step over a one-rank ``cpu:gloo,cuda:nccl`` group
+    on a loopback port: the five configurations at full width, then the
+    smoke steps card vs host.  Returns the kernels' launches over the
+    full-width steps (the main path's count)."""
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.init_process_group(dev)
+    try:
+        probe = torch.full((4,), 2.0, device=dev)
+        dist.all_reduce(probe)                    # NCCL initialises here
+        torch.cuda.synchronize()
+        check(probe.tolist() == [2.0] * 4, f"NCCL all_reduce gave {probe}")
+        print(f"  process group: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}; torch {torch.__version__} has "
+              f"reduce_scatter_single: "
+              f"{hasattr(dist, 'reduce_scatter_single')}, "
+              f"reduce_scatter_tensor: "
+              f"{hasattr(dist, 'reduce_scatter_tensor')}")
+        mesh = mesh_lib.make_host_mesh(device=dev)
+        cfg = get_config("eris-gptneo-1.3b")
+        for n in (1, 4, 8):
+            print(f"  mesh_wire_bytes (computed, not measured) at n_client "
+                  f"= {n}: int8 {sh.mesh_wire_bytes(cfg, n, int8=True)} B, "
+                  f"f32 {sh.mesh_wire_bytes(cfg, n, int8=False, grad_bytes=4)}"
+                  f" B, bf16 "
+                  f"{sh.mesh_wire_bytes(cfg, n, int8=False, grad_bytes=2)} "
+                  f"B a client a step")
+        toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
+                                cfg.vocab, device=dev)[0]
+        totals = {name: 0 for name in ROUND}
+        results = {}
+        for name, fields, path in TRAIN_CONFIGS:
+            results[name] = _train_config(dev, seed, cfg, mesh, toks, name,
+                                          fields, path, totals,
+                                          witness=name == TRAIN_CONFIGS[0][0])
+        for name, fields, path in TRAIN_CONFIGS:
+            if name in TRAIN_FALL_CONFIGS:
+                results[f"{name} lr {TRAIN_FALL_LR}"] = _train_config(
+                    dev, seed, cfg, mesh, toks, name, fields, path, totals,
+                    lr=TRAIN_FALL_LR)
+        _expect_free_card("after the train steps")
+        print("train_step " + json.dumps(results))
+        _train_smoke(dev, mesh, seed)
+    finally:
+        dist.destroy_process_group()
+    return totals
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -1761,7 +2099,12 @@ def main() -> None:
     for name in round_launches:
         round_launches[name] += default_launches[name]
 
-    phase("11 result")
+    phase("11 the distributed FSA step of eris-gptneo-1.3b over NCCL")
+    train_launches = train_phase(dev, args.seed)
+    for name in round_launches:
+        round_launches[name] += train_launches[name]
+
+    phase("12 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1793,7 +2136,8 @@ def main() -> None:
         more = {label.replace("-", "_"): {
             key: flash_timing_[label][name][key] for key in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            for label in ("qwen2-round", "gptneo-s2048", "qwen2-s2048")}
+            for label in ("qwen2-round", "gptneo-s2048", "qwen2-s2048",
+                          "gptneo-train-f32")}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",

@@ -59,6 +59,15 @@ def tree_unflatten(tree, leaves: Iterable[torch.Tensor]):
     return _unflatten(tree, iter(leaves))
 
 
+def tree_map(fn: Callable, tree, *rest):
+    """``jax.tree.map``: ``fn`` of the leaves at each place of ``tree``
+    and of the trees in ``rest`` (same structure), in a tree of
+    ``tree``'s structure."""
+    columns = [tree_leaves(t) for t in rest]
+    return tree_unflatten(tree, [fn(*xs) for xs in
+                                 zip(tree_leaves(tree), *columns)])
+
+
 def _unflatten(node, it: Iterator[torch.Tensor]):
     # a plain recursive function: a nested one that calls itself sits in
     # a reference cycle with its closure, and the cycle would keep the
@@ -66,7 +75,9 @@ def _unflatten(node, it: Iterator[torch.Tensor]):
     if isinstance(node, dict):
         return {key: _unflatten(node[key], it) for key in sorted(node)}
     if isinstance(node, (tuple, list)):
-        return type(node)(_unflatten(child, it) for child in node)
+        children = [_unflatten(child, it) for child in node]
+        return (type(node)(*children) if hasattr(node, "_fields")
+                else type(node)(children))
     return next(it)
 
 

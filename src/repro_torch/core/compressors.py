@@ -32,6 +32,20 @@ def reciprocal(c: float) -> float:
     return float(np.float32(1.0) / np.float32(c))
 
 
+def scale_by_reciprocal(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as XLA's CPU compiler folds it: a multiply by the
+    reciprocal of c, where c is first rounded to x's dtype (a weakly
+    typed scalar).  f32 and bf16 (computed in f32) multiply by the f32
+    reciprocal; f16 by the reciprocal rounded to f16."""
+    if x.dtype == torch.float32:
+        return x * reciprocal(c)
+    c = float(torch.tensor(c, dtype=x.dtype))
+    r = reciprocal(c)
+    if x.dtype == torch.float16:
+        r = float(torch.tensor(r, dtype=torch.float16))
+    return (x.float() * r).to(x.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class Compressor:
     """Base class: the identity.  ``__call__(key, x)`` maps an f32 vector
@@ -74,7 +88,7 @@ class RandP(Compressor):
 
     def __call__(self, key, x):
         keep = random.bernoulli(key, self.p, tuple(x.shape), device=x.device)
-        return torch.where(keep, x * reciprocal(self.p), 0.0)
+        return torch.where(keep, scale_by_reciprocal(x, self.p), 0.0)
 
     def omega(self, n):
         return (1.0 - self.p) / self.p

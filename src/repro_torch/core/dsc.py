@@ -48,6 +48,30 @@ def gamma_star(omega: float) -> float:
     return float(((1.0 + 2.0 * omega) / (2.0 * (1.0 + omega) ** 3)) ** 0.5)
 
 
+def fma_shift(gamma: float, v: torch.Tensor, s: torch.Tensor
+              ) -> torch.Tensor:
+    """``s + gamma * v`` in s's shape and dtype, as XLA compiles it in the
+    reference's jitted step.  With an f32 v, one FMA in f32
+    (``fma_f32``, taken :data:`random.CHUNK` coordinates at a time so that
+    its double temporaries stay small at any leaf size), rounded to s's
+    dtype.  With v and s both 16-bit, gamma is rounded to their dtype
+    first (JAX's weakly typed scalar); then bf16 rounds the product and
+    the sum each, f16 rounds once after both in f32 (XLA's CPU compiler
+    widens the two types differently)."""
+    if v.dtype != torch.float32:
+        g16 = torch.tensor(gamma, dtype=s.dtype)
+        if s.dtype == torch.bfloat16:
+            return s + g16 * v
+        return (s.float() + float(g16) * v.float()).to(s.dtype)
+    out = torch.empty_like(s)
+    flat_out, flat_v, flat_s = out.view(-1), v.reshape(-1), s.reshape(-1)
+    for lo in range(0, s.numel(), random.CHUNK):
+        hi = min(s.numel(), lo + random.CHUNK)
+        flat_out[lo:hi] = fma_f32(gamma, flat_v[lo:hi].float(),
+                                  flat_s[lo:hi].float())
+    return out
+
+
 def compress_client(s: torch.Tensor, g: torch.Tensor,
                     compressor: Compressor, gamma: float, key: torch.Tensor,
                     *, offset: int = 0, n: Optional[int] = None

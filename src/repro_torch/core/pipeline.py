@@ -196,6 +196,16 @@ class DSCCompress(CompressStage):
         # the simulator aggregates in f32, so reconstruct the wire value
         return q_kernel.dequantize(q, scales)[:n]
 
+    def apply_leaf(self, key: torch.Tensor, g: torch.Tensor,
+                   s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Single-client, single-leaf form for the distributed step (each
+        rank holds its own s_k leaf): v = C(g.to(s.dtype) - s) with the
+        compressor's draws from ``key``, and s + gamma v, which XLA fuses
+        into one FMA for an f32 s (``dsc.fma_shift``).  s is not
+        modified.  Returns (v, s_new)."""
+        v = self.compressor(key, g.to(s.dtype) - s)
+        return v, dsc_lib.fma_shift(self.gamma, v, s)
+
 
 @dataclasses.dataclass(frozen=True)
 class Int8Wire(CompressStage):

@@ -10,22 +10,19 @@ queue 1.2).
 """
 from __future__ import annotations
 
-import ctypes
-import ctypes.util
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import random
+from repro_torch.kernels.ref import powf
 
 
 def zipf_probs(vocab: int, zipf_a: float = 1.2) -> torch.Tensor:
     """``ranks ** -a / sum`` in f32 with the reference's bits: XLA's CPU
     ``pow`` is the C library's ``powf``, called here once a rank, and the
     sum is taken in XLA's order (``random.reduce_sum``)."""
-    powf = ctypes.CDLL(ctypes.util.find_library("m")).powf
-    powf.restype, powf.argtypes = ctypes.c_float, [ctypes.c_float] * 2
     a = float(np.float32(-zipf_a))
     probs = torch.tensor([powf(float(r), a) for r in range(1, vocab + 1)],
                          dtype=torch.float32)

@@ -1,0 +1,227 @@
+"""Sharding policy of the distributed FSA step (``repro/dist/sharding.py``,
+Section 3.2.1 on a process group), for the data axis.
+
+Every rank of the mesh's ``"data"`` axis is one FSA *aggregator*: it
+owns a disjoint segment of each parameter (the "store" layout), receives
+exactly that segment of every client update through the reduce-scatter
+(Eq. 2), and runs the shard-local optimizer on it.
+
+The segment of a parameter is cut along its *scatter dim*: the rightmost
+dimension divisible by the number of aggregators.  A leaf with no such
+dimension is replicated and aggregated with a full all-reduce (always
+correct, never sharded).  The set of (leaf, slice) pairs aggregator a
+owns IS the mask m_(a) of ``core/masks`` at tensor granularity, disjoint
+and complete by construction, so Theorem B.1 applies unchanged.
+
+The reference expresses the layout as ``PartitionSpec``s of a jax
+``Mesh``; here a rank holds its pieces as plain tensors, cut by
+:func:`store_shard`.  Helpers that take a ``mesh`` accept the port's
+``DeviceMesh`` (``launch/mesh.make_host_mesh``) or the client count
+itself.  The model axis (tensor parallelism) and the pipe axis are ROADMAP
+queue 1.10: their helpers raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Iterator, Tuple, Union
+
+import torch
+
+QBLOCK = 256        # coords per int8-wire scale (kernels/quantize.QBLOCK)
+FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+
+_QUEUE_1_10 = ("the model and pipe axes (tensor and pipeline parallelism) "
+               "are not ported yet: ROADMAP queue 1.10")
+
+
+# ------------------------------------------------------------------ axes
+def client_count(mesh: Union[int, Any]) -> int:
+    """Aggregators on the mesh: the size of its ``"data"`` axis (the
+    port's meshes have no other client axis)."""
+    if isinstance(mesh, int):
+        return mesh
+    return int(mesh.size(mesh.mesh_dim_names.index("data")))
+
+
+# ------------------------------------------------- model and pipe axes
+def tp_local_shape(*args, **kwargs):
+    raise NotImplementedError(f"tp_local_shape: {_QUEUE_1_10}")
+
+
+def tp_split_leaf(*args, **kwargs):
+    raise NotImplementedError(f"tp_split_leaf: {_QUEUE_1_10}")
+
+
+def tp_merge_leaf(*args, **kwargs):
+    raise NotImplementedError(f"tp_merge_leaf: {_QUEUE_1_10}")
+
+
+def tp_grad_sync(*args, **kwargs):
+    raise NotImplementedError(f"tp_grad_sync: {_QUEUE_1_10}")
+
+
+def pipe_dims(*args, **kwargs):
+    raise NotImplementedError(f"pipe_dims: {_QUEUE_1_10}")
+
+
+def pipe_local_shape(*args, **kwargs):
+    raise NotImplementedError(f"pipe_local_shape: {_QUEUE_1_10}")
+
+
+def pipe_grad_sync(*args, **kwargs):
+    raise NotImplementedError(f"pipe_grad_sync: {_QUEUE_1_10}")
+
+
+# ------------------------------------------------------- param shapes
+def spec_items(cfg) -> Iterator[Tuple[Tuple[str, ...], tuple]]:
+    """(key path, shape) of every parameter leaf of the config, in
+    flatten order (dict keys sorted)."""
+    from repro_torch.models import transformer as tr
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                yield from walk(node[key], prefix + (key,))
+            else:
+                yield prefix + (key,), tuple(node[key])
+
+    return walk(tr.param_spec(cfg), ())
+
+
+def shape_tree(cfg, fn) -> dict:
+    """``fn(shape)`` at every leaf of the config's parameter tree."""
+    out: dict = {}
+    for path, shape in spec_items(cfg):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = fn(shape)
+    return out
+
+
+# ----------------------------------------------------------- scatter dims
+def scatter_dim_for(shape: Tuple[int, ...], n_client: int) -> int:
+    """Rightmost dim divisible by n_client, else -1 (replicate + psum)."""
+    for d in range(len(shape) - 1, -1, -1):
+        if shape[d] >= n_client and shape[d] % n_client == 0:
+            return d
+    return -1
+
+
+def fsa_scatter_dims(cfg, mesh) -> dict:
+    """Per-leaf scatter dim for the FSA reduce-scatter and the shard-local
+    optimizer (a tree of ints matching the param tree)."""
+    n_client = client_count(mesh)
+    return shape_tree(cfg, lambda shape: scatter_dim_for(shape, n_client))
+
+
+def store_shard(x: torch.Tensor, dim: int, n_client: int,
+                aidx: int) -> torch.Tensor:
+    """Aggregator ``aidx``'s piece of a leaf in the store layout: the
+    ``aidx``-th of ``n_client`` contiguous segments along ``dim`` (the
+    whole leaf where ``dim`` is -1).  A view of ``x``."""
+    if dim < 0:
+        return x
+    size = x.shape[dim] // n_client
+    return x.narrow(dim, aidx * size, size)
+
+
+def shift_state_dtype(name: str) -> torch.dtype:
+    """Residency dtype of the DSC shift state (s_clients / s_agg), the one
+    knob ``TrainSettings.shift_dtype`` threads through the store layout."""
+    dt = FLOAT_DTYPES.get(str(name))
+    if dt is None:
+        raise ValueError(f"shift_dtype must be a float store dtype, "
+                         f"got {name!r}")
+    return dt
+
+
+# ------------------------------------------------------ int8 wire layouts
+@dataclasses.dataclass(frozen=True)
+class WireLayout:
+    """Per-leaf layout of the int8 wire payload for the FSA exchange.
+
+    A leaf with scatter dim ``dim >= 0`` is split into ``n_client``
+    contiguous segments along ``dim``; each segment is flattened, padded
+    to a multiple of QBLOCK, and quantized per-256-block (int8 values +
+    one f32 scale per block).  The (block, scale) pair is what crosses
+    the group.  ``dim == -1`` leaves (no divisible dimension) stay on the
+    un-quantized all-reduce path in the step's ``grad_dtype``.
+    """
+
+    dim: int              # scatter dim (-1 = replicated, full psum)
+    shard_elems: int      # un-padded elements per aggregator segment
+    padded_elems: int     # rounded up to a QBLOCK multiple
+    n_blocks: int         # scales per segment (= padded_elems // QBLOCK)
+
+    @property
+    def wire_bytes(self) -> int:
+        """Bytes one client sends for ONE segment: int8 blocks + scales."""
+        return self.padded_elems + 4 * self.n_blocks
+
+
+def wire_layout_for(shape: Tuple[int, ...], n_client: int) -> WireLayout:
+    """Layout of one leaf's int8 wire payload (the geometry the step
+    quantizes and exchanges with)."""
+    dim = scatter_dim_for(shape, n_client)
+    if dim < 0:
+        return WireLayout(-1, 0, 0, 0)
+    m = math.prod(shape) // n_client
+    padded = -(-m // QBLOCK) * QBLOCK
+    return WireLayout(dim, m, padded, padded // QBLOCK)
+
+
+def int8_wire_layouts(cfg, mesh) -> dict:
+    """Tree of :class:`WireLayout` matching the parameter tree."""
+    n_client = client_count(mesh)
+    return shape_tree(cfg, lambda shape: wire_layout_for(shape, n_client))
+
+
+def mesh_wire_bytes(cfg, mesh, *, int8: bool, grad_bytes: int = 2) -> int:
+    """Bytes ONE client (rank) puts on the data axis per round under the
+    FSA exchange: the sum over leaves of every transmitted segment
+    (n_client - 1 remote segments + its own, counted once each, matching
+    the collective's logical payload).  ``int8=False`` accounts the
+    ``grad_dtype`` path.  Computed from shapes, not measured."""
+    n_client = client_count(mesh)
+    total = 0
+    for _, shape in spec_items(cfg):
+        lay = wire_layout_for(shape, n_client)
+        if int8 and lay.dim >= 0:
+            total += n_client * lay.wire_bytes
+        else:
+            total += math.prod(shape) * grad_bytes
+    return total
+
+
+def param_bytes_per_device(cfg, mesh) -> int:
+    """Resident parameter bytes per device in the compute layout: every
+    leaf whole (client-replicated), in the config's dtype."""
+    itemsize = FLOAT_DTYPES[cfg.dtype].itemsize
+    return sum(math.prod(shape) * itemsize for _, shape in spec_items(cfg))
+
+
+def split_shards(x: torch.Tensor, dim: int, n_client: int) -> torch.Tensor:
+    """Reorganize a leaf into its FSA segments: ``(n_client, m)`` rows,
+    row a = the flattened contiguous segment of ``dim`` that aggregator a
+    owns (the chunking of the reduce-scatter and of :func:`store_shard`;
+    the rows ARE the masks m_(a)).  A view where the layout allows (dim 0,
+    or one client), else a copy."""
+    pre, post = x.shape[:dim], x.shape[dim + 1:]
+    size = x.shape[dim] // n_client
+    x = x.reshape(*pre, n_client, size, *post)
+    x = torch.movedim(x, len(pre), 0)
+    return x.reshape(n_client, -1)
+
+
+def merge_shards(rows: torch.Tensor, dim: int, shape: Tuple[int, ...],
+                 n_client: int) -> torch.Tensor:
+    """Inverse of :func:`split_shards`: reassemble ``(n_client, m)`` rows
+    into the full leaf of ``shape``."""
+    pre, post = tuple(shape[:dim]), tuple(shape[dim + 1:])
+    size = shape[dim] // n_client
+    rows = rows.reshape(n_client, *pre, size, *post)
+    rows = torch.movedim(rows, 0, len(pre))
+    return rows.reshape(tuple(shape))

@@ -35,6 +35,9 @@ single rounding on any device), and the CUDA kernels do the same with
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
 
 import numpy as np
@@ -55,6 +58,19 @@ def flat_index(n: int, index_base: int, device) -> torch.Tensor:
     2**32``, as int64."""
     return (torch.arange(n, dtype=torch.int64, device=device)
             + int(index_base)) & _MASK
+
+
+@functools.lru_cache(maxsize=None)
+def _libm_powf():
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float] * 2
+    return fn
+
+
+def powf(base: float, exp: float) -> float:
+    """f32 ``base ** exp`` as XLA's CPU ``pow`` computes it: the C
+    library's ``powf``."""
+    return _libm_powf()(float(np.float32(base)), float(np.float32(exp)))
 
 
 def fma_f32(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

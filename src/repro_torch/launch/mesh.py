@@ -1,0 +1,105 @@
+"""Meshes of the distributed step (``repro/launch/mesh.py``) over
+``torch.distributed``.
+
+One process per position of the ``"data"`` axis: rank a is aggregator a.
+:func:`init_process_group` joins the default group (under ``torchrun``)
+or makes a one-rank group on a loopback port (under plain ``python``);
+:func:`make_host_mesh` lays the ``"data"`` axis over it.  The model and
+pipe axes are ROADMAP queue 1.10.
+
+Defined as functions, so importing this module touches no process group.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import DeviceLike, resolve_device
+
+# CPU tensors go through gloo, CUDA tensors through NCCL
+BACKENDS = {"cpu": "cpu:gloo", "cuda": "cpu:gloo,cuda:nccl"}
+TIMEOUT_S = 600.0           # a collective that waits longer fails the run
+
+
+def free_port() -> int:
+    """A TCP port free on the loopback interface."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return int(s.getsockname()[1])
+
+
+def init_process_group(device: DeviceLike = None) -> torch.device:
+    """Join the default process group and return this rank's device.
+
+    Under ``torchrun`` (``RANK``/``WORLD_SIZE`` in the environment) the
+    group is the launcher's; otherwise a one-rank group on a free loopback
+    port.  ``device`` is the CUDA card unless the caller asks for the CPU;
+    on the card each rank takes card ``LOCAL_RANK`` and the backend is
+    ``cpu:gloo,cuda:nccl``, on the CPU ``cpu:gloo``."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+        device = torch.device("cuda", torch.cuda.current_device())
+    if dist.is_initialized():
+        return device
+    timeout = datetime.timedelta(seconds=TIMEOUT_S)
+    backend = BACKENDS[device.type]
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=timeout)
+    else:
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0, timeout=timeout)
+    return device
+
+
+def make_production_mesh(*, multi_pod: bool = False, pipe: int = 1):
+    """The reference's 256/512-device production mesh has a 16-wide model
+    axis: ROADMAP queue 1.10."""
+    raise NotImplementedError(
+        "make_production_mesh: its model axis is 16 wide, and the model "
+        "and pipe axes are not ported yet: ROADMAP queue 1.10")
+
+
+def make_host_mesh(data: int | None = None, model: int = 1, pipe: int = 1,
+                   device: DeviceLike = None):
+    """A ``DeviceMesh`` with one ``"data"`` axis over the initialised
+    process group's ranks (the reference's host mesh, whose model and pipe
+    axes are 1 here).  Validates the factorization up front, with the
+    reference's messages; ``model > 1`` or ``pipe > 1`` raises naming
+    ROADMAP queue 1.10."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_host_mesh: no process group; call "
+            "launch.mesh.init_process_group() first (or run under torchrun)")
+    n = dist.get_world_size()
+    if pipe < 1:
+        raise ValueError(f"pipe axis size {pipe} must be >= 1")
+    inner = model * pipe
+    if model < 1 or inner < 1 or n % inner != 0:
+        raise ValueError(
+            f"model axis size {model} x pipe {pipe} must divide the {n} "
+            f"available device(s) (n % (model*pipe) == "
+            f"{n % inner if inner else 'undef'}); "
+            f"pick --model-axis/--pp from the divisors of {n}, or launch "
+            f"more ranks (torchrun --nproc-per-node <n>)")
+    if data is None:
+        data = n // inner
+    if data < 1 or data * inner != n:
+        raise ValueError(
+            f"mesh ({data} data x {pipe} pipe x {model} model) needs "
+            f"{data * inner} devices but {n} are available; leave "
+            f"data=None to infer data = n // (model*pipe) = {n // inner}")
+    if model > 1 or pipe > 1:
+        raise NotImplementedError(
+            f"make_host_mesh(model={model}, pipe={pipe}): the model and "
+            f"pipe axes are not ported yet: ROADMAP queue 1.10")
+    device_type = resolve_device(device).type
+    return init_device_mesh(device_type, (data,), mesh_dim_names=("data",))

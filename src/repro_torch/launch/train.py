@@ -1,0 +1,668 @@
+"""Distributed train step (``repro/launch/train.py``): FSA as explicit
+collectives over ``torch.distributed``, on the data axis.
+
+One process per position of the mesh's ``"data"`` axis: rank a is client
+group a AND aggregator a.  One step:
+
+  1. *FSA broadcast* -- the stored parameters are sharded over the ranks
+     (each rank owns one aggregator's disjoint segment, Sec. 3.2.1); an
+     all-gather of every sharded leaf rebuilds x^t = sum_a m_(a) . x^t_(a)
+     (Algorithm 1 line 14).
+  2. *Local update* -- each rank takes the gradient of its client group's
+     rows of the global batch.
+  3. *DSC (optional)* -- each client group shift-compresses its update,
+     v_k = C(g_k - s_k), s_k += gamma v_k, before transmission.
+  4. *FSA aggregation* -- the reduce-scatter stage, in one of two wire
+     formats:
+       * ``grad_dtype`` (default bf16): a reduce-scatter over the ranks;
+         each aggregator receives and reduces ONLY its disjoint segment
+         (Theorem B.1: all_reduce == all_gather . reduce_scatter).
+       * ``int8_wire``: each segment is quantized per-256-block
+         (stochastic int8 + f32 scales, the ``quantize`` kernels; with
+         DSC the fused ``dsc_quantize`` kernel), codes and scales cross
+         the group by ``all_to_all_single`` (a sum cannot be taken in the
+         quantized domain), and each aggregator dequantizes and averages
+         what it received.
+  5. *Shard-local optimizer* -- aggregator a updates x_(a); the optimizer
+     state lives sharded like the parameters (never gathered).
+
+With ``fsa=False`` the FedAvg schedule runs instead: an all-reduce mean of
+the gradients and a replicated optimizer.
+
+The reference's step is a pure function that ``jit`` may donate its
+state to (``lower_train_step`` jits it with ``donate_argnums=(0, 1,
+2)``).  Here the step consumes its state the same way: it writes each new
+leaf of ``params_stored``, ``opt_state`` and ``dsc_ref`` into the dict its
+old leaf came from, leaf by leaf, so a full-width state is never held
+twice; it returns those containers.  A caller that needs the old state
+passes copies.  Its arithmetic follows the reference's dtypes (JAX's
+promotion, ``optim/optimizers.py``) and, where XLA fuses a multiply-add
+(the DSC shift updates), its single rounding.
+
+The model and pipe axes (queue 1.10), the scenario and async knobs of
+``TrainSettings`` (1.7), the adversary-view tap (1.8) and the lowering
+for accounting (1.12) raise ``NotImplementedError`` naming their ROADMAP
+queue.
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --smoke --steps 4 [--dsc] [--int8-wire]
+    python -m repro_torch.launch.train --arch eris-gptneo-1.3b --steps 3 \\
+        --dsc --int8-wire
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import DeviceLike, random, resolve_device
+from repro_torch.convert import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.compressors import RandP, scale_by_reciprocal
+from repro_torch.core.dsc import fma_shift
+from repro_torch.core.pipeline import DSCCompress
+from repro_torch.dist import sharding as sh
+from repro_torch.kernels import dsc_quantize as dq_kernel
+from repro_torch.kernels import quantize as q_kernel
+from repro_torch.models import transformer as tr
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import Optimizer
+
+WIRE_SALT = 0x3177          # the int8 wire's seeds: fold_in(key, salt + i)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSettings:
+    grad_dtype: str = "bfloat16"     # wire dtype for the un-quantized path
+    int8_wire: bool = False          # int8 blocks + f32 scales on the mesh
+    use_dsc: bool = False            # client-side shifted rand-p compression
+    dsc_p: float = 0.1
+    dsc_gamma: float = 0.5
+    fused_wire: bool = True          # int8+DSC leaves through the one-pass
+                                     # dsc_quantize kernel
+    shift_dtype: str = "float32"     # DSC shift-state residency
+    microbatches: int = 1            # 1F1B microbatches (pipe axis: 1.10)
+    remat: bool = True
+    fsa: bool = True                 # False => FedAvg all-reduce baseline
+    capture_views: bool = False      # adversary-view tap (queue 1.8)
+    # ---- buffered async aggregation (queue 1.7)
+    async_buffer: bool = False
+    buffer_cadence: int = 1
+    staleness_alpha: float = 1.0
+    delay_max: int = 0
+    client_dropout: float = 0.0
+    async_: Optional[Any] = None
+    # ---- composed-defense / failure knobs (queue 1.7)
+    ldp_eps: float = 0.0
+    ldp_delta: float = 1e-5
+    ldp_clip: float = 1.0
+    secure_mask: bool = False
+    agg_dropout: float = 0.0
+    link_failure: float = 0.0
+
+
+def dsc_stage(settings: TrainSettings) -> DSCCompress:
+    """The simulator's DSC compression stage, shared verbatim by the
+    distributed step (one DSC implementation, zero drift)."""
+    return DSCCompress(compressor=RandP(p=settings.dsc_p),
+                       gamma=settings.dsc_gamma)
+
+
+def cohort_batch(batch, key, population: int, n_client: int):
+    """Population-scale cohort selection needs ``CohortSample``: ROADMAP
+    queue 1.7."""
+    raise NotImplementedError(
+        "cohort_batch: CohortSample (population-scale cohorts) is not "
+        "ported yet: ROADMAP queue 1.7")
+
+
+def lower_train_step(*args, **kwargs):
+    """The reference lowers the step to HLO for its byte accounting; the
+    port's accounting is ROADMAP queue 1.12."""
+    raise NotImplementedError(
+        "lower_train_step: lowering the step for accounting is not ported "
+        "yet (it parses XLA HLO): ROADMAP queue 1.12")
+
+
+def _validate(settings: TrainSettings) -> None:
+    """The reference's validation errors, word for word where they apply,
+    then NotImplementedError for each knob the port does not run yet."""
+    if settings.async_buffer and settings.use_dsc:
+        raise ValueError(
+            "async_buffer does not compose with use_dsc: the Eq. 4 shift "
+            "state tracks per-round aggregator receipts, which a cadence-"
+            "delayed buffered apply breaks (int8_wire is the stateless "
+            "wire format that does compose)")
+    ldp = settings.ldp_eps > 0
+    failures = settings.agg_dropout > 0 or settings.link_failure > 0
+    if (ldp or settings.secure_mask or failures) and not settings.fsa:
+        raise ValueError(
+            "ldp/secure_mask/agg_dropout/link_failure are FSA wire "
+            "compositions; fsa=False has no per-aggregator wire to "
+            "defend or fail")
+    if settings.secure_mask:
+        if settings.use_dsc or settings.int8_wire:
+            raise ValueError(
+                "secure_mask composes with the plain f32 wire only: DSC "
+                "shifts and int8 quantization transform each client's "
+                "payload independently, so the pairwise masks would no "
+                "longer cancel in the cross-client sum")
+        if settings.grad_dtype != "float32":
+            raise ValueError(
+                "secure_mask needs grad_dtype='float32': the fixed-point "
+                "pairwise masks cancel exactly in f32 partial sums; a "
+                "bf16 wire would round them into O(1) noise")
+        if failures or settings.client_dropout > 0:
+            raise ValueError(
+                "secure_mask cannot compose with failures/client dropout: "
+                "pairwise masks cancel only in the full-cohort sum (the "
+                "simplified protocol has no dropout-recovery round)")
+    if failures and settings.async_buffer:
+        raise ValueError(
+            "agg_dropout/link_failure compose with the synchronous FSA "
+            "step; the async buffered runtime models client dropout "
+            "through its ArrivalModel instead")
+    unported = [
+        ("ldp_eps > 0", ldp, "1.7"),
+        ("secure_mask", settings.secure_mask, "1.7"),
+        ("agg_dropout > 0", settings.agg_dropout > 0, "1.7"),
+        ("link_failure > 0", settings.link_failure > 0, "1.7"),
+        ("async_buffer", settings.async_buffer, "1.7"),
+        ("async_", settings.async_ is not None, "1.7"),
+        ("client_dropout > 0", settings.client_dropout > 0, "1.7"),
+        ("delay_max > 0", settings.delay_max > 0, "1.7"),
+        ("capture_views", settings.capture_views, "1.8"),
+        ("microbatches > 1", settings.microbatches > 1, "1.10"),
+    ]
+    for what, on, queue in unported:
+        if on:
+            raise NotImplementedError(
+                f"TrainSettings.{what}: not ported to the distributed step "
+                f"yet: ROADMAP queue {queue}")
+    if settings.grad_dtype not in sh.FLOAT_DTYPES:
+        raise ValueError(f"grad_dtype must be one of "
+                         f"{sorted(sh.FLOAT_DTYPES)}, got "
+                         f"{settings.grad_dtype!r}")
+    sh.shift_state_dtype(settings.shift_dtype)
+
+
+# ------------------------------------------------------------ state trees
+def _scatter_dims(cfg: ModelConfig, mesh, settings: TrainSettings) -> dict:
+    """Each leaf's scatter dim under FSA; -1 everywhere without it (the
+    FedAvg baseline keeps every leaf whole)."""
+    dims = sh.fsa_scatter_dims(cfg, mesh)
+    return dims if settings.fsa else tree_map(lambda d: -1, dims)
+
+
+def _rank(mesh) -> int:
+    return dist.get_rank(mesh.get_group("data"))
+
+
+def store_params(params: dict, cfg: ModelConfig, mesh,
+                 settings: TrainSettings = TrainSettings()) -> dict:
+    """This rank's ``params_stored``: each leaf of the full ``params`` cut
+    to this aggregator's store shard under FSA (whole where its scatter
+    dim is -1, and everywhere with ``fsa=False``).  The shards are copies,
+    so the full tree can be freed."""
+    n_client = sh.client_count(mesh)
+    aidx = _rank(mesh)
+    dims = _scatter_dims(cfg, mesh, settings)
+    return tree_map(
+        lambda x, d: (sh.store_shard(x, d, n_client, aidx).clone()
+                      if d >= 0 and n_client > 1 else x), params, dims)
+
+
+def abstract_train_state(cfg: ModelConfig, mesh, opt: Optimizer,
+                         settings: TrainSettings = TrainSettings()):
+    """Meta tensors (shape and dtype, no storage) of this rank's
+    ``(params_stored, opt_state, dsc_ref)``: the reference's
+    ``ShapeDtypeStruct``s cut to one position (store shards; adam's step
+    count replicated)."""
+    n_client = sh.client_count(mesh)
+    dtype = sh.FLOAT_DTYPES[cfg.dtype]
+    dims = _scatter_dims(cfg, mesh, settings)
+    full = sh.shape_tree(cfg, lambda shape: torch.empty(
+        shape, dtype=dtype, device="meta"))
+    params = tree_map(
+        lambda x, d: sh.store_shard(x, d, n_client, 0), full, dims)
+    return params, opt.init(params), _dsc_tree(full, params, settings,
+                                               "meta")
+
+
+def _dsc_tree(full: dict, stored: dict, settings: TrainSettings, device):
+    """This rank's DSC state: its own client shift s_k (a ``(1, *shape)``
+    block of the client-stacked global, full leaf shapes) and s_agg on its
+    own store segments; without DSC a tree of f32 scalar placeholders."""
+    if not settings.use_dsc:
+        return tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                              device=device), full)
+    sdt = sh.shift_state_dtype(settings.shift_dtype)
+    return {"s_clients": tree_map(lambda p: torch.zeros(
+                (1, *p.shape), dtype=sdt, device=device), full),
+            "s_agg": tree_map(lambda p: torch.zeros(
+                p.shape, dtype=sdt, device=device), stored)}
+
+
+def init_dsc_state(cfg: ModelConfig, mesh, settings: TrainSettings,
+                   device: DeviceLike = None):
+    """This rank's zero DSC shift state (see :func:`abstract_train_state`)
+    on ``device`` (the CUDA card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    n_client = sh.client_count(mesh)
+    aidx = _rank(mesh)
+    dims = _scatter_dims(cfg, mesh, settings)
+    full = sh.shape_tree(cfg, lambda shape: torch.empty(shape,
+                                                         device="meta"))
+    stored = tree_map(lambda x, d: sh.store_shard(x, d, n_client, aidx),
+                      full, dims)
+    return _dsc_tree(full, stored, settings, device)
+
+
+# ------------------------------------------------------- tree plumbing
+def _slots(tree) -> list:
+    """Where each leaf of a nested dict lives, as ``(dict, key)``, in
+    flatten order: the step reads a leaf there and writes its successor
+    in its place."""
+    return [s for key in sorted(tree) for s in
+            (_slots(tree[key]) if isinstance(tree[key], dict)
+             else [(tree, key)])]
+
+
+def _map_parts(fn, state):
+    """``state`` with ``fn`` applied to each of its dicts: the parts that
+    mirror the parameters (momentum's buffer, adam's mu and nu are the
+    only dicts the port's optimizers keep); tuples rebuilt, scalars
+    (adam's t) kept."""
+    if isinstance(state, dict):
+        return fn(state)
+    if isinstance(state, tuple):
+        kids = [_map_parts(fn, c) for c in state]
+        return (type(state)(*kids) if hasattr(state, "_fields")
+                else tuple(kids))
+    return state
+
+
+# ------------------------------------------------------------ the wire
+def _padded_rows(x: torch.Tensor, dim: int, n_client: int,
+                 lay: sh.WireLayout) -> torch.Tensor:
+    """The leaf's FSA segments as f32 rows padded to the wire layout:
+    a contiguous ``(n_client, padded_elems)`` tensor."""
+    rows = sh.split_shards(x.float(), dim, n_client)
+    m, mp = lay.shard_elems, lay.padded_elems
+    if mp == m:
+        return rows.contiguous()
+    out = x.new_zeros((n_client, mp), dtype=torch.float32)
+    out[:, :m] = rows
+    return out
+
+
+def _mean_rows(rows: torch.Tensor) -> torch.Tensor:
+    """``rows.mean(0)`` as XLA's CPU compiler computes it: the rows summed
+    in order, then multiplied by the f32 reciprocal of their count (a
+    division for a power of two only: at 3 rows, XLA's product differs
+    from the quotient in a third of the coordinates)."""
+    acc = rows[0].clone()
+    for r in rows[1:]:
+        acc += r
+    return scale_by_reciprocal(acc, rows.shape[0])
+
+
+def int8_payload(v: torch.Tensor, dim: int, n_client: int, seed: int):
+    """What one client sends of a leaf on the int8 wire: its n_client
+    segments, f32, padded to the wire layout and quantized in ONE call
+    over the ``(n_client, padded)`` block, so the draws are keyed from
+    index 0 across the rows as the reference's are.  Returns (codes int8
+    (n_client, padded), scales f32 (n_client, n_blocks))."""
+    lay = sh.wire_layout_for(tuple(v.shape), n_client)
+    rows = _padded_rows(v, dim, n_client, lay)
+    q, scale = q_kernel.quantize(rows.view(-1), seed, index_base=0)
+    return q.view(n_client, -1), scale.view(n_client, -1)
+
+
+def fused_payload(g: torch.Tensor, s: torch.Tensor, dim: int, n_client: int,
+                  seed_mask: int, seed_round: int, p: float, gamma: float):
+    """The int8+DSC payload of a leaf through the ``dsc_quantize`` kernel:
+    mask draw, shift subtract, quantize and shift update over the padded
+    segments of g and s in one pass.  Returns (codes, scales, as
+    :func:`int8_payload`; s' in s's shape and dtype).  s' is computed in
+    the f32 rows of s, which are s itself where the layout allows: the
+    step consumes its shift state."""
+    lay = sh.wire_layout_for(tuple(g.shape), n_client)
+    g_rows = _padded_rows(g, dim, n_client, lay)
+    s_rows = _padded_rows(s, dim, n_client, lay)
+    q, scale, _ = dq_kernel.dsc_quantize(
+        g_rows.view(-1), s_rows.view(-1), seed_mask, seed_round, p=p,
+        gamma=gamma, out=s_rows.view(-1))
+    del g_rows
+    s_new = sh.merge_shards(s_rows[:, :lay.shard_elems], dim,
+                            tuple(g.shape), n_client).to(s.dtype)
+    return q.view(n_client, -1), scale.view(n_client, -1), s_new
+
+
+class _Wire:
+    """The collectives of one step over the mesh's ``"data"`` group.  The
+    list forms of all-gather and reduce-scatter are used: both torch
+    versions the port runs on have them, where torch 2.13 deprecates
+    ``reduce_scatter_tensor`` and ``all_gather_into_tensor``."""
+
+    def __init__(self, mesh):
+        self.group = mesh.get_group("data")
+        self.n = sh.client_count(mesh)
+        self.aidx = dist.get_rank(self.group)
+
+    def gather(self, shard: torch.Tensor, dim: int,
+               shape: tuple) -> torch.Tensor:
+        """The FSA broadcast of one leaf: every rank's store shard,
+        merged into the full leaf."""
+        if dim < 0:
+            return shard
+        rows = shard.new_empty((self.n, shard.numel()))
+        dist.all_gather(list(rows.unbind(0)), shard.contiguous().view(-1),
+                        group=self.group)
+        return sh.merge_shards(rows, dim, shape, self.n)
+
+    def reduce_scatter(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        """``psum_scatter(g, scatter_dimension=dim, tiled=True)``."""
+        rows = sh.split_shards(g, dim, self.n).contiguous()
+        out = rows.new_empty(rows.shape[1:])
+        dist.reduce_scatter(out, list(rows.unbind(0)), group=self.group)
+        shape = list(g.shape)
+        shape[dim] //= self.n
+        return out.view(shape)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Row a of every rank to rank a (``all_to_all(x, 0, 0,
+        tiled=True)``)."""
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=self.group)
+        return out
+
+    def int8_exchange(self, v: torch.Tensor, dim: int, seed: int,
+                      need_round_trip: bool):
+        """The int8 reduce-scatter of one leaf (the reference's
+        ``_int8_wire_exchange``): :func:`int8_payload`, codes and scales
+        exchanged, what arrives dequantized and averaged.  Returns (my
+        segment's mean, f32, in the store shard's shape; the full leaf's
+        local round trip or None)."""
+        n = self.n
+        lay = sh.wire_layout_for(tuple(v.shape), n)
+        q, scale = int8_payload(v, dim, n, seed)
+        v_hat = None
+        if need_round_trip:
+            v_hat = sh.merge_shards(
+                q_kernel.dequantize(q.view(-1), scale.view(-1))
+                .view(n, -1)[:, :lay.shard_elems], dim, tuple(v.shape), n)
+        return self._receive(q, scale, lay, dim, tuple(v.shape)), v_hat
+
+    def fused_exchange(self, g: torch.Tensor, s: torch.Tensor, dim: int,
+                       seed_mask: int, seed_round: int, p: float,
+                       gamma: float):
+        """The int8+DSC wire of one leaf (the reference's
+        ``_fused_wire_exchange``): :func:`fused_payload`, then the
+        exchange.  Returns (my segment's mean, s_new in s's dtype)."""
+        lay = sh.wire_layout_for(tuple(g.shape), self.n)
+        q, scale, s_new = fused_payload(g, s, dim, self.n, seed_mask,
+                                        seed_round, p, gamma)
+        return self._receive(q, scale, lay, dim, tuple(g.shape)), s_new
+
+    def _receive(self, q, scale, lay, dim, shape):
+        n, m, mp = self.n, lay.shard_elems, lay.padded_elems
+        q_rx = self.all_to_all(q)
+        s_rx = self.all_to_all(scale)
+        del q, scale
+        rx = q_kernel.dequantize(q_rx.view(-1), s_rx.view(-1)).view(n, mp)
+        shard_shape = list(shape)
+        shard_shape[dim] //= n
+        return _mean_rows(rx[:, :m]).view(shard_shape)
+
+
+# ------------------------------------------------------------- the step
+def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
+                    settings: TrainSettings = TrainSettings(),
+                    device: DeviceLike = None,
+                    mark: Optional[Callable[[str], None]] = None):
+    """Returns ``step(params_stored, opt_state, dsc_ref, batch, key)`` ->
+    ``(params_stored, opt_state, dsc_ref, {"loss", "grad_norm"})`` on this
+    rank's pieces (see the module docstring for what it consumes):
+
+    * ``params_stored``: this rank's store shards (:func:`store_params`);
+    * ``opt_state``: ``opt.init(params_stored)``, mirroring it leaf for
+      leaf (scalars replicated);
+    * ``dsc_ref``: :func:`init_dsc_state`'s tree;
+    * ``batch``: the GLOBAL batch; the step takes rows
+      [a B / n, (a + 1) B / n) of each leaf, as ``P(caxis)`` does;
+    * ``key``: the round key (``repro_torch.random``), replicated.
+
+    The tensors live on ``device``, the CUDA card unless the caller asks
+    for the CPU.  ``mark(name)``, when given, is called as each part of
+    the step begins ("gather", "gradient", "wire", "optimizer") and with
+    "end" after the last: a hook for timing."""
+    if cfg.attn_batch_shard:
+        cfg = dataclasses.replace(cfg, attn_batch_shard=False)
+    _validate(settings)
+    device = resolve_device(device)
+    wire = _Wire(mesh)
+    n_client, aidx = wire.n, wire.aidx
+    dims = tree_leaves(_scatter_dims(cfg, mesh, settings))
+    shapes = [shape for _, shape in sh.spec_items(cfg)]
+    grad_dtype = sh.FLOAT_DTYPES[settings.grad_dtype]
+    stage = dsc_stage(settings) if settings.use_dsc else None
+    note = mark or (lambda name: None)
+
+    def wire_seed(key, i: int) -> int:
+        k = random.fold_in(random.fold_in(key, WIRE_SALT + i), aidx)
+        return int(random.bits(k))
+
+    def local_batch(batch: dict) -> dict:
+        out = {}
+        for name, x in batch.items():
+            x = torch.as_tensor(x).to(device)
+            if x.dim() == 0:
+                out[name] = x
+                continue
+            if x.shape[0] % n_client:
+                raise ValueError(
+                    f"batch[{name!r}] has {x.shape[0]} rows, which the "
+                    f"{n_client} client groups cannot share equally")
+            b = x.shape[0] // n_client
+            out[name] = x[aidx * b:(aidx + 1) * b]
+        return out
+
+    def aggregate_leaf(i: int, g, dim: int, s_slot, key):
+        """Leaf i's compression and exchange (the reference's loop body,
+        :523-634): this aggregator's mean of its segment, or of the whole
+        leaf where it has no scatter dim.  Writes client shift s_k's new
+        leaf into its slot ``s_slot`` of ``dsc_ref``."""
+        int8 = settings.int8_wire and settings.fsa and dim >= 0
+        if stage is not None:
+            k = random.fold_in(random.fold_in(key, i), aidx)
+            box, name = s_slot
+            s = box[name][0]
+            if int8 and settings.fused_wire:
+                agg, s_new = wire.fused_exchange(
+                    g, s, dim, int(random.bits(k)), wire_seed(key, i),
+                    settings.dsc_p, settings.dsc_gamma)
+                box[name] = s_new[None]
+                return agg
+            if int8:
+                # the wire format inside the shifted compressor: s_k tracks
+                # what the aggregators actually receive
+                v = stage.compressor(k, g.to(s.dtype) - s)
+                agg, v_hat = wire.int8_exchange(v, dim, wire_seed(key, i),
+                                                need_round_trip=True)
+                del v
+                box[name] = fma_shift(stage.gamma, v_hat, s)[None]
+                return agg
+            v, s_new = stage.apply_leaf(k, g, s)
+            box[name] = s_new[None]
+            g = v.to(g.dtype)
+            del v, s_new, s
+        if int8:
+            return wire.int8_exchange(g, dim, wire_seed(key, i),
+                                      need_round_trip=False)[0]
+        g = g.to(grad_dtype)
+        if settings.fsa and dim >= 0:
+            g = wire.reduce_scatter(g, dim)
+        else:
+            g = wire.all_reduce(g)
+        return scale_by_reciprocal(g, n_client)      # jnp's g / n_client
+
+    def step(params_stored, opt_state, dsc_ref, batch, key):
+        slots = _slots(params_stored)
+        if len(slots) != len(dims):
+            raise ValueError(f"params_stored has {len(slots)} leaves, the "
+                             f"config {len(dims)}")
+
+        # 1. the FSA broadcast
+        note("gather")
+        leaves = [wire.gather(box[name], d, shape).detach().requires_grad_()
+                  for (box, name), d, shape in zip(slots, dims, shapes)]
+
+        # 2. this client group's gradient
+        note("gradient")
+        with torch.enable_grad():
+            loss = tr.loss_fn(tree_unflatten(params_stored, leaves), cfg,
+                              local_batch(batch))
+            grads = list(torch.autograd.grad(loss, leaves))
+        del leaves
+        loss_val = scale_by_reciprocal(             # pmean: psum / n
+            wire.all_reduce(loss.detach().float().reshape(1))[0], n_client)
+        del loss
+
+        # 3-4. compression and the FSA aggregation, leaf by leaf; each
+        # gradient is dropped as soon as its segment has arrived
+        note("wire")
+        s_slots = (_slots(dsc_ref["s_clients"]) if settings.use_dsc
+                   else [None] * len(dims))
+        out: list = [None] * len(grads)
+        for i, (dim, s_slot) in enumerate(zip(dims, s_slots)):
+            g, grads[i] = grads[i], None
+            out[i] = aggregate_leaf(i, g, dim, s_slot, key)
+            del g
+        del grads
+
+        if settings.use_dsc:
+            # Eq. 4 compensation on this aggregator's own segments:
+            # u = s_agg + mean_k v_k;  s_agg <- s_agg + gamma (u - s_agg)
+            for i, (box, name) in enumerate(_slots(dsc_ref["s_agg"])):
+                s = box[name]
+                u = s + out[i].to(s.dtype)
+                box[name] = fma_shift(settings.dsc_gamma, u - s, s)
+                out[i] = u
+                del s, u
+
+        # 5. the shard-local optimizer, leaf by leaf: leaf i's state is
+        # the i-th leaf of each part that mirrors the parameters, with the
+        # incoming scalars (adam's t); its successors go back in place
+        note("optimizer")
+        parts = []
+        _map_parts(parts.append, opt_state)
+        part_slots = [_slots(part) for part in parts]
+        sq, piece = [], opt_state
+        for i, (box, name) in enumerate(slots):
+            p = box[name]
+            g, out[i] = out[i].to(p.dtype), None
+            sq.append(torch.sum(torch.square(g.float())))
+            cut = iter([b[k] for b, k in (ps[i] for ps in part_slots)])
+            delta, piece = opt.update({"x": g}, _map_parts(
+                lambda _: {"x": next(cut)}, opt_state), {"x": p})
+            del g, cut
+            new = []
+            _map_parts(new.append, piece)
+            for ps, leaf in zip(part_slots, new):
+                b, k = ps[i]
+                b[k] = leaf["x"]
+            box[name] = p + delta["x"]
+            del p, delta, new
+        whole = iter(parts)
+        new_state = _map_parts(lambda _: next(whole), piece)
+        gn2 = sum(sq)
+        if settings.fsa:
+            gn2 = wire.all_reduce(gn2.reshape(1))[0]
+        metrics = {"loss": loss_val, "grad_norm": torch.sqrt(gn2)}
+        note("end")
+        return params_stored, new_state, dsc_ref, metrics
+
+    return step
+
+
+def main(argv=None):  # pragma: no cover - thin CLI over the factories
+    """CLI: distributed FSA training, one process per data-axis rank.
+
+        torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+            --device cpu --smoke --steps 20
+    """
+    import argparse
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_token_batches
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.optim import adam
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family variant (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--dsc", action="store_true")
+    ap.add_argument("--int8-wire", action="store_true")
+    ap.add_argument("--data-axis", type=int, default=None)
+    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipe axis size (contiguous layer stages)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="1F1B microbatch count (must divide --batch)")
+    ap.add_argument("--save", default=None, metavar="DIR",
+                    help="write the final params as a sharded checkpoint "
+                         "directory (the reference's msgpack format)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    device = init_process_group(args.device)
+    try:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = cfg.smoke()
+        mesh = make_host_mesh(data=args.data_axis, model=args.model_axis,
+                              pipe=args.pp, device=device)
+        opt = adam(args.lr)
+        settings = TrainSettings(use_dsc=args.dsc, grad_dtype="float32",
+                                 int8_wire=args.int8_wire,
+                                 microbatches=args.microbatches)
+        step = make_train_step(cfg, mesh, opt, settings, device=device)
+        key = random.PRNGKey(0)
+        params = store_params(tr.init_params(cfg, seed=0, device=device),
+                              cfg, mesh, settings)
+        opt_state = opt.init(params)
+        dsc_ref = init_dsc_state(cfg, mesh, settings, device=device)
+        toks = lm_token_batches(key, 1, args.batch, args.seq, cfg.vocab,
+                                device=device)[0]
+        batch = {"tokens": toks}
+        lead = _rank(mesh) == 0
+        t0 = time.time()
+        for i in range(args.steps):
+            params, opt_state, dsc_ref, m = step(
+                params, opt_state, dsc_ref, batch, random.PRNGKey(i))
+            if lead:
+                print(f"step {i:3d} loss={float(m['loss']):.4f} "
+                      f"({time.time()-t0:.1f}s)", flush=True)
+        if args.save:
+            from repro_torch.checkpoint import msgpack_ckpt as ck
+            ck.save_sharded(args.save, params,
+                            dims=_scatter_dims(cfg, mesh, settings))
+            if lead:
+                print(f"saved sharded checkpoint -> {args.save}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -270,6 +270,7 @@ def _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd=True, seed=5):
     (4, 16, 16, 64, 128, True, None, torch.bfloat16, True),  # gptneo round
     (4, 14, 2, 64, 64, True, None, torch.bfloat16, True),   # qwen2 round
     (4, 4, 2, 64, 64, True, None, torch.float32, True),     # smoke round
+    (8, 16, 16, 64, 128, True, None, torch.float32, True),  # f32 train step
     (1, 14, 2, 256, 64, True, 100, torch.bfloat16, True),   # qwen2 GQA 7
     # the tensor-core dq and dk/dv (bf16)
     (1, 4, 4, 100, 128, True, None, torch.bfloat16, True),   # ragged S
@@ -597,3 +598,116 @@ def test_cuda_sampler_equals_host(cuda):
     keys = random.split(random.PRNGKey(3), n)
     got = sample(keys.to(cuda), logits.to(cuda), *(a.to(cuda) for a in args))
     assert torch.equal(got.cpu(), sample(keys, logits, *args))
+
+
+# ------------------------------------------------- the distributed step
+@pytest.fixture(scope="module")
+def nccl_rank():
+    """A one-rank ``cpu:gloo,cuda:nccl`` group on a loopback port (CUDA
+    tensors through NCCL, CPU tensors through gloo), made only once a
+    card is found, and its mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    if shutil.which("nvcc") is None and \
+            not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("needs nvcc (the CUDA toolkit) to build the kernel")
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    device = mesh_lib.init_process_group("cuda")
+    yield device, mesh_lib.make_host_mesh(device=device)
+    dist.destroy_process_group()
+
+
+def _train_run(cfg, mesh, fields, device, steps, opt):
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import train
+    settings = train.TrainSettings(**fields)
+    step = train.make_train_step(cfg, mesh, opt, settings, device=device)
+    params = tree_map(lambda t: t.to(device), train.store_params(
+        tr.init_params(cfg, seed=0, device="cpu"), cfg, mesh, settings))
+    state = opt.init(params)
+    dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=device)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, size=(8, 64)).astype(np.int32)).to(device)
+    losses = []
+    for i in range(steps):
+        params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                         {"tokens": toks}, random.PRNGKey(i))
+        losses.append(float(m["loss"]))
+    return params, state, losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [
+    dict(grad_dtype="float32"),
+    dict(grad_dtype="float32", use_dsc=True, int8_wire=True),
+    dict(grad_dtype="float32", int8_wire=True),
+    dict(grad_dtype="float32", use_dsc=True)],
+    ids=["fsa", "dsc_int8_fused", "int8", "dsc"])
+def test_cuda_train_step_equals_the_host(cuda, nccl_rank, fields):
+    """Two sgd steps of the distributed step on the one-rank NCCL group
+    (kernels) and on the host (gloo, plain versions), eris-gptneo-1.3b's
+    smoke variant in f32, same params and keys: params within 1e-4
+    relative norm, losses within 1e-4 (the gradients differ in their last
+    bits, and an int8 code flips where a draw falls within an ulp of its
+    fraction).  With the fused wire, one dsc_quantize a leaf a step."""
+    from repro_torch.convert import tree_leaves
+    from repro_torch.optim import sgd
+    device, mesh = nccl_rank
+    cfg = get_config("eris-gptneo-1.3b").smoke()
+    dq.dsc_quantize.launches = 0
+    card, _, closs = _train_run(cfg, mesh, fields, device, 2, sgd(0.05))
+    if fields.get("use_dsc") and fields.get("int8_wire"):
+        assert dq.dsc_quantize.launches == 2 * len(tree_leaves(card))
+    host, _, hloss = _train_run(cfg, mesh, fields, torch.device("cpu"), 2,
+                                sgd(0.05))
+    cx = torch.cat([t.reshape(-1).cpu() for t in tree_leaves(card)])
+    hx = torch.cat([t.reshape(-1) for t in tree_leaves(host)])
+    assert float((cx - hx).norm() / hx.norm()) <= 1e-4
+    np.testing.assert_allclose(closs, hloss, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_adam_update_equals_the_host(cuda):
+    """Three adam updates (weight decay on) of host-made bf16 params and
+    gradients, on the card and on the host: params, mu, nu and their
+    dtypes bit for bit (separate IEEE-rounded ops, the square root
+    correctly rounded on both)."""
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.optim import adam
+    rng = np.random.default_rng(6)
+    p0 = {"w": torch.from_numpy(rng.standard_normal((257, 129)).astype(
+        np.float32)).bfloat16(), "b": torch.zeros(129, dtype=torch.bfloat16)}
+    grads = [tree_map(lambda t: torch.from_numpy(rng.standard_normal(
+        tuple(t.shape)).astype(np.float32)), p0) for _ in range(3)]
+    ends = []
+    for d in (cuda, torch.device("cpu")):
+        opt = adam(1e-2, weight_decay=0.1)
+        p = tree_map(lambda t: t.to(d), p0)
+        st = opt.init(p)
+        for g in grads:
+            delta, st = opt.update(
+                tree_map(lambda x, q: x.to(d).to(q.dtype), g, p), st, p)
+            p = tree_map(torch.add, p, delta)
+        ends.append(tree_leaves(p) + tree_leaves(st.mu) + tree_leaves(st.nu))
+    for a, b in zip(*ends):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_adam_step_makes_bf16_params_f32(cuda, nccl_rank):
+    """A bf16 model through one adam step on the card: every stored leaf
+    is f32 (the reference's delta is f32: its bias correction is an f32
+    array), the moments stay bf16 until the next step makes them f32."""
+    from repro_torch.convert import tree_leaves
+    from repro_torch.optim import adam
+    device, mesh = nccl_rank
+    cfg = dataclasses.replace(get_config("eris-gptneo-1.3b").smoke(),
+                              dtype="bfloat16")
+    params, state, _ = _train_run(cfg, mesh, dict(use_dsc=True,
+                                                  int8_wire=True), device, 1,
+                                  adam(1e-2))
+    assert {t.dtype for t in tree_leaves(params)} == {torch.float32}
+    assert {t.dtype for t in tree_leaves(state.mu)} == {torch.bfloat16}
+    params, state, _ = _train_run(cfg, mesh, dict(), device, 2, adam(1e-2))
+    assert {t.dtype for t in tree_leaves(state.mu)} == {torch.float32}
