@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
    source, started together) and prints the seconds, each kernel's
    registers and spills from ``-Xptxas -v``, and the shared memory of the
-   tensor-core forward, dq and dk/dv kernels and of the paged kernel.
+   tensor-core forward, dq and dk/dv kernels (bf16, and the f32 forward
+   and dk/dv) and of the paged kernel.
 3. kernel vs plain version -- ``paged_attention`` (split over 64-position
    chunks) against ``paged_attention_ref`` on the card at (H, KV, hd) =
    (16, 16, 128) and (14, 2, 64), f32 and bf16, with and without a window,
@@ -47,18 +48,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    its byte bound, and each plain version on a 2**26 window.
 6. flash kernels vs plain versions -- ``flash_fwd``, ``flash_dq`` and
    ``flash_dkv`` against ``kernels/ref.py`` at (B, H, KV, S, d) =
-   (2, 4, 2, 128, 64) f32, phase 11's (8, 16, 16, 64, 128) f32 (the SIMT
+   (2, 4, 2, 128, 64) f32, phase 11's (8, 16, 16, 64, 128) f32 (the
    kernels its steps 2-3 run), (4, 16, 16, 64, 128), (2, 14, 2, 256, 64),
-   (1, 16, 16, 2048, 128), a ragged (1, 4, 4, 100, 128), (1, 14, 2, 512,
-   64) and contiguous (2, 4, 4, 128, 128) bf16, causal, full, and causal
-   with windows 100 and 200 (four k-tiles), mostly on (B, S, H, d)
-   tensors seen as (B, H, S, d), as the model hands them over: o, lse,
-   dq, dk and dv; every bf16 forward, dq and dk/dv on the tensor cores.
+   (1, 16, 16, 2048, 128) bf16, and in bf16 and f32 a ragged (1, 4, 4,
+   100, 128), (1, 14, 2, 512, 64) and contiguous (2, 4, 4, 128, 128), and
+   d = 16 and 32 in f32, causal, full, and causal with windows 100 and
+   200 (four k-tiles), mostly on (B, S, H, d) tensors seen as (B, H, S,
+   d), as the model hands them over: o, lse, dq, dk and dv; every bf16
+   forward, dq and dk/dv on the tensor cores, every f32 forward and dk/dv
+   on the f32 tensor-core kernels (3xTF32), f32 dq on the SIMT kernel.
    Then each kernel, its plain version and scaled_dot_product_attention
    (forward; forward + backward less the forward) are timed at the two
    rounds' shapes and at S = 2048 for both models, causal, bf16, and at
-   phase 11's f32 shape, beside the kernel's bound and its first (SIMT)
-   version's time.
+   phase 11's f32 shape and S = 2048 in f32, beside the kernel's bound
+   and its first (SIMT) version's time.
 7. the ERIS round -- ``FLRun`` on eris-gptneo-1.3b at full width (bf16
    params from ``--seed``, flash_attention on, K = 4, A = 8, lr 0.1,
    4 x 64 tokens a client from ``lm_token_batches``), two rounds in each
@@ -88,7 +91,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    variant in f32 with flash on, two rounds on the card (kernels) and on
    the host (plain versions) with the same seeds: a host-made gradient
    compressed on both gives the same codes, scales and s', and x agrees
-   to 1e-4 relative norm.
+   to 1e-4 relative norm; every forward and dk/dv on the f32 tensor-core
+   kernels.
 10. the key stream and the reference's default round -- ``random``'s
     bits, split, fold_in, uniform, bernoulli, randint, permutation and
     gumbel on the card against the host under both threefry layouts
@@ -122,8 +126,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     step (the reference's promotion), peak memory under 80 GB, and each
     kernel's launches a step (the fused path: one ``dsc_quantize`` and
     one ``dequantize`` a leaf; the int8 wire: one ``quantize`` and one
-    ``dequantize`` a leaf; n_layers of each flash kernel, on the tensor
-    cores while the params are bf16).  Prints each step's ms split into
+    ``dequantize`` a leaf; n_layers of each flash kernel, on the bf16
+    tensor-core kernels while the params are bf16, and of the forward and
+    dk/dv on the f32 ones once they are f32).  Prints each step's ms split into
     gather, gradient, wire (with the Eq. 4 compensation) and optimizer,
     the peak, and ``mesh_wire_bytes`` at n_client 1, 4 and 8 (computed).
     Then the smoke variant in f32, (a)-(d), two sgd steps on the card and
@@ -186,8 +191,14 @@ from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.serve import SamplingParams, ServeEngine, pages_for  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+# H100 SXM float32 outside the tensor cores: the scalar work of the wire
+# and paged kernels
+F32_OPS_PER_S = 67e12
 BF16_TC_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+# f32-accurate products on the tensor cores: three TF32 products (495
+# TFLOP/s dense) a product; the least time for an f32 flash kernel's
+# products, whatever runs them
+F32_TC_FLOPS = 495e12 / 3
 # every kernel of the port: (name, wrapper, source, the TPU kernel it replaces)
 KERNELS = (
     ("paged_attention", pa.paged_attention, "paged_attention.cu",
@@ -210,8 +221,11 @@ KERNELS = (
 WIRE = {name: fn for name, fn, _, _ in KERNELS[1:5]}
 FLASH = {name: fn for name, fn, _, _ in KERNELS[5:]}
 ROUND = {**WIRE, **FLASH}        # every kernel the ERIS round may launch
-# their bf16 launches, on the tensor cores, counted apart
+# their bf16 launches, on the tensor cores, counted apart; and the f32
+# forward's and dk/dv's, on the tensor cores too (f32 dq is the SIMT
+# kernel of flash_attention.cu)
 TENSOR_CORE = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+F32_TENSOR_CORE = (fa.flash_fwd, fa.flash_dkv)
 
 # kernel vs plain version: f32 agrees to summation order; with bf16 pools
 # the plain version rounds its softmax weights to bf16 before the PV
@@ -294,6 +308,13 @@ def build_phase() -> None:
                       **{f"{kind} d={d}": smem(i, d)
                          for i, kind in enumerate(("dq", "dk/dv"))
                          for d in fa.HEAD_DIMS}}))
+    f32_smem = _build.bind("flash_f32_sm90", "flash_f32_sm90_smem",
+                           [ctypes.c_int, ctypes.c_int])
+    print("  flash_f32_sm90 dynamic shared memory a block (the forward with "
+          "two stages), bytes: " +
+          json.dumps({f"{kind} d={d}": f32_smem(i, d)
+                      for i, kind in enumerate(("forward", "dk/dv"))
+                      for d in fa.HEAD_DIMS}))
     paged_smem = _build.bind("paged_attention", "paged_attention_smem",
                              [ctypes.c_int] * 4)
     print("  paged_attention dynamic shared memory a block (bf16 pools, "
@@ -837,10 +858,12 @@ def wire_timing(dev, seed) -> dict:
 # and 11 give the kernels (eris-gptneo-1.3b's round, qwen2-0.5b's round,
 # the smoke round of phase 9 in f32, the GPT-Neo context, and phase 11's
 # step in f32: after adam's first step the params are f32, so steps 2-3
-# run the SIMT kernels at d = 128), qwen2-0.5b's GQA (7 heads a kv head)
-# over four and eight k-tiles, a ragged S at d = 128, and contiguous (B,
-# H, S, d) inputs beside the model's (B, S, H, d) views; each under every
-# mask
+# run the f32 kernels at d = 128), qwen2-0.5b's GQA (7 heads a kv head)
+# over four and eight k-tiles, a ragged S at d = 128, contiguous (B, H, S,
+# d) inputs beside the model's (B, S, H, d) views, and d = 16 and 32, the
+# last five in bf16 and in f32; then both models' context in f32, the f32
+# kernels' longest sums (dk/dv at GQA 7 sums 7 heads of 32 q-tiles); each
+# under every mask
 FLASH_SHAPES = ((2, 4, 2, 128, 64, torch.float32, True),
                 (8, 16, 16, 64, 128, torch.float32, True),
                 (4, 16, 16, 64, 128, torch.bfloat16, True),
@@ -850,7 +873,14 @@ FLASH_SHAPES = ((2, 4, 2, 128, 64, torch.float32, True),
                 (1, 16, 16, 2048, 128, torch.bfloat16, True),
                 (1, 4, 4, 100, 128, torch.bfloat16, True),
                 (1, 14, 2, 512, 64, torch.bfloat16, True),
-                (2, 4, 4, 128, 128, torch.bfloat16, False))
+                (2, 4, 4, 128, 128, torch.bfloat16, False),
+                (1, 4, 4, 100, 128, torch.float32, True),
+                (1, 14, 2, 512, 64, torch.float32, True),
+                (2, 4, 4, 128, 128, torch.float32, False),
+                (1, 2, 1, 256, 16, torch.float32, True),
+                (1, 2, 1, 128, 32, torch.float32, True),
+                (1, 14, 2, 2048, 64, torch.float32, True),
+                (1, 16, 16, 2048, 128, torch.float32, True))
 # the flash kernels and their plain versions both compute in f32 and cast
 # once, so a bf16 output may differ by one bf16 step (2**-7 of its size)
 # and the f32 sums' order
@@ -863,20 +893,31 @@ FLASH_TIMED = (("gptneo-round", (4, 16, 16, 64, 128)),
                ("qwen2-round", (4, 14, 2, 64, 64)),
                ("gptneo-s2048", (1, 16, 16, 2048, 128)),
                ("qwen2-s2048", (1, 14, 2, 2048, 64)))
-# timed causal in f32 (the SIMT kernels): phase 11's step from its second
-# step on, 8 x 64 tokens on one rank
-FLASH_TIMED_F32 = (("gptneo-train-f32", (8, 16, 16, 64, 128)),)
+# timed causal in f32: phase 11's step from its second step on, 8 x 64
+# tokens on one rank, and both models' context, where the products and not
+# the bytes bound the f32 kernels
+FLASH_TIMED_F32 = (("gptneo-train-f32", (8, 16, 16, 64, 128)),
+                   ("gptneo-s2048-f32", (1, 16, 16, 2048, 128)),
+                   ("qwen2-s2048-f32", (1, 14, 2, 2048, 64)))
 # each kernel's first version's time in us at those shapes: f32 FMAs on
 # the CUDA cores (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700.00 W),
 # printed beside this run's; at qwen2's S = 2048 only the SIMT forward
-# was timed
+# was timed; at S = 2048 in f32 the SIMT kernels were timed by
+# tools/kernel_ab.py against the parent tree (f32 dq is the SIMT kernel
+# still)
 FIRST_VERSION_US = {"gptneo-round": {"flash_fwd": 23.24, "flash_dq": 28.82,
                             "flash_dkv": 30.68},
            "qwen2-round": {"flash_fwd": 12.12, "flash_dq": 16.40,
                            "flash_dkv": 105.57},
            "gptneo-s2048": {"flash_fwd": 1582.0, "flash_dq": 2058.5,
                             "flash_dkv": 1964.9},
-           "qwen2-s2048": {"flash_fwd": 622.90}}
+           "qwen2-s2048": {"flash_fwd": 622.90},
+           "gptneo-train-f32": {"flash_fwd": 23.11, "flash_dq": 27.57,
+                                "flash_dkv": 31.23},
+           "gptneo-s2048-f32": {"flash_fwd": 1651.98, "flash_dq": 1873.53,
+                                "flash_dkv": 1942.94},
+           "qwen2-s2048-f32": {"flash_fwd": 620.50, "flash_dq": 814.75,
+                               "flash_dkv": 3164.05}}
 # f32 operations per visible (query, key) pair, per unit of head dim:
 # forward q.k and p v; dq adds do.v and ds k; dk/dv do.v, p^T do, ds^T q
 FLASH_FLOPS = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
@@ -909,11 +950,13 @@ def _flash_all(q, k, v, do, mask):
 
 def flash_cases(dev, seed) -> dict:
     """Each flash kernel against its plain version at every listed shape
-    and mask (f32: TOL_F32 absolute and relative, the order of summation;
-    bf16 outputs: FLASH_BF16_STEP relative plus TOL_F32, one bf16 step;
-    lse is f32 throughout); every bf16 forward, dq and dk/dv call
-    launches the tensor-core kernels.  Prints each kernel's largest error
-    as a share of its bound; returns its largest absolute error."""
+    and mask (f32: TOL_F32 absolute and relative, the order of summation
+    and the 3xTF32 products; bf16 outputs: FLASH_BF16_STEP relative plus
+    TOL_F32, one bf16 step; lse is f32 throughout); every bf16 forward, dq
+    and dk/dv call launches the tensor-core kernels, every f32 forward and
+    dk/dv call the f32 tensor-core kernels (and f32 dq the SIMT kernel).
+    Prints each kernel's largest error as a share of its bound; returns
+    its largest absolute error."""
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     worst = dict.fromkeys(FLASH, 0.0)
     share = dict.fromkeys(FLASH, 0.0)
@@ -923,13 +966,18 @@ def flash_cases(dev, seed) -> dict:
         for causal, window in FLASH_MASKS:
             mask = dict(causal=causal, window=window)
             tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
+            tc32 = [fn.f32_tensor_core_launches for fn in F32_TENSOR_CORE]
             got, want = _flash_all(q, k, v, do, mask)
             torch.cuda.synchronize()
             added = [fn.tensor_core_launches - n
                      for fn, n in zip(TENSOR_CORE, tc)]
-            check(added == [int(dtype == torch.bfloat16)] * 3,
-                  f"flash forward, dq, dk/dv at {dtype}: {added} "
-                  f"tensor-core launches")
+            added32 = [fn.f32_tensor_core_launches - n
+                       for fn, n in zip(F32_TENSOR_CORE, tc32)]
+            bf16 = dtype == torch.bfloat16
+            check(added == [int(bf16)] * 3 and added32 == [int(not bf16)] * 2,
+                  f"flash forward, dq, dk/dv at {dtype}: {added} bf16 "
+                  f"tensor-core launches, forward and dk/dv {added32} f32 "
+                  f"ones")
             errs = []
             for kname, what, a, b in zip(owner, ("o", "lse", "dq", "dk", "dv"),
                                          got, want):
@@ -971,14 +1019,15 @@ def _flash_bound(nbytes: int, flops: int, rate: float) -> dict:
 
 def flash_timing(dev, seed) -> dict:
     """Each flash kernel and its plain version at the rounds' shapes and
-    at S = 2048, causal, bf16, and at phase 11's f32 shape, in CUDA graphs
-    of back-to-back calls (the host's enqueue is not measured); beside
-    them scaled_dot_product_attention: its forward, and its forward and
-    autograd backward less the forward (dq, dk and dv in one call).  The
-    bound counts each input read once and each output written once at
-    3.35 TB/s, and the visible pairs' products at the bf16 tensor-core
-    peak of 989 TFLOP/s (f32: 67 TFLOP/s outside the tensor cores, where
-    the f32 kernels run)."""
+    at S = 2048, causal, bf16, and at phase 11's f32 shape and S = 2048 in
+    f32, in CUDA graphs of back-to-back calls (the host's enqueue is not
+    measured); beside them scaled_dot_product_attention: its forward, and
+    its forward and autograd backward less the forward (dq, dk and dv in
+    one call).  The bound counts each input read once and each output
+    written once at 3.35 TB/s, and the visible pairs' products at the bf16
+    tensor-core peak of 989 TFLOP/s (f32: 165 TFLOP/s, the tensor cores'
+    495 TFLOP/s of TF32 over the three products of an f32-accurate
+    one)."""
     gen = torch.Generator(device=dev).manual_seed(seed + 12)
     out = {}
     timed = ([(label, shape, torch.bfloat16) for label, shape in FLASH_TIMED]
@@ -989,7 +1038,7 @@ def flash_timing(dev, seed) -> dict:
         o, lse = fa.flash_fwd(q, k, v)
         delta = wire_ref.flash_delta(o, do)
         size = q.element_size()
-        rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_OPS_PER_S
+        rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_TC_FLOPS
         qb, kvb, rows = (size * B * H * S * d, size * B * KV * S * d,
                          4 * B * H * S)
         nbytes = {"flash_fwd": 2 * qb + 2 * kvb + rows,
@@ -1158,6 +1207,19 @@ def _set_round_launches(value: int = 0) -> None:
         fn.launches = value
     for fn in TENSOR_CORE:
         fn.tensor_core_launches = value
+    for fn in F32_TENSOR_CORE:
+        fn.f32_tensor_core_launches = value
+
+
+def _check_tensor_cores(what: str, n: int, bf16: bool) -> None:
+    """n calls of each flash kernel, all bf16 or all f32, went to the
+    tensor-core kernels of their dtype (f32 dq: to the SIMT kernel)."""
+    tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
+    tc32 = [fn.f32_tensor_core_launches for fn in F32_TENSOR_CORE]
+    want = ([n] * 3, [0] * 2) if bf16 else ([0] * 3, [n] * 2)
+    check((tc, tc32) == want, f"{what}: forward, dq, dk/dv launched {tc} "
+          f"times on the bf16 tensor-core kernels and forward, dk/dv {tc32} "
+          f"on the f32 ones, want {want} ({'bf16' if bf16 else 'f32'})")
 
 
 def _live_cuda_tensors(top: int = 8) -> list:
@@ -1232,10 +1294,8 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals,
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {k: fn.launches for k, fn in ROUND.items()}
-        tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
-        check(tc == [flash_per_round] * 3 or cfg.dtype != "bfloat16",
-              f"{name} round {t + 1}: tensor-core forward, dq, dk/dv "
-              f"launched {tc} times, want {flash_per_round} (bf16)")
+        _check_tensor_cores(f"{name} round {t + 1}", flash_per_round,
+                            cfg.dtype == "bfloat16")
         for k, count in launches.items():       # the main path ended
             totals[k] += count
             want = (flash_per_round if k in FLASH else
@@ -1429,10 +1489,8 @@ def context_phase(dev, seed) -> None:
           f"flash on {[round(x, 1) for x in ms[True]]}")
     _set_round_launches(0)
     g_on, loss_on, ms_on, peak_on = _client_grad(on, params, toks)
-    tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
-    check(tc == [on.n_layers] * 3 and on.dtype == "bfloat16",
-          f"S = {CONTEXT} flash gradient: tensor-core forward, dq, dk/dv "
-          f"launched {tc} times, want {on.n_layers} each")
+    check(on.dtype == "bfloat16", f"the context gradient runs {on.dtype}")
+    _check_tensor_cores(f"S = {CONTEXT} flash gradient", on.n_layers, True)
     g_off, loss_off, ms_off, peak_off = _client_grad(off, params, toks)
     diff = sum(float((a.float() - b.float()).square().sum())
                for a, b in zip(g_on, g_off))
@@ -1485,8 +1543,8 @@ def fl_small_input_phase(dev, seed) -> None:
     launched = [fn.launches for fn in FLASH.values()]
     check(launched == [2 * K_CLIENTS * cfg.n_layers] * 3,
           f"smoke rounds: flash kernels launched {launched} times")
-    check([fn.tensor_core_launches for fn in TENSOR_CORE] == [0, 0, 0],
-          "smoke rounds in f32 launched the bf16 tensor-core kernels")
+    _check_tensor_cores("smoke rounds in f32", 2 * K_CLIENTS * cfg.n_layers,
+                        False)
     # one host-made gradient through the kernel and the plain version
     g = host._grad(host.x, toks[0])
     s = host.state.dsc.s_clients[0]
@@ -1824,15 +1882,16 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {k: fn.launches for k, fn in ROUND.items()}
-        tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
+        tc = ([fn.tensor_core_launches for fn in TENSOR_CORE],
+              [fn.f32_tensor_core_launches for fn in F32_TENSOR_CORE])
         for k, count in launches.items():         # the main path ended
             totals[k] += count
             want = (flash if k in FLASH else n_leaves if k in path else 0)
             check(count == want, f"{name} step {i + 1}: {k} launched "
                   f"{count} times, want {want}")
-        check(tc == [flash if bf16 else 0] * 3, f"{name} step {i + 1}: "
-              f"tensor-core forward, dq, dk/dv launched {tc} times "
-              f"(params bf16: {bf16})")
+        _check_tensor_cores(f"{name} step {i + 1}", flash, bf16)
+        for name_ in FLASH:                       # this step's f32 launches
+            totals[f"{name_} f32"] += 0 if bf16 else launches[name_]
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         check(math.isfinite(loss) and math.isfinite(gnorm),
               f"{name} step {i + 1}: loss {loss}, grad_norm {gnorm}")
@@ -1852,7 +1911,9 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
               + " + ".join(f"{k} {v:.1f}" for k, v in split.items())
               + f" (wall {wall:.2f} s); loss {loss:.4f}, grad_norm "
               f"{gnorm:.4f}; launches {steps[-1]['launches']}; tensor "
-              f"cores {tc}; device memory {steps[-1]['allocated_gb']:.2f} "
+              f"cores bf16 {tc[0]}, f32 (forward, dk/dv) {tc[1]}; device "
+              f"memory "
+              f"{steps[-1]['allocated_gb']:.2f} "
               f"GB held", flush=True)
     losses = [s["loss"] for s in steps]           # loss i before update i
     falls = all(b < a for a, b in zip(losses, losses[1:]))
@@ -2016,6 +2077,7 @@ def train_phase(dev, seed) -> dict:
         toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
                                 cfg.vocab, device=dev)[0]
         totals = {name: 0 for name in ROUND}
+        totals.update({f"{name} f32": 0 for name in FLASH})
         results = {}
         for name, fields, path in TRAIN_CONFIGS:
             results[name] = _train_config(dev, seed, cfg, mesh, toks, name,
@@ -2128,7 +2190,8 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
     # the flash rows at the gptneo round's shape, where they launch; the
-    # other timed shapes beside it; the library call is
+    # other timed shapes beside it, the f32 ones on the f32 source, which
+    # phase 11's f32 steps launch f32_launches times; the library call is
     # scaled_dot_product_attention (forward for flash_fwd; its backward,
     # dq, dk and dv in one call, for flash_dq and flash_dkv)
     for name, _, source, replaces in KERNELS[5:]:
@@ -2137,10 +2200,15 @@ def main() -> None:
             key: flash_timing_[label][name][key] for key in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for label in ("qwen2-round", "gptneo-s2048", "qwen2-s2048",
-                          "gptneo-train-f32")}
+                          "gptneo-train-f32", "gptneo-s2048-f32",
+                          "qwen2-s2048-f32")}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
+            "f32_source": "src/repro_torch/kernels/csrc/" + (
+                "flash_attention.cu" if name == "flash_dq" else
+                "flash_f32_sm90.cu"),
+            "f32_launches": train_launches[f"{name} f32"],
             "replaces": replaces, "launches": round_launches[name],
             "max_abs_err": flash_worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -11,8 +11,9 @@
 //                             the sum over each group's G query heads runs
 //                             after the kernel (flash_attention.py:264-265)
 //
-// f32 inputs keep the SIMT kernels of flash_attention.cu: their f32
-// products on the CUDA cores hold the host to 1e-4, which TF32 would not.
+// f32 inputs run dk/dv on the tensor cores in flash_f32_sm90.cu (three TF32
+// products a product hold the host to 1e-4, which one would not) and dq on
+// the SIMT kernel of flash_attention.cu.
 // bf16 at d = 16 and 32 runs here too, zero-padded to 64 columns in
 // shared memory (the padding adds zeros to q.k and do.v, and its dq, dk
 // and dv columns are never stored).
@@ -65,16 +66,6 @@
 namespace {
 
 using namespace sm90;
-
-// lse and delta of rows r0 .. r0 + 63 into two 64-float rows; zeros past S
-__device__ __forceinline__ void load_rows(uint32_t dst, const float* lse,
-                                          const float* delta, int r0, int S) {
-  const int t = threadIdx.x & (kTile - 1);
-  const float* src = threadIdx.x < kTile ? lse : delta;
-  const bool ok = r0 + t < S;
-  cp_async4(dst + (threadIdx.x < kTile ? 0 : kTile * 4) + t * 4,
-            ok ? src + r0 + t : src, ok);
-}
 
 // ------------------------------------------------------------------- dq
 template <int D>

@@ -4,11 +4,11 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_fwd_kernel
 // on the bf16 path (the model's training dtype): blocked online softmax
 // over the k-tiles a q-tile sees, o = acc / max(l, 1e-30) in q's dtype and
-// lse = m + log(max(l, 1e-30)) in f32.  f32 inputs keep the SIMT forward
-// of flash_attention.cu: its f32 products hold the host to 1e-4, which
-// TF32 would not.  d = 16 and 32 run here too, zero-padded to 64 columns
-// in shared memory (the padding adds zeros to q.k, and its o columns are
-// never stored).
+// lse = m + log(max(l, 1e-30)) in f32.  f32 inputs run the forward of
+// flash_f32_sm90.cu, whose three TF32 products a product hold the host to
+// 1e-4, which one would not.  d = 16 and 32 run here too, zero-padded to 64
+// columns in shared memory (the padding adds zeros to q.k, and its o
+// columns are never stored).
 //
 // Layout and masks as flash_attention.cu: q, o (B, H, S, d) and k, v
 // (B, KV, S, d) with any strides whose rows start on 16 bytes (the wrapper

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): 16-byte cp.async copies into
-// 128-byte-swizzled bf16 tiles, wgmma descriptors and products, the
-// two-term bf16 split, and the reference's masks and tile bounds.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu; flash_f32_sm90.cu takes the
+// cp.async copies, the rows of lse and delta, the masks and the host
+// helpers): 16-byte cp.async copies into 128-byte-swizzled bf16 tiles,
+// wgmma descriptors and products, the two-term bf16 split, and the
+// reference's masks and tile bounds.
 //
 // Tiles.  A tile is 64 rows of a head, bf16 in shared memory in the
 // 128-byte swizzle: a row of 64 columns is one 128-byte line of an 8-row
@@ -216,6 +218,17 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* src,
     cp_async16(tile + (c >> 3) * kAtom + r * 128 + (((c & 7) ^ (r & 7)) << 4),
                from, ok);
   }
+}
+
+// lse and delta of rows r0 .. r0 + 63 into two 64-float rows at dst
+// (kThreads threads, one 4-byte copy each); zeros past S
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* lse,
+                                          const float* delta, int r0, int S) {
+  const int t = threadIdx.x & (kTile - 1);
+  const float* src = threadIdx.x < kTile ? lse : delta;
+  const bool ok = r0 + t < S;
+  cp_async4(dst + (threadIdx.x < kTile ? 0 : kTile * 4) + t * 4,
+            ok ? src + r0 + t : src, ok);
 }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,

@@ -8,19 +8,24 @@ the dk/dv kernels.  The three kernel wrappers, :func:`flash_fwd`,
 :func:`flash_dq` and :func:`flash_dkv`, launch the hand-written CUDA
 kernels on CUDA tensors: in bf16 on the tensor cores, the forward from
 ``csrc/flash_fwd_sm90.cu`` and dq and dk/dv from ``csrc/flash_bwd_sm90.cu``;
-in f32 the SIMT kernels of ``csrc/flash_attention.cu``.  Their designs
-and bounds are set out in those files.  On CPU tensors they compute the
-plain versions in ``kernels/ref.py``, and only there: on a CUDA tensor
-they launch a kernel or raise.  ``flash_fwd.launches``,
-``flash_dq.launches`` and ``flash_dkv.launches`` count the kernels'
-launches, and their ``tensor_core_launches`` the bf16 ones among them.
+in f32 the forward and dk/dv on the tensor cores at f32 accuracy (3xTF32)
+from ``csrc/flash_f32_sm90.cu``, and dq the SIMT kernel of
+``csrc/flash_attention.cu``.  Their designs and bounds are set out in
+those files.  On CPU tensors they compute the plain versions in
+``kernels/ref.py``, and only there: on a CUDA tensor they launch a kernel
+or raise.  ``flash_fwd.launches``, ``flash_dq.launches`` and
+``flash_dkv.launches`` count the kernels' launches and their
+``tensor_core_launches`` the bf16 ones among them;
+``flash_fwd.f32_tensor_core_launches`` and
+``flash_dkv.f32_tensor_core_launches`` count the f32 ones, on the tensor
+cores.
 
 Layout is the reference's, q (B, H, S, d) and k, v (B, KV, S, d), with
 any strides so long as d is contiguous: the model hands over transposed
 views of its (B, S, H, d) projections and the kernels read them in
 place, without a copy.  Outputs take their input's strides
 (``torch.empty_like``), so o comes back as a view of a contiguous
-(B, S, H, d) tensor.  The bf16 kernels copy rows with 16-byte
+(B, S, H, d) tensor.  The tensor-core kernels copy rows with 16-byte
 asynchronous copies, so there every row must start on 16 bytes (base
 address and the b, h and s strides); the model's views do.
 """
@@ -40,12 +45,14 @@ HEAD_DIMS = (16, 32, 64, 128)         # the head dims the CUDA kernels take
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MASK = [_I] * 5 + [ctypes.c_float, _I, _I]    # B H KV S d scale causal window
-# symbol: (source, argument types); the SIMT kernels end (bf16, stream),
-# the tensor-core dk/dv (partial, stream)
-_ARGS = {"flash_fwd_launch": ("flash_attention", [_P] * 6 + _MASK + [_I, _P]),
-         "flash_fwd_sm90_launch": ("flash_fwd_sm90", [_P] * 6 + _MASK + [_P]),
-         "flash_dq_launch": ("flash_attention", [_P] * 8 + _MASK + [_I, _P]),
-         "flash_dkv_launch": ("flash_attention", [_P] * 9 + _MASK + [_I, _P]),
+# symbol: (source, argument types); the bf16 dk/dv ends (partial, stream),
+# the others (stream)
+_ARGS = {"flash_fwd_sm90_launch": ("flash_fwd_sm90", [_P] * 6 + _MASK + [_P]),
+         "flash_fwd_f32_sm90_launch": ("flash_f32_sm90",
+                                       [_P] * 6 + _MASK + [_P]),
+         "flash_dq_launch": ("flash_attention", [_P] * 8 + _MASK + [_P]),
+         "flash_dkv_f32_sm90_launch": ("flash_f32_sm90",
+                                       [_P] * 9 + _MASK + [_P]),
          "flash_dq_sm90_launch": ("flash_bwd_sm90", [_P] * 8 + _MASK + [_P]),
          "flash_dkv_sm90_launch": ("flash_bwd_sm90",
                                    [_P] * 9 + _MASK + [_I, _P])}
@@ -110,13 +117,13 @@ def _aligned(t) -> bool:
 
 
 def _check_async_copies(op: str, **tensors) -> None:
-    """The bf16 kernels copy 16-byte chunks of rows: raise on a row that
-    does not start on 16 bytes (never fall back)."""
+    """The tensor-core kernels copy 16-byte chunks of rows: raise on a row
+    that does not start on 16 bytes (never fall back)."""
     for name, t in tensors.items():
         if not _aligned(t):
             raise ValueError(f"{op}: {name}'s rows must start on 16 bytes "
-                             f"for the bf16 kernel (base address and the "
-                             f"b, h, s strides), got address "
+                             f"for the tensor-core kernel (base address and "
+                             f"the b, h, s strides), got address "
                              f"{t.data_ptr()} and strides {t.stride()}")
 
 
@@ -148,14 +155,13 @@ def _launch(symbol: str, pointers, strides, q, k, causal, window,
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None):
-    """The forward kernel (bf16: on the tensor cores).  Returns (o in q's
-    dtype and strides, lse (B * H, S) f32)."""
+    """The forward kernel, on the tensor cores (f32 by 3xTF32).  Returns
+    (o in q's dtype and strides, lse (B * H, S) f32)."""
     _check("flash_fwd", q, k, v, window)
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal=causal, window=window)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_async_copies("flash_fwd", q=q, k=k, v=v)
+    _check_async_copies("flash_fwd", q=q, k=k, v=v)
     B, H, S, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
@@ -167,8 +173,9 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None):
                     window)
             flash_fwd.tensor_core_launches += 1
         else:
-            _launch("flash_fwd_launch", pointers, strides, q, k, causal,
-                    window, 0)
+            _launch("flash_fwd_f32_sm90_launch", pointers, strides, q, k,
+                    causal, window)
+            flash_fwd.f32_tensor_core_launches += 1
         flash_fwd.launches += 1
     return o, lse
 
@@ -194,24 +201,24 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True,
             flash_dq.tensor_core_launches += 1
         else:
             _launch("flash_dq_launch", pointers, strides, q, k, causal,
-                    window, 0)
+                    window)
         flash_dq.launches += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
               window: Optional[int] = None):
-    """The dk/dv kernel, the sum over each group's query heads included
-    (bf16: on the tensor cores, a block per query head; with G > 1 query
-    heads a kv head it writes f32 partials that :func:`group_sum` adds
-    up).  Returns (dk, dv) in k's and v's dtype and strides."""
+    """The dk/dv kernel, the sum over each group's query heads included,
+    on the tensor cores (bf16: a block per query head; with G > 1 query
+    heads a kv head it writes f32 partials that :func:`group_sum` adds up;
+    f32, by 3xTF32: a block per kv head, summing the group in registers).
+    Returns (dk, dv) in k's and v's dtype and strides."""
     _check("flash_dkv", q, k, v, window, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                              window=window)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_async_copies("flash_dkv", q=q, k=k, v=v, do=do)
+    _check_async_copies("flash_dkv", q=q, k=k, v=v, do=do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
         outs = (dk, dv)
@@ -229,15 +236,16 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                 group_sum(outs[1], dv)
             flash_dkv.tensor_core_launches += 1
         else:
-            _launch("flash_dkv_launch", pointers, strides, q, k, causal,
-                    window, 0)
+            _launch("flash_dkv_f32_sm90_launch", pointers, strides, q, k,
+                    causal, window)
+            flash_dkv.f32_tensor_core_launches += 1
         flash_dkv.launches += 1
     return dk, dv
 
 
-flash_fwd.launches = flash_fwd.tensor_core_launches = 0
-flash_dq.launches = flash_dq.tensor_core_launches = 0
-flash_dkv.launches = flash_dkv.tensor_core_launches = 0
+for _fn in (flash_fwd, flash_dq, flash_dkv):
+    _fn.launches = _fn.tensor_core_launches = 0
+flash_fwd.f32_tensor_core_launches = flash_dkv.f32_tensor_core_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -241,6 +241,7 @@ def test_fl_round_on_the_card_equals_the_host(cuda, flash):
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 FLASH = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+F32_TENSOR_CORE = (fa.flash_fwd, fa.flash_dkv)    # f32 dq: the SIMT kernel
 
 
 def _set_flash_launches(value):
@@ -279,19 +280,31 @@ def _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd=True, seed=5):
     (2, 4, 4, 128, 128, True, None, torch.bfloat16, False),  # contiguous
     (1, 14, 2, 128, 64, False, None, torch.bfloat16, False),  # contiguous
     (1, 2, 1, 128, 32, True, 48, torch.bfloat16, True),      # d = 32, padded
+    # the f32 forward and dk/dv on the tensor cores (3xTF32)
+    (1, 4, 4, 100, 128, True, None, torch.float32, True),    # ragged S
+    (1, 14, 2, 512, 64, True, None, torch.float32, True),    # 7 heads a kv
+    (1, 14, 2, 512, 64, True, 200, torch.float32, True),     # window
+    (2, 4, 4, 128, 128, True, None, torch.float32, False),   # contiguous
+    (1, 2, 1, 256, 16, True, None, torch.float32, True),     # d = 16
+    (1, 2, 1, 128, 32, False, None, torch.float32, True),    # d = 32, full
+    (1, 14, 2, 2048, 64, False, None, torch.float32, True),  # longest sums
+    (1, 16, 16, 2048, 128, True, None, torch.float32, True),  # gptneo context
 ])
 def test_cuda_flash_kernels_match_plain_versions(cuda, B, H, KV, S, d, causal,
                                                  window, dtype, bshd):
     """The forward, dq and dk/dv kernels against their plain versions on
-    the same inputs (f32: 1e-4, the order of summation; bf16 outputs:
-    2**-7 of the plain value plus 1e-4, one bf16 step, since both sides
-    compute in f32 and cast once, the tensor-core dq and dk/dv taking p
-    and ds as two bf16 terms), each launched once, every bf16 kernel on
-    the tensor cores; outputs keep their inputs' strides."""
+    the same inputs (f32: 1e-4, the order of summation and the 3xTF32
+    products; bf16 outputs: 2**-7 of the plain value plus 1e-4, one bf16
+    step, since both sides compute in f32 and cast once, the tensor-core
+    dq and dk/dv taking p and ds as two bf16 terms), each launched once,
+    every bf16 kernel on the tensor cores, the f32 forward and dk/dv on the
+    f32 tensor-core kernels (f32 dq on the SIMT kernel); outputs keep their
+    inputs' strides."""
     q, k, v, do = _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd)
     mask = dict(causal=causal, window=window)
     before = [fn.launches for fn in FLASH]
     tc_before = [fn.tensor_core_launches for fn in FLASH]
+    tc32_before = [fn.f32_tensor_core_launches for fn in F32_TENSOR_CORE]
     o, lse = fa.flash_fwd(q, k, v, **mask)
     delta = wire_ref.flash_delta(o, do)
     dq_ = fa.flash_dq(q, k, v, do, lse, delta, **mask)
@@ -301,6 +314,8 @@ def test_cuda_flash_kernels_match_plain_versions(cuda, B, H, KV, S, d, causal,
     tc = int(dtype == torch.bfloat16)
     assert [fn.tensor_core_launches - b
             for fn, b in zip(FLASH, tc_before)] == [tc] * 3
+    assert [fn.f32_tensor_core_launches - b
+            for fn, b in zip(F32_TENSOR_CORE, tc32_before)] == [1 - tc] * 2
     ro, rlse = wire_ref.flash_fwd_ref(q, k, v, **mask)
     rdq = wire_ref.flash_dq_ref(q, k, v, do, lse, delta, **mask)
     rdk, rdv = wire_ref.flash_dkv_ref(q, k, v, do, lse, delta, **mask)
@@ -400,7 +415,8 @@ def test_cuda_tensor_core_forward_matches_flash_fwd_ref(cuda, B, H, KV, S, d,
 @pytest.mark.cuda
 def test_cuda_flash_forward_raises_on_rows_off_16_bytes(cuda):
     """The bf16 forward copies rows in 16-byte chunks: a view off 16 bytes
-    raises before any launch; f32 takes it on the SIMT kernel."""
+    raises before any launch; its f32 copy (contiguous, so on 16 bytes)
+    runs on the f32 tensor-core forward."""
     q, k, v, _ = _flash_inputs(1, 4, 2, 64, 64, torch.bfloat16, cuda)
     flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
     shifted = flat[1:].view(q.shape)
@@ -414,10 +430,41 @@ def test_cuda_flash_forward_raises_on_rows_off_16_bytes(cuda):
             fa.flash_attention(q, bad[:, :2], v)
     assert fa.flash_fwd.launches == before
     tc = fa.flash_fwd.tensor_core_launches
+    tc32 = fa.flash_fwd.f32_tensor_core_launches
     fa.flash_fwd(ragged.float(), k.float(), v.float())
     torch.cuda.synchronize()
-    assert (fa.flash_fwd.launches, fa.flash_fwd.tensor_core_launches) == \
-        (before + 1, tc)
+    assert (fa.flash_fwd.launches, fa.flash_fwd.tensor_core_launches,
+            fa.flash_fwd.f32_tensor_core_launches) == (before + 1, tc,
+                                                       tc32 + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_flash_raises_on_rows_off_16_bytes(cuda):
+    """The f32 forward and dk/dv copy rows in 16-byte chunks (four floats)
+    too: a view whose base address or row stride is off 16 bytes raises
+    before any launch; nothing falls back."""
+    q, k, v, do = _flash_inputs(1, 4, 2, 64, 64, torch.float32, cuda)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = wire_ref.flash_delta(o, do)
+    flat = torch.zeros(q.numel() + 1, device=cuda)
+    shifted = flat[1:].view(q.shape)                   # base 4 bytes off
+    wide = torch.zeros(1, 64, 4, 66, device=cuda)
+    ragged = wide[..., :64].transpose(1, 2)            # rows 264 bytes apart
+    before = (fa.flash_fwd.launches, fa.flash_dkv.launches,
+              fa.flash_fwd.f32_tensor_core_launches,
+              fa.flash_dkv.f32_tensor_core_launches)
+    for bad in (shifted, ragged):
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_fwd(bad, k, v)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_fwd(q, bad[:, :2], v)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_dkv(q, k, v, bad, lse, delta)
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_dkv(bad, k, v, do, lse, delta)
+    assert (fa.flash_fwd.launches, fa.flash_dkv.launches,
+            fa.flash_fwd.f32_tensor_core_launches,
+            fa.flash_dkv.f32_tensor_core_launches) == before
 
 
 # ------------------------------------------------ the paged kernel, split-K
