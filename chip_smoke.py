@@ -55,8 +55,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    d = 16 and 32 in f32, causal, full, and causal with windows 100 and
    200 (four k-tiles), mostly on (B, S, H, d) tensors seen as (B, H, S,
    d), as the model hands them over: o, lse, dq, dk and dv; every bf16
-   forward, dq and dk/dv on the tensor cores, every f32 forward and dk/dv
-   on the f32 tensor-core kernels (3xTF32), f32 dq on the SIMT kernel.
+   forward, dq and dk/dv on the tensor cores, every f32 forward, dq and
+   dk/dv on the f32 tensor-core kernels (3xTF32).
    Then each kernel, its plain version and scaled_dot_product_attention
    (forward; forward + backward less the forward) are timed at the two
    rounds' shapes and at S = 2048 for both models, causal, bf16, and at
@@ -91,8 +91,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    variant in f32 with flash on, two rounds on the card (kernels) and on
    the host (plain versions) with the same seeds: a host-made gradient
    compressed on both gives the same codes, scales and s', and x agrees
-   to 1e-4 relative norm; every forward and dk/dv on the f32 tensor-core
-   kernels.
+   to 1e-4 relative norm; every forward, dq and dk/dv on the f32
+   tensor-core kernels.
 10. the key stream and the reference's default round -- ``random``'s
     bits, split, fold_in, uniform, bernoulli, randint, permutation and
     gumbel on the card against the host under both threefry layouts
@@ -221,11 +221,9 @@ KERNELS = (
 WIRE = {name: fn for name, fn, _, _ in KERNELS[1:5]}
 FLASH = {name: fn for name, fn, _, _ in KERNELS[5:]}
 ROUND = {**WIRE, **FLASH}        # every kernel the ERIS round may launch
-# their bf16 launches, on the tensor cores, counted apart; and the f32
-# forward's and dk/dv's, on the tensor cores too (f32 dq is the SIMT
-# kernel of flash_attention.cu)
+# each counts its bf16 launches (tensor_core_launches) and its f32 ones
+# (f32_tensor_core_launches, 3xTF32) apart, all on the tensor cores
 TENSOR_CORE = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
-F32_TENSOR_CORE = (fa.flash_fwd, fa.flash_dkv)
 
 # kernel vs plain version: f32 agrees to summation order; with bf16 pools
 # the plain version rounds its softmax weights to bf16 before the PV
@@ -310,10 +308,10 @@ def build_phase() -> None:
                          for d in fa.HEAD_DIMS}}))
     f32_smem = _build.bind("flash_f32_sm90", "flash_f32_sm90_smem",
                            [ctypes.c_int, ctypes.c_int])
-    print("  flash_f32_sm90 dynamic shared memory a block (the forward with "
-          "two stages), bytes: " +
+    print("  flash_f32_sm90 dynamic shared memory a block (the forward and "
+          "dq with two stages), bytes: " +
           json.dumps({f"{kind} d={d}": f32_smem(i, d)
-                      for i, kind in enumerate(("forward", "dk/dv"))
+                      for i, kind in enumerate(("forward", "dk/dv", "dq"))
                       for d in fa.HEAD_DIMS}))
     paged_smem = _build.bind("paged_attention", "paged_attention_smem",
                              [ctypes.c_int] * 4)
@@ -903,8 +901,7 @@ FLASH_TIMED_F32 = (("gptneo-train-f32", (8, 16, 16, 64, 128)),
 # the CUDA cores (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700.00 W),
 # printed beside this run's; at qwen2's S = 2048 only the SIMT forward
 # was timed; at S = 2048 in f32 the SIMT kernels were timed by
-# tools/kernel_ab.py against the parent tree (f32 dq is the SIMT kernel
-# still)
+# tools/kernel_ab.py against the parent tree
 FIRST_VERSION_US = {"gptneo-round": {"flash_fwd": 23.24, "flash_dq": 28.82,
                             "flash_dkv": 30.68},
            "qwen2-round": {"flash_fwd": 12.12, "flash_dq": 16.40,
@@ -953,8 +950,8 @@ def flash_cases(dev, seed) -> dict:
     and mask (f32: TOL_F32 absolute and relative, the order of summation
     and the 3xTF32 products; bf16 outputs: FLASH_BF16_STEP relative plus
     TOL_F32, one bf16 step; lse is f32 throughout); every bf16 forward, dq
-    and dk/dv call launches the tensor-core kernels, every f32 forward and
-    dk/dv call the f32 tensor-core kernels (and f32 dq the SIMT kernel).
+    and dk/dv call launches the tensor-core kernels, every f32 one the f32
+    tensor-core kernels.
     Prints each kernel's largest error as a share of its bound; returns
     its largest absolute error."""
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
@@ -966,18 +963,17 @@ def flash_cases(dev, seed) -> dict:
         for causal, window in FLASH_MASKS:
             mask = dict(causal=causal, window=window)
             tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
-            tc32 = [fn.f32_tensor_core_launches for fn in F32_TENSOR_CORE]
+            tc32 = [fn.f32_tensor_core_launches for fn in TENSOR_CORE]
             got, want = _flash_all(q, k, v, do, mask)
             torch.cuda.synchronize()
             added = [fn.tensor_core_launches - n
                      for fn, n in zip(TENSOR_CORE, tc)]
             added32 = [fn.f32_tensor_core_launches - n
-                       for fn, n in zip(F32_TENSOR_CORE, tc32)]
+                       for fn, n in zip(TENSOR_CORE, tc32)]
             bf16 = dtype == torch.bfloat16
-            check(added == [int(bf16)] * 3 and added32 == [int(not bf16)] * 2,
+            check(added == [int(bf16)] * 3 and added32 == [int(not bf16)] * 3,
                   f"flash forward, dq, dk/dv at {dtype}: {added} bf16 "
-                  f"tensor-core launches, forward and dk/dv {added32} f32 "
-                  f"ones")
+                  f"tensor-core launches, {added32} f32 ones")
             errs = []
             for kname, what, a, b in zip(owner, ("o", "lse", "dq", "dk", "dv"),
                                          got, want):
@@ -1206,20 +1202,18 @@ def _set_round_launches(value: int = 0) -> None:
     for fn in ROUND.values():
         fn.launches = value
     for fn in TENSOR_CORE:
-        fn.tensor_core_launches = value
-    for fn in F32_TENSOR_CORE:
-        fn.f32_tensor_core_launches = value
+        fn.tensor_core_launches = fn.f32_tensor_core_launches = value
 
 
 def _check_tensor_cores(what: str, n: int, bf16: bool) -> None:
     """n calls of each flash kernel, all bf16 or all f32, went to the
-    tensor-core kernels of their dtype (f32 dq: to the SIMT kernel)."""
+    tensor-core kernels of their dtype."""
     tc = [fn.tensor_core_launches for fn in TENSOR_CORE]
-    tc32 = [fn.f32_tensor_core_launches for fn in F32_TENSOR_CORE]
-    want = ([n] * 3, [0] * 2) if bf16 else ([0] * 3, [n] * 2)
+    tc32 = [fn.f32_tensor_core_launches for fn in TENSOR_CORE]
+    want = ([n] * 3, [0] * 3) if bf16 else ([0] * 3, [n] * 3)
     check((tc, tc32) == want, f"{what}: forward, dq, dk/dv launched {tc} "
-          f"times on the bf16 tensor-core kernels and forward, dk/dv {tc32} "
-          f"on the f32 ones, want {want} ({'bf16' if bf16 else 'f32'})")
+          f"times on the bf16 tensor-core kernels and {tc32} on the f32 "
+          f"ones, want {want} ({'bf16' if bf16 else 'f32'})")
 
 
 def _live_cuda_tensors(top: int = 8) -> list:
@@ -1883,7 +1877,7 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
         wall = time.monotonic() - t0
         launches = {k: fn.launches for k, fn in ROUND.items()}
         tc = ([fn.tensor_core_launches for fn in TENSOR_CORE],
-              [fn.f32_tensor_core_launches for fn in F32_TENSOR_CORE])
+              [fn.f32_tensor_core_launches for fn in TENSOR_CORE])
         for k, count in launches.items():         # the main path ended
             totals[k] += count
             want = (flash if k in FLASH else n_leaves if k in path else 0)
@@ -1911,7 +1905,7 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
               + " + ".join(f"{k} {v:.1f}" for k, v in split.items())
               + f" (wall {wall:.2f} s); loss {loss:.4f}, grad_norm "
               f"{gnorm:.4f}; launches {steps[-1]['launches']}; tensor "
-              f"cores bf16 {tc[0]}, f32 (forward, dk/dv) {tc[1]}; device "
+              f"cores bf16 {tc[0]}, f32 {tc[1]}; device "
               f"memory "
               f"{steps[-1]['allocated_gb']:.2f} "
               f"GB held", flush=True)
@@ -2205,9 +2199,7 @@ def main() -> None:
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
-            "f32_source": "src/repro_torch/kernels/csrc/" + (
-                "flash_attention.cu" if name == "flash_dq" else
-                "flash_f32_sm90.cu"),
+            "f32_source": "src/repro_torch/kernels/csrc/flash_f32_sm90.cu",
             "f32_launches": train_launches[f"{name} f32"],
             "replaces": replaces, "launches": round_launches[name],
             "max_abs_err": flash_worst[name], "ms": t["ms"],

@@ -11,14 +11,14 @@
 //                             the sum over each group's G query heads runs
 //                             after the kernel (flash_attention.py:264-265)
 //
-// f32 inputs run dk/dv on the tensor cores in flash_f32_sm90.cu (three TF32
-// products a product hold the host to 1e-4, which one would not) and dq on
-// the SIMT kernel of flash_attention.cu.
+// f32 inputs run dq and dk/dv on the tensor cores in flash_f32_sm90.cu
+// (three TF32 products a product hold the host to 1e-4, which one would
+// not).
 // bf16 at d = 16 and 32 runs here too, zero-padded to 64 columns in
 // shared memory (the padding adds zeros to q.k and do.v, and its dq, dk
 // and dv columns are never stored).
 //
-// Layout and masks as flash_attention.cu: q, do, dq (B, H, S, d) and
+// Layout and masks: q, do, dq (B, H, S, d) and
 // k, v, dk, dv (B, KV, S, d) with any strides whose rows start on 16 bytes
 // (the wrapper checks), lse and delta (B * H, S) f32; causal kpos <= qpos,
 // window w kpos > qpos - w; tiles of 64 rows, skipped outside the

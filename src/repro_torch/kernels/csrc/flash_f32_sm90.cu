@@ -1,5 +1,5 @@
-// Flash attention forward and dk/dv on Hopper's tensor cores (sm_90a) for
-// f32 q, k, v and do, at f32 accuracy (3xTF32).
+// Flash attention forward, dq and dk/dv on Hopper's tensor cores (sm_90a)
+// for f32 q, k, v and do, at f32 accuracy (3xTF32).
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py on the
 // f32 path (a model whose params are f32, as adam makes a bf16 model after
@@ -8,16 +8,17 @@
 //   flash_fwd_f32_kernel  <- _fwd_kernel (call site :193): blocked online
 //                            softmax; o in f32 and lse = m + log(max(l,
 //                            1e-30))
+//   flash_dq_f32_kernel   <- _dq_kernel (call site :226): p = exp(s -
+//                            lse), ds = p (do v^T - delta), dq = scale sum
+//                            ds k, scaled once at the end
 //   flash_dkv_f32_kernel  <- _dkv_kernel (call site :244) and the group sum
 //                            after it: dv = sum p^T do, dk = sum ds^T q_hat
 //                            over the G query heads of a kv head, in f32
 //
-// The f32 dq stays the SIMT kernel of flash_attention.cu.
-//
-// Layout and masks as the bf16 kernels: q, do, o (B, H, S, d) and k, v, dk,
-// dv (B, KV, S, d) f32 with any strides whose rows start on 16 bytes (the
-// wrapper checks), lse and delta (B * H, S) f32; query head h reads kv head
-// h / G; causal kpos <= qpos, window w kpos > qpos - w; S need not be a
+// Layout and masks as the bf16 kernels: q, do, o, dq (B, H, S, d) and k,
+// v, dk, dv (B, KV, S, d) f32 with any strides whose rows start on 16
+// bytes (the wrapper checks), lse and delta (B * H, S) f32; query head h
+// reads kv head h / G; causal kpos <= qpos, window w kpos > qpos - w; S need not be a
 // multiple of the tiles (rows past S are zero-filled, masked and never
 // stored); d in {16, 32, 64, 128}.
 //
@@ -25,8 +26,9 @@
 // f32(d**-0.5)) before any product, masked scores -1e30, p = exp(s - m) in
 // the forward (a row whose keys so far are all masked takes exp(0) = 1,
 // which the next tile's alpha = exp(-1e30 - m) = 0 clears, as in
-// _fwd_kernel) and exp(s - lse) in dk/dv, ds = p (dp - delta), every sum in
-// f32.  dk carries the scale through q_hat.
+// _fwd_kernel) and exp(s - lse) in dq and dk/dv, ds = p (dp - delta), every
+// sum in f32.  dk carries the scale through q_hat; dq is multiplied by it
+// once, at the end.
 //
 // Products (3xTF32).  Every product runs on the tensor cores as
 // mma.sync m16n8k8 tf32 -> f32.  One tf32 term keeps 10 mantissa bits and
@@ -49,7 +51,7 @@
 // and t + 4).  The second product sums over those columns, so its
 // reduction index is permuted instead of the registers: A's column t is
 // key (query) 2t and column t + 4 is 2t + 1 of each 8-block, and the B
-// fragment is read from the same rows of V (dO, Q_hat).  p and ds never
+// fragment is read from the same rows of V (K; dO, Q_hat).  p and ds never
 // leave registers and take no shuffle.
 //
 // Design.  Eight warps (256 threads) a block, two to each 16 rows of a
@@ -65,6 +67,12 @@
 //            k-tile; at the end the two warps of a row merge their
 //            (m, l, acc) through shared memory (m = max, the others scaled
 //            by exp(m_w - m)).
+//   dq       the forward's block, grid and K, V ring, with dO beside Q_hat;
+//            lse and delta of a thread's two rows in registers.  Each warp
+//            takes S = Q_hat K^T and dP = dO V^T of its 16 x 32, ds = p
+//            (dP - delta) in place, and dq += ds K with ds as the A
+//            operand and K's rows as B; at the end the two warps of a row
+//            add their dq through shared memory, scale once and store.
 //   dk/dv    one block per (b kv, 64-key tile): keys on the accumulator
 //            rows, so p^T and ds^T are A operands of dv and dk.  K and V
 //            stay; the block walks the G query heads of its kv head and,
@@ -77,14 +85,15 @@
 //            block and written once in f32, with no per-head partials or
 //            group sum.
 //
-// Bound.  At the f32 step's shape (8, 16, 16, 64, 128) both kernels move
-// a few MB against a few GFLOP and are bound by bytes (about 5 and 7.5 us
-// at 3.35 TB/s); at S = 2048 the causal products (4 d and 8 d flops a
-// visible pair, 3x that as issued) bind them against the tensor cores'
-// 495 TFLOP/s tf32, 165 TFLOP/s at f32 accuracy.  Shared memory at d = 128:
-// the forward 169 KB (101 KB with one stage), dk/dv 204 KB; one block, of
-// eight warps, an SM.  Tried and measured slower on an H100: 32-row q-tiles
-// in the forward (256 blocks at the f32 step's shape, K and V read twice).
+// Bound.  At the f32 step's shape (8, 16, 16, 64, 128) the kernels move
+// a few MB against a few GFLOP and are bound by bytes (about 5, 6.3 and
+// 7.5 us at 3.35 TB/s); at S = 2048 the causal products (4 d, 6 d and 8 d
+// flops a visible pair, 3x that as issued) bind them against the tensor
+// cores' 495 TFLOP/s tf32, 165 TFLOP/s at f32 accuracy.  Shared memory at
+// d = 128: the forward 169 KB (101 KB with one stage), dq 203 KB (135 KB),
+// dk/dv 204 KB; one block, of eight warps, an SM.  Tried and measured
+// slower on an H100: 32-row q-tiles in the forward (256 blocks at the f32
+// step's shape, K and V read twice).
 #include "sm90.cuh"
 
 namespace {
@@ -100,8 +109,10 @@ constexpr int kHalf = kTile / 2;      // keys (queries) a warp takes of a tile
 // (1,344 at GQA 7, S = 512) that reached 0.9 of the 1e-4 gate on an H100.
 // So the second products (P V; p^T dO and ds^T Q_hat) sum a warp's share
 // of each tile (its 32 keys or queries, four 8-blocks) into a fresh
-// fragment, which is added to the running f32 sum with an IEEE add;
-// S = Q K^T, S^T and dP^T chain d / 8 x 3 steps at most.
+// fragment, which is added to the running f32 sum with an IEEE add; so
+// does dq's ds K, whose chain (S / 16 x 3 steps a warp, 384 at S = 2048)
+// does not grow with G but is as long as dk/dv's at one head a group;
+// S = Q K^T, dP = dO V^T, S^T and dP^T chain d / 8 x 3 steps at most.
 
 // ------------------------------------------------------------- 3xTF32
 // x as two tf32 terms: big = x rounded to nearest, ties away (the tensor
@@ -390,6 +401,183 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------ dq
+template <int D>
+__global__ void __launch_bounds__(kBlock, 1)
+flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    Strides sq, Strides sk, Strides sv, Strides sdo,
+                    Strides sdq, int H, int KV, int S, float scale,
+                    int causal, int window) {
+  constexpr int LD = D + 4;
+  constexpr int NB = D / 8;
+  constexpr int kTileF = kTile * LD;
+  extern __shared__ __align__(16) float smem[];
+  const int n_k = (S + kTile - 1) / kTile;
+  const int stages = n_k > 1 ? 2 : 1;
+  float* q_s = smem;                    // (64, LD) q_hat
+  float* do_s = q_s + kTileF;           // (64, LD) dO
+  float* k_s = do_s + kTileF;           // stages x (64, LD)
+  float* v_s = k_s + stages * kTileF;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q0 = (n_k - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp & 3) * 16;       // this warp's query rows
+  const int c0 = (warp >> 2) * kHalf;   // and its half of each k-tile
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+  const RowCopy<D, kBlock> rows;
+
+  // the k-tiles that the q-tile sees (flash_attention.py:111-119)
+  int lo, hi;
+  k_tiles(q0, S, causal, window, &lo, &hi);
+  rows.template copy<kTile>(q_s, q + b * sq.b + h * sq.h, sq.s, q0, S);
+  rows.template copy<kTile>(k_s, kb, sk.s, lo * kTile, S);
+  cp_async_commit();                    // Q, K_lo
+  rows.template copy<kTile>(do_s, dout + b * sdo.b + h * sdo.h, sdo.s, q0,
+                            S);
+  rows.template copy<kTile>(v_s, vb, sv.s, lo * kTile, S);
+  cp_async_commit();                    // dO, V_lo
+
+  // lse and delta of this thread's rows r0 + g and r0 + g + 8
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    const long long at = static_cast<long long>(bh) * S + row;
+    row_lse[r] = row < S ? lse[at] : 0.f;
+    row_delta[r] = row < S ? delta[at] : 0.f;
+  }
+
+  float acc[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int stage = (kt - lo) & 1;
+    const float* kc = k_s + stage * kTileF;
+    const float* vc = v_s + stage * kTileF;
+    const bool next = kt + 1 < hi;
+    cp_async_wait<1>();                 // K_kt (and Q); V_kt may fly
+    if (kt == lo) rows.template scale<kTile>(q_s, scale);
+    __syncthreads();                    // and tile kt - 1 is done
+    if (next) {                         // K, V of kt + 1 over kt - 1's
+      const int other = (stage ^ 1) * kTileF;
+      rows.template copy<kTile>(k_s + other, kb, sk.s, (kt + 1) * kTile,
+                                S);
+      cp_async_commit();
+      rows.template copy<kTile>(v_s + other, vb, sv.s, (kt + 1) * kTile,
+                                S);
+      cp_async_commit();
+    }
+
+    // S = Q_hat K^T: rows r0 + g (+ 8), keys c0 + 8 j + 2 t (+ 1)
+    float s[kHalf / 8][4], dp[kHalf / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      uint32_t ab[4], as[4];
+      load_a<LD>(q_s, r0, kk * 8, lane, ab, as);
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const float* kp = kc + (c0 + j * 8 + g) * LD + kk * 8 + t;
+        mma3(s[j], ab, as, kp[0], kp[4]);
+      }
+    }
+    if (next)
+      cp_async_wait<2>();               // V_kt (and dO); kt + 1 in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    // dP = dO V^T, the same fragments
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      uint32_t ab[4], as[4];
+      load_a<LD>(do_s, r0, kk * 8, lane, ab, as);
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j) {
+        const float* vp = vc + (c0 + j * 8 + g) * LD + kk * 8 + t;
+        mma3(dp[j], ab, as, vp[0], vp[4]);
+      }
+    }
+
+    // p = exp(s - lse), ds = p (dP - delta), split with the keys of each
+    // 8-block permuted (as_a)
+    const int k0 = kt * kTile;
+    const bool edge = any_masked(q0, k0, S, causal, window);
+    uint32_t ab[kHalf / 8][4], as[kHalf / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHalf / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[j][e];
+        if (edge && !visible(q0 + r0 + g + 8 * r,
+                             k0 + c0 + 8 * j + 2 * t + (e & 1), S, causal,
+                             window))
+          x = kNegInf;
+        dp[j][e] = expf(x - row_lse[r]) * (dp[j][e] - row_delta[r]);
+      }
+      as_a(dp[j], ab[j], as[j]);
+    }
+    // dq += ds K, this tile's product summed apart (Accumulation)
+    const float* kp = kc + (c0 + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kHalf / 8; ++j)
+        mma3(part, ab[j], as[j], kp[j * 8 * LD + n * 8],
+             kp[(j * 8 + 1) * LD + n * 8]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
+  }
+
+  // the two halves of each row's sum: the upper warps' through shared
+  // memory (K and V are done, and no copy is in flight)
+  float* part = k_s;                    // (64, LD)
+  __syncthreads();
+  if (c0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int at = (r0 + g + 8 * r) * LD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        *reinterpret_cast<float2*>(part + at + n * 8) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+  __syncthreads();
+  if (c0) return;
+  float* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (q0 + row >= S) continue;
+    const int at = row * LD + 2 * t;
+    float* out = dqb + static_cast<long long>(q0 + row) * sdq.s + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const float2 x = *reinterpret_cast<const float2*>(part + at + n * 8);
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2((acc[n][2 * r] + x.x) * scale,
+                      (acc[n][2 * r + 1] + x.y) * scale);
+    }
+  }
+}
+
 // --------------------------------------------------------------- dk/dv
 template <int D>
 __global__ void __launch_bounds__(kBlock, 1)
@@ -596,10 +784,14 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ host
-// dynamic shared memory, bytes: the forward's Q tile and `stages` stages of
-// K and V; dk/dv's K, V, two stages of Q and dO, two of lse and delta
+// dynamic shared memory, bytes: the forward's Q tile (dq's Q and dO tiles)
+// and `stages` stages of K and V; dk/dv's K, V, two stages of Q and dO, two
+// of lse and delta
 constexpr size_t fwd_smem(int D, int stages) {
   return 4 * static_cast<size_t>(1 + 2 * stages) * kTile * (D + 4);
+}
+constexpr size_t dq_smem(int D, int stages) {
+  return fwd_smem(D, stages) + 4 * static_cast<size_t>(kTile) * (D + 4);
 }
 constexpr size_t dkv_smem(int D) {
   return 4 * (6 * static_cast<size_t>(kTile) * (D + 4) + 4 * kTile);
@@ -618,6 +810,25 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, strides(st),
       strides(st + 3), strides(st + 6), strides(st + 9), H, KV, S, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq_out,
+               const long long* st, int B, int H, int KV, int S, float scale,
+               int causal, int window, cudaStream_t stream) {
+  auto kernel = flash_dq_f32_kernel<D>;
+  static DeviceFlags smem_set;
+  const cudaError_t attr = allow_smem(smem_set, kernel, dq_smem(D, 2));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (S + kTile - 1) / kTile);
+  kernel<<<grid, kBlock, dq_smem(D, S > kTile ? 2 : 1), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq_out), strides(st), strides(st + 3),
+      strides(st + 6), strides(st + 9), strides(st + 12), H, KV, S, scale,
       causal, window);
   return cudaGetLastError();
 }
@@ -656,6 +867,19 @@ int flash_fwd_f32_sm90_launch(const void* q, const void* k, const void* v,
                  static_cast<cudaStream_t>(stream))
 }
 
+// strides of q, k, v, do, dq; dq f32 in q's strides
+int flash_dq_f32_sm90_launch(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq_out,
+                             const long long* strides, int B, int H, int KV,
+                             int S, int d, float scale, int causal,
+                             int window, void* stream) {
+  SM90_HEAD_DIMS(dq, q, k, v, dout, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), dq_out, strides, B, H,
+                 KV, S, scale, causal, window,
+                 static_cast<cudaStream_t>(stream))
+}
+
 // strides of q, k, v, do, dk, dv; dk and dv f32 in k's and v's strides
 int flash_dkv_f32_sm90_launch(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
@@ -669,9 +893,12 @@ int flash_dkv_f32_sm90_launch(const void* q, const void* k, const void* v,
 }
 
 // bytes of dynamic shared memory a block of the forward (kind 0, two
-// stages) or dk/dv (kind 1) kernel takes at head dim d
+// stages), dk/dv (kind 1) or dq (kind 2, two stages) kernel takes at head
+// dim d
 int flash_f32_sm90_smem(int kind, int d) {
-  return static_cast<int>(kind ? dkv_smem(d) : fwd_smem(d, 2));
+  return static_cast<int>(kind == 2 ? dq_smem(d, 2)
+                          : kind    ? dkv_smem(d)
+                                    : fwd_smem(d, 2));
 }
 
 const char* flash_f32_sm90_error_string(int code) {

@@ -10,7 +10,7 @@
 // columns in shared memory (the padding adds zeros to q.k, and its o
 // columns are never stored).
 //
-// Layout and masks as flash_attention.cu: q, o (B, H, S, d) and k, v
+// Layout and masks: q, o (B, H, S, d) and k, v
 // (B, KV, S, d) with any strides whose rows start on 16 bytes (the wrapper
 // checks), lse (B * H, S) f32; causal kpos <= qpos, window w
 // kpos > qpos - w; the reference's lo/hi tile bounds; S need not be a

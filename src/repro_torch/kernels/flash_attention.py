@@ -6,28 +6,25 @@ lse) and its backward computes delta = rowsum(do * o) as one torch
 expression, as the reference does outside its kernels, then the dq and
 the dk/dv kernels.  The three kernel wrappers, :func:`flash_fwd`,
 :func:`flash_dq` and :func:`flash_dkv`, launch the hand-written CUDA
-kernels on CUDA tensors: in bf16 on the tensor cores, the forward from
-``csrc/flash_fwd_sm90.cu`` and dq and dk/dv from ``csrc/flash_bwd_sm90.cu``;
-in f32 the forward and dk/dv on the tensor cores at f32 accuracy (3xTF32)
-from ``csrc/flash_f32_sm90.cu``, and dq the SIMT kernel of
-``csrc/flash_attention.cu``.  Their designs and bounds are set out in
+kernels on CUDA tensors, all on the tensor cores: in bf16 the forward
+from ``csrc/flash_fwd_sm90.cu`` and dq and dk/dv from
+``csrc/flash_bwd_sm90.cu``; in f32 all three at f32 accuracy (3xTF32)
+from ``csrc/flash_f32_sm90.cu``.  Their designs and bounds are set out in
 those files.  On CPU tensors they compute the plain versions in
 ``kernels/ref.py``, and only there: on a CUDA tensor they launch a kernel
 or raise.  ``flash_fwd.launches``, ``flash_dq.launches`` and
-``flash_dkv.launches`` count the kernels' launches and their
-``tensor_core_launches`` the bf16 ones among them;
-``flash_fwd.f32_tensor_core_launches`` and
-``flash_dkv.f32_tensor_core_launches`` count the f32 ones, on the tensor
-cores.
+``flash_dkv.launches`` count the kernels' launches, their
+``tensor_core_launches`` the bf16 ones among them and their
+``f32_tensor_core_launches`` the f32 ones.
 
 Layout is the reference's, q (B, H, S, d) and k, v (B, KV, S, d), with
 any strides so long as d is contiguous: the model hands over transposed
 views of its (B, S, H, d) projections and the kernels read them in
 place, without a copy.  Outputs take their input's strides
 (``torch.empty_like``), so o comes back as a view of a contiguous
-(B, S, H, d) tensor.  The tensor-core kernels copy rows with 16-byte
-asynchronous copies, so there every row must start on 16 bytes (base
-address and the b, h and s strides); the model's views do.
+(B, S, H, d) tensor.  The kernels copy rows with 16-byte asynchronous
+copies, so every row must start on 16 bytes (base address and the b, h
+and s strides); the model's views do.
 """
 from __future__ import annotations
 
@@ -50,7 +47,8 @@ _MASK = [_I] * 5 + [ctypes.c_float, _I, _I]    # B H KV S d scale causal window
 _ARGS = {"flash_fwd_sm90_launch": ("flash_fwd_sm90", [_P] * 6 + _MASK + [_P]),
          "flash_fwd_f32_sm90_launch": ("flash_f32_sm90",
                                        [_P] * 6 + _MASK + [_P]),
-         "flash_dq_launch": ("flash_attention", [_P] * 8 + _MASK + [_P]),
+         "flash_dq_f32_sm90_launch": ("flash_f32_sm90",
+                                      [_P] * 8 + _MASK + [_P]),
          "flash_dkv_f32_sm90_launch": ("flash_f32_sm90",
                                        [_P] * 9 + _MASK + [_P]),
          "flash_dq_sm90_launch": ("flash_bwd_sm90", [_P] * 8 + _MASK + [_P]),
@@ -117,8 +115,8 @@ def _aligned(t) -> bool:
 
 
 def _check_async_copies(op: str, **tensors) -> None:
-    """The tensor-core kernels copy 16-byte chunks of rows: raise on a row
-    that does not start on 16 bytes (never fall back)."""
+    """The kernels copy 16-byte chunks of rows: raise on a row that does
+    not start on 16 bytes (never fall back)."""
     for name, t in tensors.items():
         if not _aligned(t):
             raise ValueError(f"{op}: {name}'s rows must start on 16 bytes "
@@ -182,15 +180,14 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None):
 
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True,
              window: Optional[int] = None):
-    """The dq kernel (bf16: on the tensor cores).  Returns dq in q's dtype
-    and strides."""
+    """The dq kernel, on the tensor cores (f32 by 3xTF32).  Returns dq in
+    q's dtype and strides."""
     _check("flash_dq", q, k, v, window, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return flash_dq_ref(q, k, v, do, lse, delta, causal=causal,
                             window=window)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_async_copies("flash_dq", q=q, k=k, v=v, do=do)
+    _check_async_copies("flash_dq", q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     if dq.numel():
         pointers = [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)]
@@ -200,8 +197,9 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                     window)
             flash_dq.tensor_core_launches += 1
         else:
-            _launch("flash_dq_launch", pointers, strides, q, k, causal,
-                    window)
+            _launch("flash_dq_f32_sm90_launch", pointers, strides, q, k,
+                    causal, window)
+            flash_dq.f32_tensor_core_launches += 1
         flash_dq.launches += 1
     return dq
 
@@ -244,8 +242,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 for _fn in (flash_fwd, flash_dq, flash_dkv):
-    _fn.launches = _fn.tensor_core_launches = 0
-flash_fwd.f32_tensor_core_launches = flash_dkv.f32_tensor_core_launches = 0
+    _fn.launches = _fn.tensor_core_launches = _fn.f32_tensor_core_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -241,7 +241,6 @@ def test_fl_round_on_the_card_equals_the_host(cuda, flash):
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 FLASH = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
-F32_TENSOR_CORE = (fa.flash_fwd, fa.flash_dkv)    # f32 dq: the SIMT kernel
 
 
 def _set_flash_launches(value):
@@ -280,7 +279,7 @@ def _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd=True, seed=5):
     (2, 4, 4, 128, 128, True, None, torch.bfloat16, False),  # contiguous
     (1, 14, 2, 128, 64, False, None, torch.bfloat16, False),  # contiguous
     (1, 2, 1, 128, 32, True, 48, torch.bfloat16, True),      # d = 32, padded
-    # the f32 forward and dk/dv on the tensor cores (3xTF32)
+    # the f32 forward, dq and dk/dv on the tensor cores (3xTF32)
     (1, 4, 4, 100, 128, True, None, torch.float32, True),    # ragged S
     (1, 14, 2, 512, 64, True, None, torch.float32, True),    # 7 heads a kv
     (1, 14, 2, 512, 64, True, 200, torch.float32, True),     # window
@@ -297,14 +296,13 @@ def test_cuda_flash_kernels_match_plain_versions(cuda, B, H, KV, S, d, causal,
     products; bf16 outputs: 2**-7 of the plain value plus 1e-4, one bf16
     step, since both sides compute in f32 and cast once, the tensor-core
     dq and dk/dv taking p and ds as two bf16 terms), each launched once,
-    every bf16 kernel on the tensor cores, the f32 forward and dk/dv on the
-    f32 tensor-core kernels (f32 dq on the SIMT kernel); outputs keep their
-    inputs' strides."""
+    every bf16 kernel on the tensor cores and every f32 one on the f32
+    tensor-core kernels (3xTF32); outputs keep their inputs' strides."""
     q, k, v, do = _flash_inputs(B, H, KV, S, d, dtype, cuda, bshd)
     mask = dict(causal=causal, window=window)
     before = [fn.launches for fn in FLASH]
     tc_before = [fn.tensor_core_launches for fn in FLASH]
-    tc32_before = [fn.f32_tensor_core_launches for fn in F32_TENSOR_CORE]
+    tc32_before = [fn.f32_tensor_core_launches for fn in FLASH]
     o, lse = fa.flash_fwd(q, k, v, **mask)
     delta = wire_ref.flash_delta(o, do)
     dq_ = fa.flash_dq(q, k, v, do, lse, delta, **mask)
@@ -315,7 +313,7 @@ def test_cuda_flash_kernels_match_plain_versions(cuda, B, H, KV, S, d, causal,
     assert [fn.tensor_core_launches - b
             for fn, b in zip(FLASH, tc_before)] == [tc] * 3
     assert [fn.f32_tensor_core_launches - b
-            for fn, b in zip(F32_TENSOR_CORE, tc32_before)] == [1 - tc] * 2
+            for fn, b in zip(FLASH, tc32_before)] == [1 - tc] * 3
     ro, rlse = wire_ref.flash_fwd_ref(q, k, v, **mask)
     rdq = wire_ref.flash_dq_ref(q, k, v, do, lse, delta, **mask)
     rdk, rdv = wire_ref.flash_dkv_ref(q, k, v, do, lse, delta, **mask)
@@ -440,9 +438,9 @@ def test_cuda_flash_forward_raises_on_rows_off_16_bytes(cuda):
 
 @pytest.mark.cuda
 def test_cuda_f32_flash_raises_on_rows_off_16_bytes(cuda):
-    """The f32 forward and dk/dv copy rows in 16-byte chunks (four floats)
-    too: a view whose base address or row stride is off 16 bytes raises
-    before any launch; nothing falls back."""
+    """The f32 forward, dq and dk/dv copy rows in 16-byte chunks (four
+    floats) too: a view whose base address or row stride is off 16 bytes
+    raises before any launch; nothing falls back."""
     q, k, v, do = _flash_inputs(1, 4, 2, 64, 64, torch.float32, cuda)
     o, lse = fa.flash_fwd(q, k, v)
     delta = wire_ref.flash_delta(o, do)
@@ -450,9 +448,8 @@ def test_cuda_f32_flash_raises_on_rows_off_16_bytes(cuda):
     shifted = flat[1:].view(q.shape)                   # base 4 bytes off
     wide = torch.zeros(1, 64, 4, 66, device=cuda)
     ragged = wide[..., :64].transpose(1, 2)            # rows 264 bytes apart
-    before = (fa.flash_fwd.launches, fa.flash_dkv.launches,
-              fa.flash_fwd.f32_tensor_core_launches,
-              fa.flash_dkv.f32_tensor_core_launches)
+    before = ([fn.launches for fn in FLASH],
+              [fn.f32_tensor_core_launches for fn in FLASH])
     for bad in (shifted, ragged):
         with pytest.raises(ValueError, match="16 bytes"):
             fa.flash_fwd(bad, k, v)
@@ -462,9 +459,12 @@ def test_cuda_f32_flash_raises_on_rows_off_16_bytes(cuda):
             fa.flash_dkv(q, k, v, bad, lse, delta)
         with pytest.raises(ValueError, match="16 bytes"):
             fa.flash_dkv(bad, k, v, do, lse, delta)
-    assert (fa.flash_fwd.launches, fa.flash_dkv.launches,
-            fa.flash_fwd.f32_tensor_core_launches,
-            fa.flash_dkv.f32_tensor_core_launches) == before
+        for args in ((bad, k, v, do), (q, bad[:, :2], v, do),
+                     (q, k, bad[:, :2], do), (q, k, v, bad)):
+            with pytest.raises(ValueError, match="16 bytes"):
+                fa.flash_dq(*args, lse, delta)
+    assert ([fn.launches for fn in FLASH],
+            [fn.f32_tensor_core_launches for fn in FLASH]) == before
 
 
 # ------------------------------------------------ the paged kernel, split-K

@@ -1,6 +1,6 @@
-"""The arithmetic of the f32 flash forward and dk/dv on the tensor cores
-(``csrc/flash_f32_sm90.cu``: 3xTF32) against the reference's Pallas kernels
-on the CPU.
+"""The arithmetic of the f32 flash forward, dq and dk/dv on the tensor
+cores (``csrc/flash_f32_sm90.cu``: 3xTF32) against the reference's Pallas
+kernels on the CPU.
 
 A torch emulation of the kernels' products goes through the same numpy
 inputs as ``_flash_fwd_call`` and ``_flash_bwd_call`` in interpret mode,
@@ -13,12 +13,16 @@ big = x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero
 and small = x - big truncated to tf32 (the tensor cores drop its low 13
 bits); a b is a_small b_big + a_big b_small + a_big b_big, summed in f32.
 The forward takes q_hat = q * f32(d**-0.5), the reference's online softmax
-over 64-key tiles within its lo/hi bounds, and P V per tile; dk/dv takes
-p = exp(s - lse) and ds = p (dp - delta) from the same split products and
-sums the G query heads of a kv head in f32.  What the emulation leaves out
-reorders the same f32 sums: the split of each tile between two warps and
-their merge, and the tensor cores' own order inside an mma.
+over 64-key tiles within its lo/hi bounds, and P V per tile; dq and dk/dv
+take p = exp(s - lse) and ds = p (dp - delta) from the same split
+products; dq sums ds K a 64-key tile at a time within the same bounds and
+multiplies by the scale once, dk/dv sums the G query heads of a kv head in
+f32.  Both are fed the reference's own lse and delta.  What the emulation
+leaves out reorders the same f32 sums: the split of each tile between two
+warps and their merge, and the tensor cores' own order inside an mma.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,6 +83,13 @@ def _mask(S, causal, window):
     return seen
 
 
+def _k_tiles(qt, n, causal, window):
+    """The k-tiles q-tile qt sees: the reference's lo/hi at 64-row tiles."""
+    hi = min(n, qt + 1) if causal else n
+    lo = max(0, (qt * TILE - window + 1) // TILE) if window else 0
+    return range(lo, hi)
+
+
 def _forward(q, k, v, causal, window, terms=3):
     """The f32 forward kernel's arithmetic: (o, lse (B * H, S))."""
     B, H, S, d = q.shape
@@ -91,12 +102,10 @@ def _forward(q, k, v, causal, window, terms=3):
     lse = torch.zeros(B, H, S)
     for qt in range(n):
         rows = torch.arange(qt * TILE, min(qt * TILE + TILE, S))
-        hi = min(n, qt + 1) if causal else n
-        lo = max(0, (qt * TILE - window + 1) // TILE) if window else 0
         m = torch.full((B, H, len(rows)), -1e30)
         l = torch.zeros_like(m)
         acc = torch.zeros(B, H, len(rows), d)
-        for kt in range(lo, hi):
+        for kt in _k_tiles(qt, n, causal, window):
             cols = torch.arange(kt * TILE, min(kt * TILE + TILE, S))
             s = _product(qh[:, :, rows], kf[:, :, cols].transpose(-1, -2),
                          terms)
@@ -111,6 +120,36 @@ def _forward(q, k, v, causal, window, terms=3):
         o[:, :, rows] = acc / l_safe[..., None]
         lse[:, :, rows] = m + torch.log(l_safe)
     return o, lse.reshape(B * H, S)
+
+
+def _dq(q, k, v, do, lse, delta, causal, window, terms=3):
+    """The f32 dq kernel's arithmetic: per 64-row q-tile and each k-tile it
+    sees, s and dp from the split products, ds = p (dp - delta), and the
+    tile's ds K summed apart and added to dq; the scale once, at the
+    end."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    scale = float(np.float32(d ** -0.5))
+    qh = q * scale
+    kf, vf = (t.repeat_interleave(G, 1) for t in (k, v))
+    lse, delta = lse.view(B, H, S, 1), delta.view(B, H, S, 1)
+    seen = _mask(S, causal, window)
+    n = -(-S // TILE)
+    dq = torch.zeros(B, H, S, d)
+    for qt in range(n):
+        rows = torch.arange(qt * TILE, min(qt * TILE + TILE, S))
+        acc = torch.zeros(B, H, len(rows), d)
+        for kt in _k_tiles(qt, n, causal, window):
+            cols = torch.arange(kt * TILE, min(kt * TILE + TILE, S))
+            kc = kf[:, :, cols]
+            s = _product(qh[:, :, rows], kc.transpose(-1, -2), terms)
+            s = torch.where(seen[rows][:, cols], s, -1e30)
+            p = torch.exp(s - lse[:, :, rows])
+            dp = _product(do[:, :, rows], vf[:, :, cols].transpose(-1, -2),
+                          terms)
+            acc = acc + _product(p * (dp - delta[:, :, rows]), kc, terms)
+        dq[:, :, rows] = acc * scale
+    return dq
 
 
 def _dkv(q, k, v, do, lse, delta, causal, window, terms=3):
@@ -142,28 +181,43 @@ def _np(x) -> np.ndarray:
     return np.asarray(x, np.float64)
 
 
-def _gate_shares(case, terms=3):
-    """The largest error of o, lse, dk and dv against the reference's
-    interpret-mode kernels, as a share of TOL_F32 + TOL_F32 |ref|."""
+@functools.lru_cache(maxsize=None)
+def _reference(case):
+    """The reference's interpret-mode forward and backward kernels on the
+    case's inputs: (o, lse, dq, dk, dv) as numpy arrays."""
     arrays, mask = _inputs(case)
     q, k, v, do = (jnp.asarray(a) for a in arrays)
-    tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrays)
-    S = tq.shape[2]
-    block = min(ref.FLASH_BLOCK, S)
+    block = min(ref.FLASH_BLOCK, arrays[0].shape[2])
     o, lse = ref_fa._flash_fwd_call(q, k, v, mask["causal"], mask["window"],
                                     block, block, True)
-    _, dk, dv = ref_fa._flash_bwd_call(q, k, v, o, lse, do, mask["causal"],
-                                       mask["window"], block, block, True)
-    got_o, got_lse = _forward(tq, tk, tv, **mask, terms=terms)
-    to, tlse = torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse))
-    got_dk, got_dv = _dkv(tq, tk, tv, tdo, tlse, ref.flash_delta(to, tdo),
-                          **mask, terms=terms)
+    dq, dk, dv = ref_fa._flash_bwd_call(q, k, v, o, lse, do, mask["causal"],
+                                        mask["window"], block, block, True)
+    return tuple(np.array(t) for t in (o, lse, dq, dk, dv))
+
+
+def _gate_shares(case, terms=3, names=("o", "lse", "dk", "dv")):
+    """The largest error of the named outputs (of o, lse, dq, dk and dv)
+    against the reference's interpret-mode kernels, as a share of
+    TOL_F32 + TOL_F32 |ref|."""
+    arrays, mask = _inputs(case)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in arrays)
+    want = dict(zip(("o", "lse", "dq", "dk", "dv"), _reference(case)))
+    tlse = torch.from_numpy(want["lse"])
+    delta = ref.flash_delta(torch.from_numpy(want["o"]), tdo)
+    got = {}
+    if {"o", "lse"} & set(names):
+        got["o"], got["lse"] = _forward(tq, tk, tv, **mask, terms=terms)
+    if "dq" in names:
+        got["dq"] = _dq(tq, tk, tv, tdo, tlse, delta, **mask, terms=terms)
+    if {"dk", "dv"} & set(names):
+        got["dk"], got["dv"] = _dkv(tq, tk, tv, tdo, tlse, delta, **mask,
+                                    terms=terms)
     shares = {}
-    for name, got, want in (("o", got_o, o), ("lse", got_lse, lse),
-                            ("dk", got_dk, dk), ("dv", got_dv, dv)):
-        assert tuple(got.shape) == tuple(want.shape), name
-        err = np.abs(_np(got) - _np(want))
-        shares[name] = float((err / (TOL_F32 + TOL_F32 * np.abs(_np(want))))
+    for name in names:
+        got_, want_ = got[name], want[name]
+        assert tuple(got_.shape) == tuple(want_.shape), name
+        err = np.abs(_np(got_) - _np(want_))
+        shares[name] = float((err / (TOL_F32 + TOL_F32 * np.abs(_np(want_))))
                              .max())
     return shares
 
@@ -204,8 +258,18 @@ def test_three_tf32_products_hold_the_f32_gate(case):
     assert max(shares.values()) <= 1.0, (case, shares)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dq_three_tf32_products_hold_the_f32_gate(case):
+    """dq of the dq kernel's 3xTF32 arithmetic, fed the reference's own lse
+    and delta, within 1e-4 + 1e-4 |ref| of the reference's f32 dq."""
+    shares = _gate_shares(case, names=("dq",))
+    assert shares["dq"] <= 1.0, (case, shares)
+
+
 def test_one_tf32_term_breaks_the_f32_gate():
     """Why the kernels split their operands: a single tf32 product (big x
-    big, 10 mantissa bits) misses the 1e-4 gate on o, dk and dv."""
-    shares = _gate_shares("d128-causal", terms=1)
-    assert min(shares["o"], shares["dk"], shares["dv"]) > 1.0, shares
+    big, 10 mantissa bits) misses the 1e-4 gate on o, dq, dk and dv."""
+    shares = _gate_shares("d128-causal", terms=1,
+                          names=("o", "lse", "dq", "dk", "dv"))
+    assert min(shares["o"], shares["dq"], shares["dk"],
+               shares["dv"]) > 1.0, shares
