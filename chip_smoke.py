@@ -3,8 +3,9 @@
 CUDA kernels, holds each to its plain torch version, serves
 eris-gptneo-1.3b at full width, runs ERIS rounds of it and of qwen2-0.5b
 at full width, training through the flash-attention kernels, and runs
-the reference's default round (threefry DSC), and the distributed FSA
-train step over NCCL, on one NVIDIA card.
+the reference's default round (threefry DSC), the distributed FSA train
+step over NCCL, and the round matrix (the baselines, defenses, failures
+and async methods), on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -135,7 +136,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     on the host (gloo) from the same params and keys (within 1e-4), and a
     host-made leaf through the fused payload and host-made trees through
     two adam updates on both, bit for bit.
-12. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+12. the round matrix -- eris-gptneo-1.3b at full width as phase 7 runs
+    it (bf16 params from ``--seed``, flash on, K = 4, A = 8, 4 x 64
+    tokens a client): (a) ``eris`` on the int8 wire with aggregator
+    dropout 0.25 and link failure 0.1, (b) ``eris_async`` on the int8
+    wire over a population of 16 (client dropout 0.25, delay_max 2,
+    buffer cadence 2), (c) the scenario cell ``ldp_int8+agg_fail``, two
+    rounds each; (d) ``secure_agg``, (e) ``priprune``, (f) ``shatter``,
+    one round each.  Prints each round's split (client gradients,
+    compression by stage, aggregation and server) and peak, and the
+    threefry draws' ms a client (LDP noise, a pairwise mask row).
+    Asserts finite x every round, peaks under 80 GB, K ``quantize`` and
+    K ``dequantize`` launches a round on the int8 wire (none else) and
+    n_layers x K of each flash kernel; in (a) and (c) x unchanged bit for
+    bit at a dead aggregator's coordinates; in (b) x unchanged in round 1
+    (cadence 2) and moved in round 2; in (e) client 3's update replayed
+    equal to the round's, at least k coordinates withheld, the threshold
+    the k-th largest |g|; in (f) the update on a window across 2**31 / 8
+    recomputed from the clients' gradients with the reference's int32
+    chunk ids (they wrap there).  Then, at the smoke size in f32, every
+    method and every feasible scenario cell (the ``dsc_int8`` cells once
+    more through the fused kernel, whose launches are counted) two rounds
+    on the card and on the host from the same seeds, x within 1e-4.
+13. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -171,12 +194,15 @@ from repro_torch import random  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import (tree_leaves, tree_map,  # noqa: E402
                                  tree_unflatten)
+from repro_torch.core import baselines as bl  # noqa: E402
 from repro_torch.core import dsc as dsc_lib  # noqa: E402
 from repro_torch.core import fl  # noqa: E402
+from repro_torch.core import secure_agg as sa  # noqa: E402
 from repro_torch.core.compressors import QSGD, RandK, RandP, TopK  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core.pipeline import (DSCCompress, Int8Wire,  # noqa: E402
                                        _seed_of, split_round_keys)
+from repro_torch.core.rounds import scenarios as sc  # noqa: E402
 from repro_torch.data import lm_token_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import dsc_quantize as dq  # noqa: E402
@@ -1113,7 +1139,7 @@ class TimedStage:
     def __init__(self, stage, events: list, capture: dict):
         self.stage, self.events, self.capture = stage, events, capture
 
-    def apply(self, keys, state, v, k):
+    def apply(self, keys, state, v, k, K=None):
         grab = self.capture.get("round") == REPLAY_ROUND and \
             k == REPLAY_CLIENT
         lo, hi = self.capture["window"]
@@ -1124,7 +1150,7 @@ class TimedStage:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.stage.apply(keys, state, v, k)
+        out = self.stage.apply(keys, state, v, k, K)
         end.record()
         self.events.append((start, end))
         if grab:
@@ -1236,6 +1262,28 @@ def _expect_free_card(what: str) -> None:
           f"{_live_cuda_tensors()}")
 
 
+def _instrument(run, capture: dict) -> tuple[list, list]:
+    """CUDA events around each client gradient and each compress stage's
+    apply of ``run``; returns the two event lists, cleared by the caller
+    each round."""
+    grad_events, comp_events = [], []
+    run.pipeline = dataclasses.replace(run.pipeline, compress=tuple(
+        TimedStage(st, comp_events, capture) for st in run.pipeline.compress))
+    grad = run._grad
+
+    def timed_grad(x, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g = grad(x, batch)
+        end.record()
+        grad_events.append((start, end))
+        return g
+
+    run._grad = timed_grad
+    return grad_events, comp_events
+
+
 def _run_config(dev, seed, cfg, toks, name, fields, path, totals,
                 check_keys: bool = False) -> dict:
     """Two rounds of one configuration; adds its launches to ``totals``.
@@ -1252,23 +1300,9 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals,
         p, cfg, {"tokens": b}), device=dev)
     del params
     n = run.n
-    grad_events, comp_events = [], []
     lo = (n // 2) // du.LANES * du.LANES
     capture = {"window": (lo, lo + REPLAY_N)}
-    run.pipeline = dataclasses.replace(run.pipeline, compress=tuple(
-        TimedStage(st, comp_events, capture) for st in run.pipeline.compress))
-    grad = run._grad
-
-    def timed_grad(x, batch):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        g = grad(x, batch)
-        end.record()
-        grad_events.append((start, end))
-        return g
-
-    run._grad = timed_grad
+    grad_events, comp_events = _instrument(run, capture)
     flash_per_round = (cfg.n_layers * K_CLIENTS
                        if tr.uses_flash_kernel(cfg, toks.shape[-1]) else 0)
     per_client = (math.ceil(n / random.CHUNK) if fields.get("use_dsc") and
@@ -2090,6 +2124,326 @@ def train_phase(dev, seed) -> dict:
     return totals
 
 
+# --------------------------------------------------------------- phase 12
+# The round matrix at full width, as phase 7 runs eris-gptneo-1.3b (bf16
+# params from --seed, flash on, K = 4, A = 8, 4 x 64 tokens a client):
+# (name, FLConfig fields, rounds).  (c) is the scenario pack's cell.
+MATRIX_POPULATION = 16
+MATRIX_CONFIGS = (
+    ("a eris int8 agg_fail", dict(method="eris", int8_wire=True,
+                                  agg_dropout=0.25, link_failure=0.1), 2),
+    ("b eris_async int8", dict(method="eris_async", int8_wire=True,
+                               population=MATRIX_POPULATION,
+                               client_dropout=0.25, delay_max=2,
+                               buffer_cadence=2), 2),
+    ("c ldp_int8+agg_fail", dict(method="eris",
+                                 **sc.get("ldp_int8+agg_fail").knobs), 2),
+    ("d secure_agg", dict(method="secure_agg"), 1),
+    ("e priprune", dict(method="priprune"), 1),
+    ("f shatter", dict(method="shatter"), 1),
+)
+# (f)'s replayed window straddles 2**31 / 8, where the reference's int32
+# chunk ids wrap
+SHATTER_WINDOW = (2**28 - 2048, 2**28 + 2048)
+
+
+class WindowedAggregate:
+    """An aggregate stage that keeps a window of each round's update."""
+
+    def __init__(self, stage, window, store: dict):
+        self.stage, self.window, self.store = stage, window, store
+
+    def apply(self, keys, state, vs, K, weights=None, collect_views=False):
+        res = self.stage.apply(keys, state, vs, K, weights, collect_views)
+        lo, hi = self.window
+        self.store["update"] = res.update[lo:hi].clone()
+        return res
+
+
+def _next_keys(run):
+    """The role keys ``run.step`` will split next."""
+    return split_round_keys(random.split(run.key)[1])
+
+
+def _replay_prune(run, capture, n) -> str:
+    """Client 3's withheld update replayed: the stage again on the
+    captured gradient equals what the round transmitted, at least k
+    coordinates are zero, and the threshold is the k-th largest |g|."""
+    stage = run.pipeline.compress[0].stage
+    g, out = capture["g"], capture["out"]
+    k = max(1, int(round(stage.rate * n)))
+    again = stage.apply(None, None, g, REPLAY_CLIENT, K_CLIENTS)
+    _same("priprune replay vs the round", again, out)
+    zeros = int((out == 0).sum())
+    check(zeros >= k, f"priprune: {zeros} coordinates withheld, want >= {k}")
+    t = bl.withhold_threshold(g, k)
+    above = sum(int((g[lo:lo + random.CHUNK].abs() > t).sum())
+                for lo in range(0, n, random.CHUNK))
+    at_least = sum(int((g[lo:lo + random.CHUNK].abs() >= t).sum())
+                   for lo in range(0, n, random.CHUNK))
+    check(above < k <= at_least, f"priprune threshold {float(t)}: {above} "
+          f"above, {at_least} at or above, k = {k}")
+    return (f"client {REPLAY_CLIENT} replayed == the round, {zeros} of {n} "
+            f"withheld (k = {k}), threshold {float(t):.4e} the k-th largest "
+            f"|g| ({above} above it)")
+
+
+def _replay_shatter(run, grads: list, store: dict, n) -> str:
+    """The update on SHATTER_WINDOW recomputed from the clients'
+    gradients there, with chunk ids from the reference's int32 formula
+    in numpy (the product wraps, the floor is negative, the index reads
+    from the end): bit for bit, and the window takes chunk 6's weights
+    past 2**28 where the unwrapped formula gives chunk 1."""
+    lo, hi = SHATTER_WINDOW
+    stage = run.pipeline.aggregate.stage
+    i = np.arange(lo, hi, dtype=np.int32)
+    ids = np.minimum(i * np.int32(stage.chunks) // np.int32(n),
+                     stage.chunks - 1)
+    chunk = np.arange(stage.chunks)[ids]
+    unwrapped = np.minimum(np.arange(lo, hi, dtype=np.int64) * stage.chunks
+                           // n, stage.chunks - 1)
+    check(bool((chunk != unwrapped).any()), "shatter window: no wrap")
+    members = bl.shatter_members(run.keys.comp, stage.chunks, K_CLIENTS,
+                                 stage.r, grads[0].device)
+    c = torch.from_numpy(chunk).to(grads[0].device)
+    want = torch.zeros(hi - lo, device=grads[0].device)
+    for k, g in enumerate(grads):
+        want += members[c, k] * g
+    _same("shatter window vs the int32 chunk ids", store["update"], want)
+    return (f"update on [{lo}, {hi}) == the int32 chunk ids' recomputation "
+            f"(chunks {sorted(set(chunk.tolist()))}; unwrapped "
+            f"{sorted(set(unwrapped.tolist()))})")
+
+
+def _matrix_config(dev, seed, cfg, name, fields, rounds, totals) -> dict:
+    """``rounds`` rounds of one configuration at full width; adds its
+    launches to ``totals`` and holds its gate (module docstring)."""
+    _expect_free_card(f"before {name}")
+    torch.cuda.reset_peak_memory_stats()
+    fcfg = fl.FLConfig(K=K_CLIENTS, A=A_AGGS, lr=LR, seed=seed, **fields)
+    toks = fl_train.client_tokens(seed, fcfg.population or K_CLIENTS, BATCH,
+                                  SEQ, cfg.vocab, dev)
+    params = tr.init_params(cfg, seed=seed, device=dev)
+    run = fl.FLRun(fcfg, params, lambda p, b: tr.loss_fn(
+        p, cfg, {"tokens": b}), device=dev)
+    del params
+    n = run.n
+    capture = {"window": (0, n)}
+    grad_events, comp_events = _instrument(run, capture)
+    shatter_grads, store = [], {}
+    if fcfg.method == "shatter":
+        run.pipeline = dataclasses.replace(run.pipeline, aggregate=(
+            WindowedAggregate(run.pipeline.aggregate, SHATTER_WINDOW, store)))
+        timed = run._grad
+
+        def kept_grad(x, batch):
+            g = timed(x, batch)
+            shatter_grads.append(g[slice(*SHATTER_WINDOW)].clone())
+            return g
+
+        run._grad = kept_grad
+    int8 = fcfg.int8_wire
+    failures = fcfg.agg_dropout > 0
+    out, notes, went_down = [], [], 0
+    x0 = run.x.clone() if fcfg.method == "eris_async" else None
+    for t in range(rounds):
+        grad_events.clear()
+        comp_events.clear()
+        # priprune keeps client 3's whole gradient and update to replay
+        capture["round"] = REPLAY_ROUND if fcfg.method == "priprune" \
+            else None
+        dead, saved = [], {}
+        if failures:
+            alive, _ = run.pipeline.aggregate.draws(_next_keys(run),
+                                                    K_CLIENTS)
+            dead = [a for a in range(A_AGGS) if not alive[a]]
+            saved = {a: run.x[a::A_AGGS].clone() for a in dead}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        _set_round_launches(0)                    # the main path starts
+        t0 = time.monotonic()
+        start.record()
+        run.step(toks)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k: fn.launches for k, fn in ROUND.items()}
+        flash = cfg.n_layers * K_CLIENTS
+        _check_tensor_cores(f"{name} round {t + 1}", flash, True)
+        for k, count in launches.items():       # the main path ended
+            totals[k] += count
+            want = (flash if k in FLASH else K_CLIENTS
+                    if int8 and k in ("quantize", "dequantize") else 0)
+            check(count == want, f"{name} round {t + 1}: {k} launched "
+                  f"{count} times, want {want}")
+        check(bool(run.x.isfinite().all()),
+              f"{name} round {t + 1}: x is not finite")
+        for a in dead:
+            _same(f"{name} round {t + 1}: x at dead aggregator {a}",
+                  run.x[a::A_AGGS], saved[a].to(run.x.dtype))
+        if failures:
+            went_down += len(dead)
+            notes.append(f"round {t + 1}: aggregators {dead} down, x "
+                         f"unchanged there bit for bit")
+        if x0 is not None:
+            same = bool((run.x == x0).all())
+            check(same == (t == 0), f"{name} round {t + 1}: x "
+                  f"{'moved' if not same else 'did not move'} (cadence 2: "
+                  f"held in round 1, applied in round 2)")
+            notes.append(f"round {t + 1}: x {'unchanged bit for bit' if same else 'moved'}"
+                         f" (buffer t = {run.state.buf.t})")
+        total = start.elapsed_time(end)
+        grad_ms = sum(a.elapsed_time(b) for a, b in grad_events)
+        comp_ms = sum(a.elapsed_time(b) for a, b in comp_events)
+        stage_ms = {type(st.stage).__name__: sum(
+            a.elapsed_time(b) for a, b in comp_events[i::len(
+                run.pipeline.compress)]) for i, st in
+            enumerate(run.pipeline.compress)}
+        out.append(dict(round_ms=total, grad_ms=grad_ms, compress_ms=comp_ms,
+                        stage_ms=stage_ms,
+                        aggregate_server_ms=total - grad_ms - comp_ms,
+                        wall_s=wall, launches=launches,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        print(f"  {name} round {t + 1}: {total:.1f} ms = client gradients "
+              f"{grad_ms:.1f} + compression {comp_ms:.1f} "
+              f"{ {k: round(v, 1) for k, v in stage_ms.items()} } + "
+              f"aggregation and server {total - grad_ms - comp_ms:.1f} (wall "
+              f"{wall:.2f} s); launches "
+              f"{ {k: v for k, v in launches.items() if v} }; peak "
+              f"{out[-1]['peak_gb']:.2f} GB", flush=True)
+    if fcfg.method == "priprune":
+        notes.append(_replay_prune(run, capture, n))
+    if fcfg.method == "shatter":
+        notes.append(_replay_shatter(run, shatter_grads[-K_CLIENTS:], store,
+                                     n))
+    if failures:
+        check(went_down > 0,
+              f"{name}: no aggregator went down in {rounds} rounds")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80, f"{name}: peak {peak:.2f} GB does not fit the card")
+    for note in notes:
+        print(f"  {name}: {note}")
+    return dict(rounds=out, peak_mem_gb=peak, n=n, notes=notes)
+
+
+def _threefry_ms(dev, n: int) -> dict:
+    """Device ms of the threefry draws inside the two stages that draw
+    per coordinate: one client's LDP noise (``random.normal`` over its
+    window of the (K, n) draw) and one client's pairwise mask (K - 1
+    ``random.randint`` pair draws), each 2**24 coordinates at a time and
+    consumed (summed) as drawn."""
+    key = random.PRNGKey(2)
+    draws = {
+        "ldp_noise_a_client": lambda lo, hi: random.normal(
+            key, (K_CLIENTS, n), device=dev, window=(lo, hi)),
+        "pairwise_mask_a_client": lambda lo, hi: sa.pairwise_mask_row(
+            key, 0, K_CLIENTS, n, device=dev, window=(lo, hi)),
+    }
+    out = {}
+    for name, draw in draws.items():
+        acc = torch.zeros((), device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for lo in range(0, n, random.CHUNK):
+            acc += draw(lo, min(n, lo + random.CHUNK)).sum()
+        end.record()
+        end.synchronize()
+        check(bool(acc.isfinite()), f"{name}: draws not finite")
+        out[name] = start.elapsed_time(end)
+    return out
+
+
+def matrix_phase(dev, seed) -> dict:
+    """(a)-(f) at full width, the threefry draws' ms, then the smoke-size
+    matrix card vs host.  Returns the kernels' launches over the
+    full-width rounds (the main path's count)."""
+    totals = {name: 0 for name in ROUND}
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=True)
+    check(cfg.flash_attention, "eris-gptneo-1.3b: flash attention is off")
+    results = {}
+    for name, fields, rounds in MATRIX_CONFIGS:
+        results[name] = _matrix_config(dev, seed, cfg, name, fields, rounds,
+                                       totals)
+    _expect_free_card("after the round matrix")
+    n = results[MATRIX_CONFIGS[0][0]]["n"]
+    results["threefry_ms"] = _threefry_ms(dev, n)
+    print(f"  threefry draws at n = {n}: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in results["threefry_ms"].items()))
+    print("round_matrix " + json.dumps(results))
+    matrix_small_input_phase(dev, seed)
+    return totals
+
+
+# every method and every feasible scenario cell at the smoke size; the
+# dsc_int8 cells once more through the fused kernel (FLConfig fields)
+SMOKE_POPULATION = 8
+SMOKE_METHODS = {
+    "fedavg": dict(),
+    "min_leakage": dict(),
+    "fedavg_ldp": dict(),
+    "soteriafl": dict(compressor=RandP(p=0.25), ldp=sc.SCENARIO_LDP),
+    "priprune": dict(),
+    "shatter": dict(),
+    "secure_agg": dict(),
+    "eris": dict(),
+    "fedbuff": dict(int8_wire=True, population=SMOKE_POPULATION,
+                    client_dropout=0.25, delay_max=2, buffer_cadence=2),
+    "eris_async": dict(population=SMOKE_POPULATION, client_dropout=0.25,
+                       delay_max=2, buffer_cadence=2),
+}
+
+
+def _smoke_cases(seed) -> list:
+    cases = [(f"method {m}", fl.FLConfig(method=m, K=K_CLIENTS, A=A_AGGS,
+                                         lr=LR, seed=seed, **fields))
+             for m, fields in SMOKE_METHODS.items()]
+    for cell in sc.scenario_matrix():
+        fcfg = cell.fl_config(K=K_CLIENTS, A=A_AGGS, lr=LR, seed=seed)
+        cases.append((f"cell {cell.name}", fcfg))
+        if cell.defense == "dsc_int8":
+            cases.append((f"cell {cell.name} fused", dataclasses.replace(
+                fcfg, compress_impl="fused")))
+    return cases
+
+
+def matrix_small_input_phase(dev, seed) -> None:
+    """Every method and every feasible scenario cell, eris-gptneo-1.3b's
+    smoke variant in f32, flash on: two rounds on the card (kernels) and
+    on the host (plain versions) from the same seeds, x within 1e-4
+    relative norm."""
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
+
+    def loss(p, b):
+        return tr.loss_fn(p, cfg, {"tokens": b})
+
+    worst, cases = 0.0, _smoke_cases(seed)
+    for name, fcfg in cases:
+        toks = fl_train.client_tokens(seed, fcfg.population or K_CLIENTS,
+                                      BATCH, SEQ, cfg.vocab)
+        host = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"),
+                        loss, device="cpu")
+        card = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"),
+                        loss, device=dev)
+        _set_round_launches(0)
+        for _ in range(2):
+            host.step(toks)
+            card.step(toks.to(dev))
+        if fcfg.compress_impl == "fused":
+            check(dq.dsc_quantize.launches == 2 * K_CLIENTS,
+                  f"{name}: dsc_quantize launched {dq.dsc_quantize.launches} "
+                  f"times, want {2 * K_CLIENTS}")
+        check(bool(card.x.isfinite().all()), f"{name}: x is not finite")
+        rel = float((card.x.cpu() - host.x).norm() / host.x.norm())
+        check(rel <= 1e-4, f"smoke {name}: x card vs host relative error "
+              f"{rel:.3e} after 2 rounds")
+        worst = max(worst, rel)
+        print(f"  smoke {name}: x card vs host {rel:.3e} after 2 rounds")
+    print(f"  smoke matrix: {len(cases)} configurations, worst "
+          f"x card vs host {worst:.3e} (tol 1e-4)")
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -2160,7 +2514,12 @@ def main() -> None:
     for name in round_launches:
         round_launches[name] += train_launches[name]
 
-    phase("12 result")
+    phase("12 the round matrix of eris-gptneo-1.3b at full width")
+    matrix_launches = matrix_phase(dev, args.seed)
+    for name in round_launches:
+        round_launches[name] += matrix_launches[name]
+
+    phase("13 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

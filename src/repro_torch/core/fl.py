@@ -1,5 +1,5 @@
-"""Federated engine (``repro/core/fl.py``): runs ERIS or FedAvg over a
-model and per-client data.
+"""Federated engine (``repro/core/fl.py``): runs ERIS or any baseline of
+the method registry over a model and per-client data.
 
 The model's parameter tree is flattened once (``convert.ravel_params``,
 in ``ravel_pytree`` order) so every stage works on the paper's R^n
@@ -28,15 +28,16 @@ from repro_torch.core.compressors import Compressor, Identity
 from repro_torch.core.pipeline import (RoundKeys, RoundState, client_batch,
                                        participation_weights,
                                        split_round_keys)
+from repro_torch.core.settings import AsyncSettings, resolve_async
 
 
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
     """The reference's FLConfig, field for field with the same defaults.
-    The port runs the synchronous fedavg and eris rounds; ``ldp``, the
-    failure knobs and the async knobs belong to methods it does not run
-    yet (ROADMAP queue 1.7)."""
-    method: str = "eris"          # fedavg | eris (rounds.METHODS)
+    With ``population`` > 0 (fedbuff, eris_async) a round's batches
+    carry the whole population on their leading axis and K is the
+    cohort drawn from it."""
+    method: str = "eris"          # any key of rounds.METHODS
     K: int = 8                    # clients
     A: int = 4                    # aggregators (eris)
     rounds: int = 50
@@ -65,8 +66,12 @@ class FLConfig:
     staleness_alpha: float = 1.0
     delay_max: int = 0
     client_dropout: float = 0.0
-    async_: Optional[Any] = None
+    async_: Optional[AsyncSettings] = None
     seed: int = 0
+
+    def async_settings(self) -> AsyncSettings:
+        """The resolved async-runtime knobs (``core/settings.py``)."""
+        return resolve_async("FLConfig", self.async_, self)
 
 
 class FLRun:
@@ -126,8 +131,9 @@ class FLRun:
 
     # ----------------------------------------------------------------- API
     def step(self, batches, collect_views: bool = False):
-        """One round on ``batches`` (a pytree with a leading K axis), with
-        the next split of the run's key, as the reference's ``step``."""
+        """One round on ``batches`` (a pytree with a leading K axis, or
+        population axis under a cohort draw), with the next split of the
+        run's key, as the reference's ``step``."""
         self.key, sub = random.split(self.key)
         self.keys = split_round_keys(sub)
         weights = participation_weights(self.keys.part, self.cfg.K,

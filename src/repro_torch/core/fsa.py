@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import masks as masks_lib
+from repro_torch.core.compressors import scale_by_reciprocal
 
 Updates = Union[torch.Tensor, Iterable[torch.Tensor]]
 
@@ -63,6 +64,23 @@ def weighted_sum(updates: Updates, weights: Optional[torch.Tensor] = None,
     return acc
 
 
+def mean_rows(rows: Updates) -> torch.Tensor:
+    """``rows.mean(0)`` as XLA's CPU compiler computes it: the rows summed
+    in order, then multiplied by the f32 reciprocal of their count (a
+    division for a power of two only: at 3 rows, XLA's product differs
+    from the quotient in a third of the coordinates).  ``rows`` is a
+    (K, n) tensor or an iterable of K vectors."""
+    acc, count = None, 0
+    for r in rows:
+        if acc is None:
+            acc = r.clone()
+        else:
+            acc += r
+        count += 1
+        del r       # dropped before the next row is made
+    return scale_by_reciprocal(acc, count)
+
+
 def shard_update(v: torch.Tensor, assign: torch.Tensor, A: int
                  ) -> torch.Tensor:
     """Partition one client update into A masked shards -> (A, n)."""
@@ -97,3 +115,35 @@ def fsa_round(x: torch.Tensor, client_updates: Updates, lr: float,
               K: Optional[int] = None) -> torch.Tensor:
     """Algebraic form (Theorem B.1): identical iterates to FedAvg."""
     return x - lr * weighted_sum(client_updates, weights, K)
+
+
+def fsa_round_with_failures(x: torch.Tensor, client_updates: torch.Tensor,
+                            assign: torch.Tensor, A: int, lr: float,
+                            agg_alive: torch.Tensor,
+                            link_alive: torch.Tensor,
+                            keep_views: bool = False):
+    """Failure-injected round (Appendix F.5), the (A, K, n) form.
+
+    agg_alive: (A,) bool -- a dropped aggregator leaves its model shard at
+    x_(a)^t for the round.  link_alive: (K, A) bool -- a failed
+    client->aggregator link drops that client's shard; the aggregator
+    renormalizes over the shards it received.
+
+    Returns x_new, or with ``keep_views`` an :class:`FSAOutput` whose
+    views are what the aggregators received (zero where the link failed
+    or the aggregator was down).  The streamed round computes the same
+    sum one client at a time (``pipeline.FailureInjectedFSA``)."""
+    m = masks_lib.masks_stacked(assign, A)                   # (A, n)
+    shards = m[:, None, :] * client_updates[None]            # (A, K, n)
+    w = link_alive.T.float().to(x.device)                    # (A, K)
+    coef = w / torch.clamp(w.sum(1, keepdim=True), min=1.0)
+    v_a = torch.einsum("ak,akn->an", coef, shards)
+    v_a = v_a * agg_alive[:, None].float().to(x.device)
+    x_a = m * x[None, :] - lr * v_a
+    x_new = reassemble(x_a, assign, A)
+    if not keep_views:
+        return x_new
+    views = (shards * w[:, :, None]
+             * agg_alive[:, None, None].float().to(x.device))
+    return FSAOutput(x_new, views)
+

@@ -2,7 +2,9 @@
 
 A mask set {m_(a)}_{a=1..A} over R^n must be disjoint and complete.  It
 is stored as one integer assignment vector ``assign`` (n,) with values in
-[0, A): coordinate i belongs to aggregator assign[i].
+[0, A): coordinate i belongs to aggregator assign[i] (the reference's
+``contiguous`` scheme wraps past 2**31 / A into negative values, which
+belong to no aggregator: :func:`assignment_window`).
 """
 from __future__ import annotations
 
@@ -20,20 +22,46 @@ def make_assignment(n: int, A: int, scheme: str = "strided",
     """The shard assignment of n coordinates over A aggregators.
 
     ``strided`` is round robin (i mod A); ``contiguous`` gives A
-    contiguous blocks; ``random`` is a permutation of the strided
-    assignment drawn with ``key`` (fresh masks a round when the key is
-    the round's, the paper's m^t)."""
+    contiguous blocks, with the reference's int32 arithmetic (see
+    :func:`assignment_window`); ``random`` is a permutation of the
+    strided assignment drawn with ``key`` (fresh masks a round when the
+    key is the round's, the paper's m^t)."""
+    if scheme != "random":
+        return assignment_window(n, A, scheme, 0, n, device)
+    strided = assignment_window(n, A, "strided", 0, n, device)
+    if key is None:
+        raise ValueError("random scheme needs a PRNG key")
+    return random.permutation(key, strided)
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32, as an int32 product overflows."""
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def assignment_window(n: int, A: int, scheme: str, lo: int, hi: int,
+                      device=None) -> torch.Tensor:
+    """Coordinates [lo, hi) of the ``strided`` or ``contiguous``
+    assignment of n coordinates (int32), built without an n-sized
+    temporary.
+
+    ``contiguous`` is the reference's ``min(i * A // n, A - 1)`` with i
+    int32: the product wraps once i * A >= 2**31, and ``//`` floors, so
+    past the wrap a coordinate gets a negative aggregator (at n =
+    1,816,565,760 and A = 8, coordinate 2**28 gets -2).  A negative
+    assignment belongs to no aggregator: the masks leave the coordinate
+    out, as the reference's one-hot masks do."""
     if A < 1:
         raise ValueError("need A >= 1 aggregators")
-    idx = torch.arange(n, dtype=torch.int32, device=device)
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"window [{lo}, {hi}) outside {n} coordinates")
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=device)
     if scheme == "strided":
-        return idx % A
+        return (idx % A).int()
     if scheme == "contiguous":
-        return torch.clamp(idx.long() * A // max(n, 1), max=A - 1).int()
-    if scheme == "random":
-        if key is None:
-            raise ValueError("random scheme needs a PRNG key")
-        return random.permutation(key, idx % A)
+        prod = wrap_int32(idx * A)
+        return torch.clamp(torch.div(prod, max(n, 1), rounding_mode="floor"),
+                           max=A - 1).int()
     raise ValueError(f"unknown scheme {scheme!r}")
 
 

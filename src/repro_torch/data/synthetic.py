@@ -2,8 +2,8 @@
 classification and Zipf token streams, from the reference's keys.
 
 Integer draws (tokens, labels, permutations) equal the reference's for
-the same key.  The features go through ``random.normal``, a few ulps
-from jax's.  ``dirichlet_partition`` and what is built on it (non-IID
+the same key.  The features go through ``random.normal``, within a
+few ulps of jax's.  ``dirichlet_partition`` and what is built on it (non-IID
 label skew, ``balanced_dirichlet_indices``, ``federated_population``)
 draw from jax's gamma sampler, a rejection loop not ported yet (ROADMAP
 queue 1.2).

@@ -61,6 +61,7 @@ from repro_torch import DeviceLike, random, resolve_device
 from repro_torch.convert import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.compressors import RandP, scale_by_reciprocal
 from repro_torch.core.dsc import fma_shift
+from repro_torch.core.fsa import mean_rows as _mean_rows
 from repro_torch.core.pipeline import DSCCompress
 from repro_torch.dist import sharding as sh
 from repro_torch.kernels import dsc_quantize as dq_kernel
@@ -295,17 +296,6 @@ def _padded_rows(x: torch.Tensor, dim: int, n_client: int,
     out = x.new_zeros((n_client, mp), dtype=torch.float32)
     out[:, :m] = rows
     return out
-
-
-def _mean_rows(rows: torch.Tensor) -> torch.Tensor:
-    """``rows.mean(0)`` as XLA's CPU compiler computes it: the rows summed
-    in order, then multiplied by the f32 reciprocal of their count (a
-    division for a power of two only: at 3 rows, XLA's product differs
-    from the quotient in a third of the coordinates)."""
-    acc = rows[0].clone()
-    for r in rows[1:]:
-        acc += r
-    return scale_by_reciprocal(acc, rows.shape[0])
 
 
 def int8_payload(v: torch.Tensor, dim: int, n_client: int, seed: int):

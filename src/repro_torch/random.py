@@ -21,7 +21,8 @@ False: the layout of the jax 0.4 that CI pins):
   first output word if it lies in the first half, the second otherwise.
   ``split`` uses the same layout over 2 * num counters.
 
-Large draws.  ``bits``, ``uniform`` and ``bernoulli`` take a ``window``:
+Large draws.  ``bits``, ``uniform``, ``bernoulli``, ``randint`` and
+``normal`` take a ``window``:
 the flat elements [lo, hi) of the draw over ``shape``, the same values
 whatever the window, so a caller consumes an n = 1.8e9 draw chunk by
 chunk and never holds an n-sized temporary.  Without a window they
@@ -128,7 +129,7 @@ def _iota_hash(k1, k2, n: int, lo: int, hi: int, device) -> torch.Tensor:
     if n >= MASK:
         raise NotImplementedError(
             "the original threefry layout over 2**32 - 1 or more counters "
-            "splits the key into blocks; not ported")
+            "splits the key into blocks; not ported yet (ROADMAP queue 1.2)")
     half = (n + 1) // 2
     i = torch.arange(lo, hi, dtype=torch.int64, device=device)
     first = i < half
@@ -232,10 +233,12 @@ def _mulmod32(a: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int, *,
-            device=None) -> torch.Tensor:
+            device=None, window: Optional[Tuple[int, int]] = None
+            ) -> torch.Tensor:
     """``jax.random.randint`` into int32 (returned as int64): two 32-bit
     draws folded modulo the span, as ``random._randint`` does in
-    uint32."""
+    uint32.  With a ``window``, the flat elements [lo, hi) of the draw
+    over ``shape``."""
     lo32, hi32 = -2**31, 2**31 - 1
     minval = min(max(int(minval), lo32), hi32)
     out_of_range = int(maxval) > hi32
@@ -246,8 +249,8 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int, *,
     elif out_of_range:
         span = (span + 1) & MASK
     k1, k2 = split(key)
-    higher = bits(k1, shape, device=device)
-    lower = bits(k2, shape, device=device)
+    higher = bits(k1, shape, device=device, window=window)
+    lower = bits(k2, shape, device=device, window=window)
     if span == 0:                      # the full 2**32 range
         offset = lower
     else:
@@ -314,12 +317,13 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(key: torch.Tensor, shape: Shape = (), *, device=None
-           ) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: Shape = (), *, device=None,
+           window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``jax.random.normal`` in f32: ``sqrt(2) * erfinv(u)``, u uniform in
-    (-1, 1)."""
+    (-1, 1).  With a ``window``, the flat elements [lo, hi) of the draw
+    over ``shape``."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0, device=device)
+    u = uniform(key, shape, lo, 1.0, device=device, window=window)
     return float(np.float32(np.sqrt(2))) * _erfinv(u)
 
 

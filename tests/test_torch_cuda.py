@@ -758,3 +758,85 @@ def test_cuda_adam_step_makes_bf16_params_f32(cuda, nccl_rank):
     assert {t.dtype for t in tree_leaves(state.mu)} == {torch.bfloat16}
     params, state, _ = _train_run(cfg, mesh, dict(), device, 2, adam(1e-2))
     assert {t.dtype for t in tree_leaves(state.mu)} == {torch.float32}
+
+
+# ------------------------------------------------ the round matrix stages
+def _stage_inputs(cuda, K=4, n=300_007, seed=21):
+    """K client vectors on the host and the card, and a round's keys."""
+    from repro_torch.core import pipeline as pl
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy((0.1 * rng.standard_normal((K, n))).astype(
+        np.float32))
+    return v, v.to(cuda), pl.split_round_keys(random.PRNGKey(seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["ldp", "prune", "pairwise"])
+def test_cuda_compress_stages_equal_host(cuda, stage, monkeypatch):
+    """LDPNoise, PruneWithhold and PairwiseMask on the card, client by
+    client over several chunks: the pairwise masks and the withheld
+    update bit for bit with the host's, the LDP noise within 4 ulps of
+    max(|out|, sigma) (the two devices' erfinv and log1p)."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import pipeline as pl
+    monkeypatch.setattr(random, "CHUNK", 65536)
+    v, v_card, keys = _stage_inputs(cuda)
+    K = v.shape[0]
+    st = {"ldp": pl.LDPNoise(ldp=bl.LDPConfig(8.0, 1e-5, 1.0)),
+          "prune": pl.PruneWithhold(rate=0.1),
+          "pairwise": pl.PairwiseMask()}[stage]
+    state = pl.RoundState(None, None, ())
+    sigma = bl.gaussian_sigma(8.0, 1e-5, 1.0)
+    for k in range(K):
+        card = st.apply(keys, state, v_card[k], k, K).cpu()
+        host = st.apply(keys, state, v[k], k, K)
+        if stage == "ldp":
+            ulp = torch.from_numpy(np.spacing(
+                host.abs().clamp_min(sigma).numpy()))
+            assert float(((card - host).abs() / ulp).max()) <= 4
+        else:
+            assert torch.equal(card, host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["secure_agg", "shatter", "failures",
+                                   "buffered"])
+def test_cuda_aggregate_stages_equal_host(cuda, stage, monkeypatch):
+    """The streamed aggregate stages on the card against the host from
+    the same vectors and keys: secure aggregation's masked mean bit for
+    bit (fixed-point masks, rows added in order), shatter, failure
+    injection and the buffer within 1e-6 relative norm."""
+    from repro_torch.core import pipeline as pl
+    monkeypatch.setattr(random, "CHUNK", 65536)
+    v, v_card, keys = _stage_inputs(cuda)
+    K, n = v.shape
+    st = {"secure_agg": pl.SecureAggAggregate(),
+          "shatter": pl.ShatterAggregate(chunks=8, r=2),
+          "failures": pl.FailureInjectedFSA(A=8, agg_dropout=0.25,
+                                            link_failure=0.3,
+                                            mask_scheme="contiguous"),
+          "buffered": pl.BufferedAggregate(
+              arrival=pl.ArrivalModel(delay_max=2, dropout=0.25),
+              cadence=1)}[stage]
+    out = []
+    for rows, d in ((v_card, cuda), (v, torch.device("cpu"))):
+        state = pl.RoundState(None, None, (), buf=pl.init_buffer(n, d))
+        out.append(st.apply(keys, state, iter(rows), K).update.cpu())
+    if stage == "secure_agg":
+        assert torch.equal(out[0], out[1])
+    else:
+        assert float((out[0] - out[1]).norm() / out[1].norm()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_withhold_threshold_equals_topk(cuda):
+    """The radix selection on the card: the k-th largest |g| as
+    torch.topk finds it, f32 and bf16, with ties."""
+    from repro_torch.core import baselines as bl
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(np.round(rng.standard_normal(1_000_003) * 64)
+                         .astype(np.float32) / 64).to(cuda)
+    for t in (g, g.bfloat16()):
+        for k in (1, 1000, 100_000, t.numel()):
+            want = torch.topk(t.float().abs(), k).values[-1]
+            assert float(bl.withhold_threshold(t, k)) == float(want)

@@ -215,6 +215,81 @@ def test_chunked_draws_equal_one_piece(layout, monkeypatch):
         random.bits(key, (10,), window=(5, 11))
 
 
+def test_randint_and_normal_windows_equal_the_whole_draw(layout):
+    """``randint`` and ``normal`` over a flat window of a (3, 4099) draw:
+    the whole draw's slice (bits for both: the same computation), and
+    jax's full draw of that shape (bits for randint, the ulp bound below
+    for normal), whatever the window."""
+    shape, L = (3, 4099), 819_200
+    n = shape[0] * shape[1]
+    key, jkey = random.PRNGKey(9), jax.random.PRNGKey(9)
+    whole_i = random.randint(key, shape, -L, L).reshape(-1)
+    whole_x = random.normal(key, shape).reshape(-1)
+    want_i = np.asarray(jax.random.randint(jkey, shape, -L, L)).reshape(-1)
+    want_x = np.asarray(jax.random.normal(jkey, shape)).reshape(-1)
+    _eq(whole_i, want_i)
+    for lo, hi in ((0, 1), (4090, 4110), (n // 3 - 5, n // 3 + 777),
+                   (n - 10, n), (0, n)):
+        got_i = random.randint(key, shape, -L, L, window=(lo, hi))
+        got_x = random.normal(key, shape, window=(lo, hi))
+        assert torch.equal(got_i, whole_i[lo:hi])
+        assert torch.equal(got_x, whole_x[lo:hi])
+        _eq(got_i, want_i[lo:hi])
+        assert _ulps(got_x.numpy(), want_x[lo:hi]).max() <= NORMAL_ULPS
+
+
+def test_randint_and_normal_windows_straddle_2_32(layout):
+    """A window across index 2**32 of a (4, 1,816,565,760) draw (the LDP
+    noise of four full-width clients), against jax's ``threefry_2x32`` on
+    the same counters (jax cannot draw 7.3e9 elements here) folded by
+    randint's formula, and for normal the bits through jax's own
+    uniform and ``erf_inv``; two half windows equal the whole.  The
+    original layout over 2**32 - 1 or more counters raises, naming its
+    queue."""
+    shape, L = (4, FULL_N), 819_200
+    lo, hi = 2**32 - 2000, 2**32 + 2099
+    key, jkey = random.fold_in(random.PRNGKey(3), 7), \
+        jax.random.fold_in(jax.random.PRNGKey(3), 7)
+    if not layout:
+        with pytest.raises(NotImplementedError, match="queue 1.2"):
+            random.randint(key, shape, -L, L, window=(lo, hi))
+        return
+    i = np.arange(lo, hi, dtype=np.uint64)
+    counters = jnp.asarray(np.concatenate([i >> 32, i & 0xFFFFFFFF]).astype(
+        np.uint32))
+
+    def jbits(k):
+        y = np.asarray(jax_prng.threefry_2x32(k, counters)).astype(np.uint64)
+        return y[:hi - lo] ^ y[hi - lo:]
+
+    k1, k2 = jax.random.split(jkey)
+    span = 2 * L
+    mult = (2**16 % span) ** 2 % 2**32 % span
+    want_i = ((jbits(k1) % span * mult % 2**32 + jbits(k2) % span) % 2**32
+              % span).astype(np.int64) - L
+    got_i = random.randint(key, shape, -L, L, window=(lo, hi))
+    _eq(got_i, want_i)
+    mid = (lo + hi) // 2
+    assert torch.equal(torch.cat([
+        random.randint(key, shape, -L, L, window=(lo, mid)),
+        random.randint(key, shape, -L, L, window=(mid, hi))]), got_i)
+    low = np.nextafter(np.float32(-1), np.float32(0))
+
+    @jax.jit
+    def jnormal(b):
+        f = jax.lax.bitcast_convert_type(
+            (b >> 9) | np.uint32(0x3F800000), jnp.float32) - 1.0
+        u = jnp.maximum(low, f * (np.float32(1) - low) + low)
+        return np.float32(np.sqrt(2)) * jax.lax.erf_inv(u)
+
+    want_x = np.asarray(jnormal(jnp.asarray(jbits(jkey).astype(np.uint32))))
+    got_x = random.normal(key, shape, window=(lo, hi))
+    assert _ulps(got_x.numpy(), want_x).max() <= NORMAL_ULPS
+    assert torch.equal(torch.cat([
+        random.normal(key, shape, window=(lo, mid)),
+        random.normal(key, shape, window=(mid, hi))]), got_x)
+
+
 # ----------------------------------------------- floating-point draws
 # gumbel: -log(-log(u)), both logs a last bit from XLA's; |g| up to ~16,
 # and where g crosses 0 the relative error grows, so the bound is in ulps
