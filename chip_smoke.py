@@ -4,8 +4,9 @@ CUDA kernels, holds each to its plain torch version, serves
 eris-gptneo-1.3b at full width, runs ERIS rounds of it and of qwen2-0.5b
 at full width, training through the flash-attention kernels, and runs
 the reference's default round (threefry DSC), the distributed FSA train
-step over NCCL, and the round matrix (the baselines, defenses, failures
-and async methods), on one NVIDIA card.
+step over NCCL with its scenario and async knobs, and the round matrix
+(the baselines, defenses, failures and async methods), on one NVIDIA
+card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -132,10 +133,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     dk/dv on the f32 ones once they are f32).  Prints each step's ms split into
     gather, gradient, wire (with the Eq. 4 compensation) and optimizer,
     the peak, and ``mesh_wire_bytes`` at n_client 1, 4 and 8 (computed).
-    Then the smoke variant in f32, (a)-(d), two sgd steps on the card and
-    on the host (gloo) from the same params and keys (within 1e-4), and a
-    host-made leaf through the fused payload and host-made trees through
-    two adam updates on both, bit for bit.
+    Then the scenario and async knobs at full width, three sgd steps at lr
+    0.1 each (bf16 params stay bf16): (f) the cell ``ldp_int8+agg_fail``
+    (LDP eps 8 on the int8 wire, aggregator dropout 0.25, link failure
+    0.1), (g) the FedBuff buffer on the int8 wire (cadence 2, client
+    dropout 0.25, delay_max 2), (h) ``dsc_int8+agg_fail`` (DSC p 0.5 on
+    the fused int8 wire), (i) ``secure_agg+none`` (the f32 wire); each
+    step holds or moves as the step's own draws say, asserted (a dead link
+    leaves (f)'s params and (h)'s s_agg as they were, bit for bit; (g)
+    holds its params at the rounds the cadence skips, with grad_norm 0;
+    (i)'s mask row at n_client 1 is zero), with the launches (one
+    ``quantize`` and one ``dequantize`` a leaf in (f) and (g), one
+    ``dsc_quantize`` and one ``dequantize`` in (h), none in (i)) and the
+    split (with LDP's part).  Then the n_client = 4 draws no single rank
+    runs, on the card: the four ranks' mask rows of ``blocks/w_up``
+    summed to exactly zero in f32, rank 3's row on 2**24 elements equal
+    to the host's and its LDP noise within 8 ulps, each timed.  Then the
+    smoke variant in f32, (a)-(d) and (f)-(i), two sgd steps on the card
+    and on the host (gloo) from the same params and keys (within 1e-4),
+    and a host-made leaf through the fused payload and host-made trees
+    through two adam updates on both, bit for bit.
 12. the round matrix -- eris-gptneo-1.3b at full width as phase 7 runs
     it (bf16 params from ``--seed``, flash on, K = 4, A = 8, 4 x 64
     tokens a client): (a) ``eris`` on the int8 wire with aggregator
@@ -1863,7 +1880,38 @@ TRAIN_CONFIGS = (
 TRAIN_FALL_LR = 1e-5
 TRAIN_FALL_CONFIGS = tuple(name for name, _, _ in TRAIN_CONFIGS)
 TRAIN_WITNESS_TOL = 5e-2
-TRAIN_PARTS = ("gather", "gradient", "wire", "optimizer", "end")
+# The scenario and async knobs (the rounds.scenarios cells on the mesh
+# wire) at full width, bf16 params from --seed, three steps of sgd at
+# phase 12's lr: sgd keeps the params bf16 and leaves a segment that
+# receives a zero update as it was, bit for bit (adam's moments and DSC's
+# Eq. 4 move it all the same).  (name, TrainSettings fields, wire kernels
+# launched once a sharded leaf a step).  The one-rank draws at PRNGKey(0..2)
+# (jax 0.9.0 on the CPU, and the port's): the aggregator lives at every
+# step and its one link dies at step 2, so (f)'s params and (h)'s s_agg
+# hold still there; the client drops at step 1 and arrives at 2 and 3, so
+# (g) holds at steps 1 and 3 (cadence 2) and moves at 2; (i)'s mask row
+# at n_client = 1 is exactly zero.
+TRAIN_KNOB_LR = 0.1
+TRAIN_KNOB_CONFIGS = (
+    ("f ldp_int8+agg_fail", dict(grad_dtype="float32", int8_wire=True,
+                                 ldp_eps=8.0, ldp_delta=1e-5, ldp_clip=1.0,
+                                 agg_dropout=0.25, link_failure=0.1),
+     ("quantize", "dequantize")),
+    ("g async int8", dict(grad_dtype="float32", int8_wire=True,
+                          async_buffer=True, buffer_cadence=2,
+                          client_dropout=0.25, delay_max=2),
+     ("quantize", "dequantize")),
+    ("h dsc_int8+agg_fail", dict(grad_dtype="float32", use_dsc=True,
+                                 dsc_p=0.5, int8_wire=True,
+                                 agg_dropout=0.25, link_failure=0.1),
+     ("dsc_quantize", "dequantize")),
+    ("i secure_agg+none", dict(grad_dtype="float32", secure_mask=True), ()),
+)
+# the n_client = 4 pieces one rank cannot run, on the card: every rank's
+# mask row of blocks/w_up (402,653,184 elements) and rank 3's LDP noise;
+# card vs host on the leaf's last 2**24 elements (normal within
+# MESH_NORMAL_ULPS: both sides' log and erfinv within an ulp or two)
+MESH_CLIENTS, MESH_LEAF, MESH_NORMAL_ULPS = 4, ("blocks", "w_up"), 8
 # the smoke steps, card (NCCL, kernels) vs host (gloo, plain versions),
 # with sgd (phase 9's precedent: the gradients differ in their last bits,
 # and an int8 code flips where a draw falls within an ulp of its
@@ -1873,18 +1921,51 @@ TRAIN_PARTS = ("gather", "gradient", "wire", "optimizer", "end")
 TRAIN_SMOKE_LR, TRAIN_SMOKE_TOL = 0.05, 1e-4
 
 
+def _knob_plan(settings, steps: int) -> list:
+    """What each step of a knob configuration must do at one rank, from
+    the step's own draws: "held" (params as they were, bit for bit: sgd
+    with a zero update, a dead link or aggregator without DSC, or a round
+    the cadence does not apply, where grad_norm is 0 too), "moved", or
+    "s_agg held" (DSC: Eq. 4 keeps s_agg where nothing arrives)."""
+    from repro_torch.launch import train
+    plan = []
+    arrival = settings.arrival_model()
+    cadence = settings.async_settings().buffer_cadence
+    for i in range(steps):
+        key, what, note = random.PRNGKey(i), "moved", ""
+        if settings.agg_dropout > 0 or settings.link_failure > 0:
+            agg, link, cnt = train.failure_draws(
+                key, 1, settings.agg_dropout, settings.link_failure)
+            note = f"aggregator alive {int(agg[0])}, link {int(link[0, 0])}"
+            if float(link[0, 0] * agg[0]) == 0.0:
+                what = "s_agg held" if settings.use_dsc else "held"
+        if settings.async_buffer:
+            _, alive, omega, _ = train.arrival_draws(key, 1, arrival)
+            note = f"client arrives {bool(alive[0])}, omega {float(omega[0])}"
+            if (i + 1) % cadence:
+                what = "held"
+        if settings.secure_mask:
+            row = train.mask_row(key, 0, 0, 1, random.CHUNK)
+            check(not bool(row.any()), "a mask row at n_client 1 is not 0")
+            note = "mask row at n_client 1 exactly zero"
+        plan.append((what, note))
+    return plan
+
+
 def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
-                  totals, lr=TRAIN_LR, witness=False) -> dict:
+                  totals, lr=TRAIN_LR, witness=False,
+                  optimizer="adam") -> dict:
     """TRAIN_STEPS steps of one configuration at full width; adds its
     launches to ``totals``.  At ``TRAIN_FALL_LR`` the loss must fall at
     every step.  With ``witness``, step 1 again on the host
-    (:func:`_train_witness`)."""
+    (:func:`_train_witness`).  With sgd (the knob configurations) each
+    step holds or moves as :func:`_knob_plan` says."""
     from repro_torch.launch import train
-    from repro_torch.optim import adam
+    from repro_torch.optim import adam, sgd
     _expect_free_card(f"before {name}")
     torch.cuda.reset_peak_memory_stats()
     settings = train.TrainSettings(**fields)
-    opt = adam(lr)
+    opt = {"adam": adam, "sgd": sgd}[optimizer](lr)
     events = {}
 
     def mark(part):
@@ -1900,9 +1981,16 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
     dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=dev)
     n_leaves = len(tree_leaves(params))
     flash = cfg.n_layers if tr.uses_flash_kernel(cfg, TRAIN_SEQ) else 0
+    plan = (_knob_plan(settings, TRAIN_STEPS) if optimizer == "sgd"
+            else [("", "")] * TRAIN_STEPS)
     steps = []
     for i in range(TRAIN_STEPS):
         bf16 = {t.dtype for t in tree_leaves(params)} == {torch.bfloat16}
+        what = plan[i][0]
+        before = ([t.clone() for t in tree_leaves(params)]
+                  if what in ("held", "moved") else None)
+        s_agg = ([t.clone() for t in tree_leaves(dsc_ref["s_agg"])]
+                 if what == "s_agg held" else None)
         _set_round_launches(0)                    # the main path starts
         t0 = time.monotonic()
         params, state, dsc_ref, m = step(params, state, dsc_ref,
@@ -1924,17 +2012,34 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
         check(math.isfinite(loss) and math.isfinite(gnorm),
               f"{name} step {i + 1}: loss {loss}, grad_norm {gnorm}")
         dtypes = sorted({str(t.dtype) for t in tree_leaves(params)})
-        check(dtypes == ["torch.float32"], f"{name} step {i + 1}: params "
-              f"{dtypes} after an adam step, want float32 (the "
-              f"reference's promotion)")
+        want_dtypes = ["torch.float32" if optimizer == "adam"
+                       else f"torch.{cfg.dtype}"]
+        check(dtypes == want_dtypes, f"{name} step {i + 1}: params "
+              f"{dtypes} after an {optimizer} step, want {want_dtypes} "
+              f"(the reference's promotion)")
+        if what == "held":
+            for a, b in zip(tree_leaves(params), before):
+                _same(f"{name} step {i + 1}: params held", a, b)
+            check(gnorm == 0.0, f"{name} step {i + 1}: a held round's "
+                  f"grad_norm {gnorm}, want 0 (a zero update)")
+        elif what == "moved":
+            check(any(not torch.equal(a, b) for a, b in
+                      zip(tree_leaves(params), before)),
+                  f"{name} step {i + 1}: params did not move")
+        elif what == "s_agg held":
+            for a, b in zip(tree_leaves(dsc_ref["s_agg"]), s_agg):
+                _same(f"{name} step {i + 1}: s_agg held", a, b)
+        del before, s_agg
+        order = list(events)
         split = {part: events[part].elapsed_time(events[nxt])
-                 for part, nxt in zip(TRAIN_PARTS, TRAIN_PARTS[1:])}
+                 for part, nxt in zip(order, order[1:])}
         total = events["gather"].elapsed_time(events["end"])
         steps.append(dict(step_ms=total, **{f"{k}_ms": v for k, v in
                                              split.items()},
                           loss=loss, grad_norm=gnorm, wall_s=wall,
                           launches={k: v for k, v in launches.items() if v},
-                          allocated_gb=torch.cuda.memory_allocated() / 1e9))
+                          allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                          gate=" ".join(plan[i]).strip()))
         print(f"  {name} step {i + 1}: {total:.1f} ms = "
               + " + ".join(f"{k} {v:.1f}" for k, v in split.items())
               + f" (wall {wall:.2f} s); loss {loss:.4f}, grad_norm "
@@ -1942,7 +2047,8 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
               f"cores bf16 {tc[0]}, f32 {tc[1]}; device "
               f"memory "
               f"{steps[-1]['allocated_gb']:.2f} "
-              f"GB held", flush=True)
+              f"GB held" + (f"; {' '.join(plan[i])}: checked"
+                            if plan[i][0] else ""), flush=True)
     losses = [s["loss"] for s in steps]           # loss i before update i
     falls = all(b < a for a, b in zip(losses, losses[1:]))
     check(falls or lr != TRAIN_FALL_LR, f"{name} at lr {lr}: the loss did "
@@ -1953,13 +2059,14 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
     if witness:
         _train_witness(cfg, mesh, toks, fields, lr, params0, steps)
         del params0
-    print(f"  {name}, adam lr {lr}: losses {losses} (falls at every step: "
-          f"{falls}); peak device memory "
+    moments = (f"; mu/nu {sorted({str(t.dtype) for t in tree_leaves(state.mu)})}"
+               if optimizer == "adam" else "")
+    print(f"  {name}, {optimizer} lr {lr}: losses {losses} (falls at every "
+          f"step: {falls}); peak device memory "
           f"{peak / 1e9:.2f} GB "
-          f"({peak / 2**30:.2f} GiB); mu/nu "
-          f"{sorted({str(t.dtype) for t in tree_leaves(state.mu)})}")
+          f"({peak / 2**30:.2f} GiB){moments}")
     del params, state, dsc_ref, step
-    return dict(lr=lr, steps=steps, peak_gb=peak / 1e9)
+    return dict(lr=lr, optimizer=optimizer, steps=steps, peak_gb=peak / 1e9)
 
 
 def _train_witness(cfg, mesh, toks, fields, lr, params0, card) -> None:
@@ -1997,9 +2104,10 @@ def _train_witness(cfg, mesh, toks, fields, lr, params0, card) -> None:
 
 
 def _train_smoke(dev, mesh, seed) -> None:
-    """The smoke variant in f32, flash on: configurations (a)-(d), two
-    sgd steps on the card (NCCL, kernels) and on the host (gloo, plain
-    versions) from the same params and keys; a host-made leaf through the
+    """The smoke variant in f32, flash on: configurations (a)-(d) and the
+    knob configurations (f)-(i), two sgd steps on the card (NCCL, kernels)
+    and on the host (gloo, plain versions) from the same params and keys;
+    a host-made leaf through the
     fused wire payload, and host-made trees through two adam updates
     (bf16 params), on both, bit for bit."""
     from repro_torch.launch import train
@@ -2009,7 +2117,7 @@ def _train_smoke(dev, mesh, seed) -> None:
           "take the flash kernels")
     toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
                             cfg.vocab)[0]
-    for name, fields, _ in TRAIN_CONFIGS[:4]:
+    for name, fields, _ in TRAIN_CONFIGS[:4] + TRAIN_KNOB_CONFIGS:
         settings = train.TrainSettings(**fields)
         out = []                                  # the card's, the host's
         for d in (dev, torch.device("cpu")):
@@ -2073,11 +2181,105 @@ def _train_smoke(dev, mesh, seed) -> None:
           f"for bit")
 
 
+def _event_pair():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def mesh_draws(dev, cfg) -> dict:
+    """The n_client = 4 draws of the step that one rank cannot run, on
+    the card through the step's own functions, on MESH_LEAF at round key
+    PRNGKey(0): every rank's mask row, window by window, the four summed
+    in rank order exactly zero in f32; rank 3's row on the leaf's last
+    2**24 elements equal to the host's, bit for bit, and its LDP noise
+    there within MESH_NORMAL_ULPS of the host's.  Each row and the noise
+    are timed over the whole leaf (device events)."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import train
+    items = list(sh.spec_items(cfg))
+    i = [path for path, _ in items].index(MESH_LEAF)
+    shape = items[i][1]
+    n = math.prod(shape)
+    key = random.PRNGKey(0)
+    events = [[] for _ in range(MESH_CLIENTS)]
+    nonzero_sum = nonzero_row = 0
+    last = None
+    for lo in range(0, n, random.CHUNK):
+        hi = min(n, lo + random.CHUNK)
+        acc = None
+        for a in range(MESH_CLIENTS):
+            start, end = _event_pair()
+            start.record()
+            row = train.mask_row(key, i, a, MESH_CLIENTS, n, device=dev,
+                                 window=(lo, hi))
+            end.record()
+            events[a].append((start, end))
+            acc = row if acc is None else acc + row
+            if a == 0:
+                nonzero_row += int((row != 0).sum())
+            if a == MESH_CLIENTS - 1 and hi == n:
+                last = (lo, hi, row)
+        nonzero_sum += int((acc != 0).sum())
+        del acc, row
+    torch.cuda.synchronize()
+    row_ms = [sum(a.elapsed_time(b) for a, b in ev) for ev in events]
+    check(nonzero_sum == 0, f"mask rows of {'/'.join(MESH_LEAF)} at "
+          f"n_client {MESH_CLIENTS}: {nonzero_sum} coordinates do not "
+          f"cancel")
+    check(nonzero_row > n // 2, f"rank 0's mask row is mostly zero "
+          f"({nonzero_row} of {n} nonzero)")
+    lo, hi, row = last
+    t0 = time.monotonic()
+    host = train.mask_row(key, i, MESH_CLIENTS - 1, MESH_CLIENTS, n,
+                          window=(lo, hi))
+    host_s = time.monotonic() - t0
+    _same(f"rank {MESH_CLIENTS - 1}'s mask row on [{lo}, {hi}), card vs "
+          f"host", row.cpu(), host)
+    # rank 3's noise: the whole leaf timed, the last window vs the host
+    start, end = _event_pair()
+    total = torch.zeros((), device=dev)
+    start.record()
+    for w in range(0, n, random.CHUNK):
+        noise = train.ldp_noise(key, i, MESH_CLIENTS - 1, shape, device=dev,
+                                window=(w, min(n, w + random.CHUNK)))
+        total += noise.sum()
+    end.record()
+    end.synchronize()
+    noise_ms = start.elapsed_time(end)
+    check(bool(total.isfinite()), "LDP noise: not finite")
+    host_noise = train.ldp_noise(key, i, MESH_CLIENTS - 1, shape,
+                                 window=(lo, hi))
+    card = noise.cpu()
+    ulps = (card.view(torch.int32).long()
+            - host_noise.view(torch.int32).long()).abs().max()
+    check(torch.equal(card.sign(), host_noise.sign())
+          and int(ulps) <= MESH_NORMAL_ULPS,
+          f"rank {MESH_CLIENTS - 1}'s LDP noise on [{lo}, {hi}): card vs "
+          f"host {int(ulps)} ulps (tol {MESH_NORMAL_ULPS})")
+    out = dict(leaf="/".join(MESH_LEAF), n=n, n_client=MESH_CLIENTS,
+               mask_row_ms=row_ms,
+               pair_draw_ms=[ms / (MESH_CLIENTS - 1) for ms in row_ms],
+               ldp_noise_ms=noise_ms, noise_ulps=int(ulps),
+               host_mask_window_s=host_s)
+    print(f"  n_client {MESH_CLIENTS} on {out['leaf']} ({n} elements), "
+          f"round key PRNGKey(0): the four mask rows sum to exactly zero "
+          f"in f32; rows {' / '.join(f'{ms:.1f}' for ms in row_ms)} ms "
+          f"({MESH_CLIENTS - 1} pair draws each: "
+          f"{row_ms[0] / (MESH_CLIENTS - 1):.1f} ms a pair draw; phase 12 "
+          f"times one over n = 1,816,565,760); rank "
+          f"{MESH_CLIENTS - 1}'s row on [{lo}, {hi}) card == host bit for "
+          f"bit (host {host_s:.1f} s); its LDP noise {noise_ms:.1f} ms over "
+          f"the leaf, card vs host {int(ulps)} ulps on that window",
+          flush=True)
+    return out
+
+
 def train_phase(dev, seed) -> dict:
     """The distributed step over a one-rank ``cpu:gloo,cuda:nccl`` group
-    on a loopback port: the five configurations at full width, then the
-    smoke steps card vs host.  Returns the kernels' launches over the
-    full-width steps (the main path's count)."""
+    on a loopback port: the five configurations at full width, the four
+    knob configurations, the n_client = 4 draws, then the smoke steps card
+    vs host.  Returns the kernels' launches over the full-width steps (the
+    main path's count)."""
     import torch.distributed as dist
     from repro_torch.dist import sharding as sh
     from repro_torch.launch import mesh as mesh_lib
@@ -2116,7 +2318,12 @@ def train_phase(dev, seed) -> dict:
                 results[f"{name} lr {TRAIN_FALL_LR}"] = _train_config(
                     dev, seed, cfg, mesh, toks, name, fields, path, totals,
                     lr=TRAIN_FALL_LR)
+        for name, fields, path in TRAIN_KNOB_CONFIGS:
+            results[name] = _train_config(dev, seed, cfg, mesh, toks, name,
+                                          fields, path, totals,
+                                          lr=TRAIN_KNOB_LR, optimizer="sgd")
         _expect_free_card("after the train steps")
+        results["mesh_draws"] = mesh_draws(dev, cfg)
         print("train_step " + json.dumps(results))
         _train_smoke(dev, mesh, seed)
     finally:

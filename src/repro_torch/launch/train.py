@@ -29,6 +29,17 @@ group a AND aggregator a.  One step:
 With ``fsa=False`` the FedAvg schedule runs instead: an all-reduce mean of
 the gradients and a replicated optimizer.
 
+The scenario and async knobs (the ``rounds.scenarios`` matrix on the mesh
+wire) ride the same step, leaf by leaf in the reference's order: LDP
+(each rank's whole gradient clipped to global L2, Gaussian noise per
+leaf), the pairwise secure mask, DSC, the wire with the failure-weighted
+receive (dead aggregators, dead links) or the arrival weights, Eq. 4,
+the FedBuff buffer fold and its cadence gate, the optimizer.  Every draw
+is keyed on the replicated round key, so all ranks agree on who failed
+or arrived (:func:`failure_draws`, :func:`arrival_draws`); the per-leaf
+draws (:func:`ldp_noise`, :func:`mask_row`) are taken
+:data:`random.CHUNK` coordinates at a time, straight into the leaf.
+
 The reference's step is a pure function that ``jit`` may donate its
 state to (``lower_train_step`` jits it with ``donate_argnums=(0, 1,
 2)``).  Here the step consumes its state the same way: it writes each new
@@ -39,10 +50,9 @@ passes copies.  Its arithmetic follows the reference's dtypes (JAX's
 promotion, ``optim/optimizers.py``) and, where XLA fuses a multiply-add
 (the DSC shift updates), its single rounding.
 
-The model and pipe axes (queue 1.10), the scenario and async knobs of
-``TrainSettings`` (1.7), the adversary-view tap (1.8) and the lowering
-for accounting (1.12) raise ``NotImplementedError`` naming their ROADMAP
-queue.
+The model and pipe axes (queue 1.10), the adversary-view tap (1.8) and
+the lowering for accounting (1.12) raise ``NotImplementedError`` naming
+their ROADMAP queue.
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --smoke --steps 4 [--dsc] [--int8-wire]
@@ -52,20 +62,28 @@ queue.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch import DeviceLike, random, resolve_device
 from repro_torch.convert import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core import baselines as bl
+from repro_torch.core import secure_agg as sa
 from repro_torch.core.compressors import RandP, scale_by_reciprocal
 from repro_torch.core.dsc import fma_shift
+from repro_torch.core.eris import ROLE_SALTS
 from repro_torch.core.fsa import mean_rows as _mean_rows
-from repro_torch.core.pipeline import DSCCompress
+from repro_torch.core.pipeline import (ARRIVAL_SALT, PAIRWISE_SALT,
+                                       ArrivalModel, CohortSample,
+                                       DSCCompress, split_round_keys)
+from repro_torch.core.settings import AsyncSettings, resolve_async
 from repro_torch.dist import sharding as sh
 from repro_torch.kernels import dsc_quantize as dq_kernel
 from repro_torch.kernels import quantize as q_kernel
+from repro_torch.kernels.ref import fma_f32
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer
@@ -87,20 +105,39 @@ class TrainSettings:
     remat: bool = True
     fsa: bool = True                 # False => FedAvg all-reduce baseline
     capture_views: bool = False      # adversary-view tap (queue 1.8)
-    # ---- buffered async aggregation (queue 1.7)
+    # ---- FedBuff-style buffered async aggregation: arrivals fold
+    # staleness-weighted updates into a per-segment buffer riding the DSC
+    # state tree; params and optimizer apply every buffer_cadence rounds.
+    # The flat fields are the deprecated spelling of
+    # core.settings.AsyncSettings; a knob set in both places to different
+    # values raises naming the field.
     async_buffer: bool = False
     buffer_cadence: int = 1
     staleness_alpha: float = 1.0
     delay_max: int = 0
     client_dropout: float = 0.0
-    async_: Optional[Any] = None
-    # ---- composed-defense / failure knobs (queue 1.7)
-    ldp_eps: float = 0.0
-    ldp_delta: float = 1e-5
+    async_: Optional[AsyncSettings] = None
+    # ---- composed-defense / failure knobs (the rounds.scenarios matrix
+    # on the mesh wire)
+    ldp_eps: float = 0.0             # >0: per-client L2 clip + Gaussian
+    ldp_delta: float = 1e-5          # noise before transmission
     ldp_clip: float = 1.0
-    secure_mask: bool = False
-    agg_dropout: float = 0.0
-    link_failure: float = 0.0
+    secure_mask: bool = False        # Bonawitz pairwise wire masking
+    agg_dropout: float = 0.0         # aggregator dropout (Appendix F.5)
+    link_failure: float = 0.0        # client->aggregator link failure
+
+    def async_settings(self) -> AsyncSettings:
+        """The resolved async-runtime knobs (shared with FLConfig)."""
+        return resolve_async("TrainSettings", self.async_, self)
+
+    def arrival_model(self) -> ArrivalModel:
+        return self.async_settings().arrival_model()
+
+    def ldp_config(self) -> Optional[bl.LDPConfig]:
+        if self.ldp_eps <= 0:
+            return None
+        return bl.LDPConfig(eps=self.ldp_eps, delta=self.ldp_delta,
+                            clip=self.ldp_clip)
 
 
 def dsc_stage(settings: TrainSettings) -> DSCCompress:
@@ -110,12 +147,14 @@ def dsc_stage(settings: TrainSettings) -> DSCCompress:
                        gamma=settings.dsc_gamma)
 
 
-def cohort_batch(batch, key, population: int, n_client: int):
-    """Population-scale cohort selection needs ``CohortSample``: ROADMAP
-    queue 1.7."""
-    raise NotImplementedError(
-        "cohort_batch: CohortSample (population-scale cohorts) is not "
-        "ported yet: ROADMAP queue 1.7")
+def cohort_batch(batch, key: torch.Tensor, population: int, n_client: int):
+    """Population-scale cohort selection for the distributed step: the
+    keyed :class:`CohortSample` draw the simulator runs inside its
+    rounds, applied to population-leading batch arrays, so the step's
+    client-axis rows are the drawn cohort.  Returns ``(cohort_ids,
+    gathered_batch)``."""
+    cs = CohortSample(population=population, cohort=n_client)
+    return cs.gather(split_round_keys(key), batch)
 
 
 def lower_train_step(*args, **kwargs):
@@ -126,18 +165,23 @@ def lower_train_step(*args, **kwargs):
         "yet (it parses XLA HLO): ROADMAP queue 1.12")
 
 
-def _validate(settings: TrainSettings) -> None:
-    """The reference's validation errors, word for word where they apply,
-    then NotImplementedError for each knob the port does not run yet."""
+def _validate(settings: TrainSettings) -> AsyncSettings:
+    """The reference's validation errors in its order, word for word, then
+    NotImplementedError for each knob the port does not run yet.  Returns
+    the resolved async settings."""
     if settings.async_buffer and settings.use_dsc:
         raise ValueError(
             "async_buffer does not compose with use_dsc: the Eq. 4 shift "
             "state tracks per-round aggregator receipts, which a cadence-"
             "delayed buffered apply breaks (int8_wire is the stateless "
             "wire format that does compose)")
-    ldp = settings.ldp_eps > 0
+    # one validation surface for the async knobs (shared with FLConfig):
+    # raises naming the offending or conflicting field
+    async_cfg = settings.async_settings()
+    ldp = settings.ldp_config()
     failures = settings.agg_dropout > 0 or settings.link_failure > 0
-    if (ldp or settings.secure_mask or failures) and not settings.fsa:
+    if (ldp is not None or settings.secure_mask or failures) \
+            and not settings.fsa:
         raise ValueError(
             "ldp/secure_mask/agg_dropout/link_failure are FSA wire "
             "compositions; fsa=False has no per-aggregator wire to "
@@ -154,7 +198,7 @@ def _validate(settings: TrainSettings) -> None:
                 "secure_mask needs grad_dtype='float32': the fixed-point "
                 "pairwise masks cancel exactly in f32 partial sums; a "
                 "bf16 wire would round them into O(1) noise")
-        if failures or settings.client_dropout > 0:
+        if failures or async_cfg.arrival_model().dropout > 0:
             raise ValueError(
                 "secure_mask cannot compose with failures/client dropout: "
                 "pairwise masks cancel only in the full-cohort sum (the "
@@ -165,14 +209,6 @@ def _validate(settings: TrainSettings) -> None:
             "step; the async buffered runtime models client dropout "
             "through its ArrivalModel instead")
     unported = [
-        ("ldp_eps > 0", ldp, "1.7"),
-        ("secure_mask", settings.secure_mask, "1.7"),
-        ("agg_dropout > 0", settings.agg_dropout > 0, "1.7"),
-        ("link_failure > 0", settings.link_failure > 0, "1.7"),
-        ("async_buffer", settings.async_buffer, "1.7"),
-        ("async_", settings.async_ is not None, "1.7"),
-        ("client_dropout > 0", settings.client_dropout > 0, "1.7"),
-        ("delay_max > 0", settings.delay_max > 0, "1.7"),
         ("capture_views", settings.capture_views, "1.8"),
         ("microbatches > 1", settings.microbatches > 1, "1.10"),
     ]
@@ -186,6 +222,7 @@ def _validate(settings: TrainSettings) -> None:
                          f"{sorted(sh.FLOAT_DTYPES)}, got "
                          f"{settings.grad_dtype!r}")
     sh.shift_state_dtype(settings.shift_dtype)
+    return async_cfg
 
 
 # ------------------------------------------------------------ state trees
@@ -219,7 +256,7 @@ def abstract_train_state(cfg: ModelConfig, mesh, opt: Optimizer,
     """Meta tensors (shape and dtype, no storage) of this rank's
     ``(params_stored, opt_state, dsc_ref)``: the reference's
     ``ShapeDtypeStruct``s cut to one position (store shards; adam's step
-    count replicated)."""
+    count and the buffer's w and t replicated)."""
     n_client = sh.client_count(mesh)
     dtype = sh.FLOAT_DTYPES[cfg.dtype]
     dims = _scatter_dims(cfg, mesh, settings)
@@ -234,21 +271,36 @@ def abstract_train_state(cfg: ModelConfig, mesh, opt: Optimizer,
 def _dsc_tree(full: dict, stored: dict, settings: TrainSettings, device):
     """This rank's DSC state: its own client shift s_k (a ``(1, *shape)``
     block of the client-stacked global, full leaf shapes) and s_agg on its
-    own store segments; without DSC a tree of f32 scalar placeholders."""
+    own store segments; without DSC a tree of f32 scalar placeholders.
+    With ``async_buffer`` that tree is ``{"dsc": ..., "buffer": {"u", "w",
+    "t"}}``: the FedBuff accumulator u, f32 in the store layout (each rank
+    buffers its own segments), and the replicated weight w (f32) and round
+    count t (int32), kept on the host as adam's step count is (the step
+    reads t to decide its cadence)."""
     if not settings.use_dsc:
-        return tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+        tree = tree_map(lambda p: torch.zeros((), dtype=torch.float32,
                                               device=device), full)
-    sdt = sh.shift_state_dtype(settings.shift_dtype)
-    return {"s_clients": tree_map(lambda p: torch.zeros(
-                (1, *p.shape), dtype=sdt, device=device), full),
-            "s_agg": tree_map(lambda p: torch.zeros(
-                p.shape, dtype=sdt, device=device), stored)}
+    else:
+        sdt = sh.shift_state_dtype(settings.shift_dtype)
+        tree = {"s_clients": tree_map(lambda p: torch.zeros(
+                    (1, *p.shape), dtype=sdt, device=device), full),
+                "s_agg": tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=sdt, device=device), stored)}
+    if not settings.async_buffer:
+        return tree
+    host = "meta" if str(device) == "meta" else "cpu"
+    return {"dsc": tree, "buffer": {
+        "u": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=device), stored),
+        "w": torch.zeros((), dtype=torch.float32, device=host),
+        "t": torch.zeros((), dtype=torch.int32, device=host)}}
 
 
 def init_dsc_state(cfg: ModelConfig, mesh, settings: TrainSettings,
                    device: DeviceLike = None):
-    """This rank's zero DSC shift state (see :func:`abstract_train_state`)
-    on ``device`` (the CUDA card unless the caller asks for the CPU)."""
+    """This rank's zero DSC shift state, and the empty FedBuff buffer with
+    ``async_buffer`` (see :func:`_dsc_tree`), on ``device`` (the CUDA card
+    unless the caller asks for the CPU)."""
     device = resolve_device(device)
     n_client = sh.client_count(mesh)
     aidx = _rank(mesh)
@@ -258,6 +310,64 @@ def init_dsc_state(cfg: ModelConfig, mesh, settings: TrainSettings,
     stored = tree_map(lambda x, d: sh.store_shard(x, d, n_client, aidx),
                       full, dims)
     return _dsc_tree(full, stored, settings, device)
+
+
+# ------------------------------------------------------ the round's draws
+# Each is a function of the replicated round key, so that every rank draws
+# the same failures and arrivals; the per-leaf draws fold the leaf index
+# (and the rank where each client draws its own).
+def failure_draws(key: torch.Tensor, n_client: int, agg_dropout: float,
+                  link_failure: float):
+    """Appendix F.5 on the mesh: ``(agg_alive (n,), link_alive (n, n)
+    [client k, aggregator a], link_cnt (n,))``, f32 on the host, from
+    ``split(fold_in(key, ROLE_SALTS["fail"]))``.  A dead link zeroes
+    client k's share of aggregator a's segment, which renormalizes by its
+    live-receipt count ``max(sum_k link_alive[k, a], 1)``."""
+    ka, kl = random.split(random.fold_in(key, ROLE_SALTS["fail"]))
+    agg_alive = random.bernoulli(ka, 1.0 - agg_dropout, (n_client,)).float()
+    link_alive = random.bernoulli(kl, 1.0 - link_failure,
+                                  (n_client, n_client)).float()
+    return agg_alive, link_alive, torch.clamp(link_alive.sum(0), min=1.0)
+
+
+def arrival_draws(key: torch.Tensor, n_client: int, arrival: ArrivalModel):
+    """The async arrivals: ``(tau, alive, omega, w_round)`` on the host,
+    the simulator's ``ArrivalModel`` draw on ``fold_in(key,
+    ARRIVAL_SALT)`` (no rank fold: every rank must agree on who arrived),
+    and the round's arrival mass ``omega.mean()`` (XLA's CPU mean)."""
+    tau, alive, omega = arrival.draw(random.fold_in(key, ARRIVAL_SALT),
+                                     n_client)
+    return tau, alive, omega, _mean_rows(omega)
+
+
+def ldp_noise(key: torch.Tensor, i: int, aidx: int, shape: tuple, *,
+              device=None, window: Optional[tuple] = None) -> torch.Tensor:
+    """Rank ``aidx``'s Gaussian noise for leaf ``i``: ``normal(fold_in(
+    fold_in(key, ROLE_SALTS["noise"] + i), aidx), shape)``, f32, the
+    flat elements [lo, hi) with a ``window``."""
+    k = random.fold_in(random.fold_in(key, ROLE_SALTS["noise"] + i), aidx)
+    return random.normal(k, shape, device=device, window=window)
+
+
+def mask_row(key: torch.Tensor, i: int, aidx: int, n_client: int, n: int, *,
+             device=None, window: Optional[tuple] = None) -> torch.Tensor:
+    """Rank ``aidx``'s pairwise secure mask for leaf ``i`` of ``n``
+    elements: its row of the fixed-point grid keyed on ``fold_in(fold_in(
+    key, PAIRWISE_SALT), i)``; the rows of all ranks sum to exactly zero.
+    f32, the flat elements [lo, hi) with a ``window``."""
+    k = random.fold_in(random.fold_in(key, PAIRWISE_SALT), i)
+    return sa.pairwise_mask_row(k, aidx, n_client, n, device=device,
+                                window=window)
+
+
+def _weighted_rows(w: list, rows: torch.Tensor) -> torch.Tensor:
+    """``einsum("k,km->m", w, rows)`` for f32 rows and f32 weights, as
+    XLA's CPU compiler computes it: a chain of f32 fused multiply-adds
+    over k, from zero."""
+    acc = rows[0] * w[0]
+    for k in range(1, len(w)):
+        acc = fma_shift(w[k], rows[k], acc)
+    return acc
 
 
 # ------------------------------------------------------- tree plumbing
@@ -352,9 +462,14 @@ class _Wire:
                         group=self.group)
         return sh.merge_shards(rows, dim, shape, self.n)
 
-    def reduce_scatter(self, g: torch.Tensor, dim: int) -> torch.Tensor:
-        """``psum_scatter(g, scatter_dimension=dim, tiled=True)``."""
-        rows = sh.split_shards(g, dim, self.n).contiguous()
+    def reduce_scatter(self, g: torch.Tensor, dim: int,
+                       row_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``psum_scatter(g, scatter_dimension=dim, tiled=True)``; with
+        ``row_w`` (n,) in g's dtype, segment a is scaled by ``row_w[a]``
+        before the collective (the failure-injected reduce-scatter)."""
+        rows = sh.split_shards(g, dim, self.n)
+        rows = (rows * row_w.to(rows.device)[:, None] if row_w is not None
+                else rows.contiguous())
         out = rows.new_empty(rows.shape[1:])
         dist.reduce_scatter(out, list(rows.unbind(0)), group=self.group)
         shape = list(g.shape)
@@ -374,12 +489,13 @@ class _Wire:
         return out
 
     def int8_exchange(self, v: torch.Tensor, dim: int, seed: int,
-                      need_round_trip: bool):
+                      need_round_trip: bool, rx_w: Optional[list] = None,
+                      omega: Optional[list] = None):
         """The int8 reduce-scatter of one leaf (the reference's
         ``_int8_wire_exchange``): :func:`int8_payload`, codes and scales
-        exchanged, what arrives dequantized and averaged.  Returns (my
-        segment's mean, f32, in the store shard's shape; the full leaf's
-        local round trip or None)."""
+        exchanged, what arrives dequantized and reduced (:meth:`_receive`).
+        Returns (my segment's reduction, f32, in the store shard's shape;
+        the full leaf's local round trip or None)."""
         n = self.n
         lay = sh.wire_layout_for(tuple(v.shape), n)
         q, scale = int8_payload(v, dim, n, seed)
@@ -388,20 +504,26 @@ class _Wire:
             v_hat = sh.merge_shards(
                 q_kernel.dequantize(q.view(-1), scale.view(-1))
                 .view(n, -1)[:, :lay.shard_elems], dim, tuple(v.shape), n)
-        return self._receive(q, scale, lay, dim, tuple(v.shape)), v_hat
+        return self._receive(q, scale, lay, dim, tuple(v.shape), rx_w,
+                             omega), v_hat
 
     def fused_exchange(self, g: torch.Tensor, s: torch.Tensor, dim: int,
                        seed_mask: int, seed_round: int, p: float,
-                       gamma: float):
+                       gamma: float, rx_w: Optional[list] = None):
         """The int8+DSC wire of one leaf (the reference's
         ``_fused_wire_exchange``): :func:`fused_payload`, then the
-        exchange.  Returns (my segment's mean, s_new in s's dtype)."""
+        exchange.  Returns (my segment's reduction, s_new in s's dtype)."""
         lay = sh.wire_layout_for(tuple(g.shape), self.n)
         q, scale, s_new = fused_payload(g, s, dim, self.n, seed_mask,
                                         seed_round, p, gamma)
-        return self._receive(q, scale, lay, dim, tuple(g.shape)), s_new
+        return self._receive(q, scale, lay, dim, tuple(g.shape),
+                             rx_w), s_new
 
-    def _receive(self, q, scale, lay, dim, shape):
+    def _receive(self, q, scale, lay, dim, shape, rx_w=None, omega=None):
+        """The exchange and the aggregator's reduction of the rows it
+        receives: their mean; with ``rx_w`` the failure-weighted sum (live
+        links renormalized by their count, zero at a dead aggregator);
+        with ``omega`` the arrival-weighted sum over n_client."""
         n, m, mp = self.n, lay.shard_elems, lay.padded_elems
         q_rx = self.all_to_all(q)
         s_rx = self.all_to_all(scale)
@@ -409,7 +531,13 @@ class _Wire:
         rx = q_kernel.dequantize(q_rx.view(-1), s_rx.view(-1)).view(n, mp)
         shard_shape = list(shape)
         shard_shape[dim] //= n
-        return _mean_rows(rx[:, :m]).view(shard_shape)
+        if rx_w is not None:
+            my = _weighted_rows(rx_w, rx[:, :m])
+        elif omega is not None:
+            my = scale_by_reciprocal(_weighted_rows(omega, rx[:, :m]), n)
+        else:
+            my = _mean_rows(rx[:, :m])
+        return my.view(shard_shape)
 
 
 # ------------------------------------------------------------- the step
@@ -424,18 +552,19 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
     * ``params_stored``: this rank's store shards (:func:`store_params`);
     * ``opt_state``: ``opt.init(params_stored)``, mirroring it leaf for
       leaf (scalars replicated);
-    * ``dsc_ref``: :func:`init_dsc_state`'s tree;
+    * ``dsc_ref``: :func:`init_dsc_state`'s tree (with ``async_buffer``,
+      the DSC tree and the FedBuff buffer);
     * ``batch``: the GLOBAL batch; the step takes rows
       [a B / n, (a + 1) B / n) of each leaf, as ``P(caxis)`` does;
     * ``key``: the round key (``repro_torch.random``), replicated.
 
     The tensors live on ``device``, the CUDA card unless the caller asks
     for the CPU.  ``mark(name)``, when given, is called as each part of
-    the step begins ("gather", "gradient", "wire", "optimizer") and with
-    "end" after the last: a hook for timing."""
+    the step begins ("gather", "gradient", "ldp" with LDP on, "wire",
+    "optimizer") and with "end" after the last: a hook for timing."""
     if cfg.attn_batch_shard:
         cfg = dataclasses.replace(cfg, attn_batch_shard=False)
-    _validate(settings)
+    async_cfg = _validate(settings)
     device = resolve_device(device)
     wire = _Wire(mesh)
     n_client, aidx = wire.n, wire.aidx
@@ -444,6 +573,12 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
     grad_dtype = sh.FLOAT_DTYPES[settings.grad_dtype]
     stage = dsc_stage(settings) if settings.use_dsc else None
     note = mark or (lambda name: None)
+    ldp = settings.ldp_config()
+    sigma = (float(np.float32(bl.gaussian_sigma(ldp.eps, ldp.delta,
+                                                ldp.clip)))
+             if ldp is not None else None)
+    failures = settings.agg_dropout > 0 or settings.link_failure > 0
+    arrival = async_cfg.arrival_model()
 
     def wire_seed(key, i: int) -> int:
         k = random.fold_in(random.fold_in(key, WIRE_SALT + i), aidx)
@@ -464,12 +599,54 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
             out[name] = x[aidx * b:(aidx + 1) * b]
         return out
 
-    def aggregate_leaf(i: int, g, dim: int, s_slot, key):
+    def clip_scale(grads: list) -> float:
+        """LDP's clip factor of this rank's whole gradient: ``minimum(1,
+        clip / maximum(sqrt(sum_i sum(g_i ** 2)), 1e-12))`` in f32, each
+        leaf's sum in XLA's CPU order (``random.reduce_sum``), the leaves
+        added in order."""
+        gn2 = torch.zeros((), dtype=torch.float32, device=device)
+        for g in grads:
+            gn2 = gn2 + random.reduce_sum(torch.square(g.float()).view(-1))
+        gn = np.maximum(np.sqrt(np.float32(float(gn2))), np.float32(1e-12))
+        return float(np.minimum(np.float32(1.0), np.float32(ldp.clip) / gn))
+
+    def perturb_leaf(g: torch.Tensor, i: int, key,
+                     clip_s: float) -> torch.Tensor:
+        """LDP on leaf i, in place where g is contiguous: ``g * clip_s +
+        sigma * noise`` in f32 (one FMA, as XLA compiles it), rounded to
+        g's dtype."""
+        g = g.contiguous()
+        flat = g.view(-1)
+        for lo in range(0, flat.numel(), random.CHUNK):
+            hi = min(flat.numel(), lo + random.CHUNK)
+            noise = ldp_noise(key, i, aidx, tuple(g.shape), device=g.device,
+                              window=(lo, hi)).mul_(sigma)
+            flat[lo:hi] = fma_f32(clip_s, flat[lo:hi].float(),
+                                  noise).to(g.dtype)
+            del noise
+        return g
+
+    def mask_leaf(g: torch.Tensor, i: int, key) -> torch.Tensor:
+        """The secure mask on leaf i, in place where g is contiguous: this
+        rank's row, cast to g's dtype, added (so a 16-bit leaf's rows no
+        longer cancel)."""
+        g = g.contiguous()
+        flat = g.view(-1)
+        for lo in range(0, flat.numel(), random.CHUNK):
+            hi = min(flat.numel(), lo + random.CHUNK)
+            flat[lo:hi] += mask_row(key, i, aidx, n_client, flat.numel(),
+                                    device=g.device,
+                                    window=(lo, hi)).to(g.dtype)
+        return g
+
+    def aggregate_leaf(i: int, g, dim: int, s_slot, key, fail, rx_w, omega):
         """Leaf i's compression and exchange (the reference's loop body,
-        :523-634): this aggregator's mean of its segment, or of the whole
-        leaf where it has no scatter dim.  Writes client shift s_k's new
-        leaf into its slot ``s_slot`` of ``dsc_ref``."""
+        :523-634): this aggregator's reduction of its segment, or of the
+        whole leaf where it has no scatter dim.  Writes client shift s_k's
+        new leaf into its slot ``s_slot`` of ``dsc_ref``."""
         int8 = settings.int8_wire and settings.fsa and dim >= 0
+        if settings.secure_mask:
+            g = mask_leaf(g, i, key)
         if stage is not None:
             k = random.fold_in(random.fold_in(key, i), aidx)
             box, name = s_slot
@@ -477,7 +654,7 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
             if int8 and settings.fused_wire:
                 agg, s_new = wire.fused_exchange(
                     g, s, dim, int(random.bits(k)), wire_seed(key, i),
-                    settings.dsc_p, settings.dsc_gamma)
+                    settings.dsc_p, settings.dsc_gamma, rx_w=rx_w)
                 box[name] = s_new[None]
                 return agg
             if int8:
@@ -485,7 +662,8 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
                 # what the aggregators actually receive
                 v = stage.compressor(k, g.to(s.dtype) - s)
                 agg, v_hat = wire.int8_exchange(v, dim, wire_seed(key, i),
-                                                need_round_trip=True)
+                                                need_round_trip=True,
+                                                rx_w=rx_w)
                 del v
                 box[name] = fma_shift(stage.gamma, v_hat, s)[None]
                 return agg
@@ -495,19 +673,78 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
             del v, s_new, s
         if int8:
             return wire.int8_exchange(g, dim, wire_seed(key, i),
-                                      need_round_trip=False)[0]
+                                      need_round_trip=False, rx_w=rx_w,
+                                      omega=omega)[0]
+        if omega is not None:
+            # each rank is one client: its arrival weight discounts its
+            # own contribution before the reduce
+            g = g * torch.tensor(omega[aidx], dtype=g.dtype)
         g = g.to(grad_dtype)
         if settings.fsa and dim >= 0:
+            if fail is not None:
+                # the failure-injected reduce-scatter: segment a scaled by
+                # link_alive[aidx, a] / link_cnt[a] before the collective
+                # (the sum lands as the renormalized mean over live
+                # receipts), then zeroed at a dead aggregator; no 1/n
+                agg_alive, link_alive, link_cnt = fail
+                g = wire.reduce_scatter(
+                    g, dim, row_w=(link_alive[aidx] / link_cnt).to(g.dtype))
+                return g * agg_alive[aidx].to(g.dtype)
             g = wire.reduce_scatter(g, dim)
         else:
             g = wire.all_reduce(g)
         return scale_by_reciprocal(g, n_client)      # jnp's g / n_client
+
+    def fold(buf: dict, out: list, w_round) -> bool:
+        """The FedBuff fold and cadence gate (the reference's :652-675):
+        ``u += w_r g`` per leaf (one FMA) and ``w += w_r``; on an apply
+        round (t + 1 a multiple of the cadence, decided on the host from
+        t) ``out`` becomes ``u / max(w, 1e-12)`` and the buffer empties;
+        otherwise ``out`` is emptied and nothing is applied.  Trivial
+        arrivals and cadence 1 make this the identity (0 + 1.0 g, u /
+        1.0).  Returns whether this round applies."""
+        w_r = 1.0 if w_round is None else float(w_round)
+        t_new = int(buf["t"]) + 1
+        apply = t_new % async_cfg.buffer_cadence == 0
+        w_acc = np.float32(float(buf["w"])) + np.float32(w_r)
+        denom = torch.tensor(max(w_acc, np.float32(1e-12)),
+                             dtype=torch.float32, device=device)
+        for i, (box, name) in enumerate(_slots(buf["u"])):
+            u = fma_shift(w_r, out[i].float(), box[name])
+            out[i] = None
+            if apply:
+                out[i] = u / denom
+                u.zero_()
+            box[name] = u
+            del u
+        buf["w"] = torch.tensor(0.0 if apply else w_acc,
+                                dtype=torch.float32)
+        buf["t"] = torch.tensor(t_new, dtype=torch.int32)
+        return apply
 
     def step(params_stored, opt_state, dsc_ref, batch, key):
         slots = _slots(params_stored)
         if len(slots) != len(dims):
             raise ValueError(f"params_stored has {len(slots)} leaves, the "
                              f"config {len(dims)}")
+        state, buf = dsc_ref, None
+        if settings.async_buffer:
+            state, buf = dsc_ref["dsc"], dsc_ref["buffer"]
+        # the round's draws, on the host, the same on every rank
+        omega = w_round = None
+        if settings.async_buffer and not arrival.trivial:
+            _, _, omega_t, w_round = arrival_draws(key, n_client, arrival)
+            omega = [float(x) for x in omega_t]
+        fail = rx_w = None
+        if failures:
+            fail = failure_draws(key, n_client, settings.agg_dropout,
+                                 settings.link_failure)
+            agg_alive, link_alive, link_cnt = fail
+            # the failure-weighted receive: aggregator aidx weights each
+            # received row by its live link, renormalized by the live
+            # count, and zero everywhere when it died itself
+            rx_w = [float(x) for x in link_alive[:, aidx] * agg_alive[aidx]
+                    / link_cnt[aidx]]
 
         # 1. the FSA broadcast
         note("gather")
@@ -524,55 +761,52 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
         loss_val = scale_by_reciprocal(             # pmean: psum / n
             wire.all_reduce(loss.detach().float().reshape(1))[0], n_client)
         del loss
+        if ldp is not None:
+            # LDP, client-side: the whole gradient's norm before any leaf
+            # is perturbed, then each leaf clipped and noised in place
+            note("ldp")
+            clip_s = clip_scale(grads)
+            for i in range(len(grads)):
+                grads[i] = perturb_leaf(grads[i], i, key, clip_s)
 
-        # 3-4. compression and the FSA aggregation, leaf by leaf; each
-        # gradient is dropped as soon as its segment has arrived
+        # 3-4. the defenses, compression and the FSA aggregation, leaf by
+        # leaf; each gradient is dropped as soon as its segment has arrived
         note("wire")
-        s_slots = (_slots(dsc_ref["s_clients"]) if settings.use_dsc
+        s_slots = (_slots(state["s_clients"]) if settings.use_dsc
                    else [None] * len(dims))
         out: list = [None] * len(grads)
         for i, (dim, s_slot) in enumerate(zip(dims, s_slots)):
             g, grads[i] = grads[i], None
-            out[i] = aggregate_leaf(i, g, dim, s_slot, key)
+            out[i] = aggregate_leaf(i, g, dim, s_slot, key, fail, rx_w,
+                                    omega)
             del g
         del grads
 
         if settings.use_dsc:
             # Eq. 4 compensation on this aggregator's own segments:
             # u = s_agg + mean_k v_k;  s_agg <- s_agg + gamma (u - s_agg)
-            for i, (box, name) in enumerate(_slots(dsc_ref["s_agg"])):
+            for i, (box, name) in enumerate(_slots(state["s_agg"])):
                 s = box[name]
                 u = s + out[i].to(s.dtype)
                 box[name] = fma_shift(settings.dsc_gamma, u - s, s)
                 out[i] = u
                 del s, u
 
+        # the FedBuff buffer: a round that does not apply leaves params
+        # and optimizer state as they are, bit for bit (the reference
+        # computes the update and discards it)
+        apply = buf is None or fold(buf, out, w_round)
+
         # 5. the shard-local optimizer, leaf by leaf: leaf i's state is
         # the i-th leaf of each part that mirrors the parameters, with the
         # incoming scalars (adam's t); its successors go back in place
         note("optimizer")
-        parts = []
-        _map_parts(parts.append, opt_state)
-        part_slots = [_slots(part) for part in parts]
-        sq, piece = [], opt_state
-        for i, (box, name) in enumerate(slots):
-            p = box[name]
-            g, out[i] = out[i].to(p.dtype), None
-            sq.append(torch.sum(torch.square(g.float())))
-            cut = iter([b[k] for b, k in (ps[i] for ps in part_slots)])
-            delta, piece = opt.update({"x": g}, _map_parts(
-                lambda _: {"x": next(cut)}, opt_state), {"x": p})
-            del g, cut
-            new = []
-            _map_parts(new.append, piece)
-            for ps, leaf in zip(part_slots, new):
-                b, k = ps[i]
-                b[k] = leaf["x"]
-            box[name] = p + delta["x"]
-            del p, delta, new
-        whole = iter(parts)
-        new_state = _map_parts(lambda _: next(whole), piece)
-        gn2 = sum(sq)
+        sq, new_state = [], opt_state
+        if apply:
+            sq, new_state = _optimize(opt, slots, opt_state, out)
+        del out
+        gn2 = (sum(sq) if sq
+               else torch.zeros((), dtype=torch.float32, device=device))
         if settings.fsa:
             gn2 = wire.all_reduce(gn2.reshape(1))[0]
         metrics = {"loss": loss_val, "grad_norm": torch.sqrt(gn2)}
@@ -580,6 +814,33 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
         return params_stored, new_state, dsc_ref, metrics
 
     return step
+
+
+def _optimize(opt: Optimizer, slots: list, opt_state, out: list):
+    """The optimizer over the parameter leaves at ``slots``, one leaf at a
+    time, each new leaf written in place (params and the state's parts).
+    Returns (each update's squared f32 sum, the new state)."""
+    parts = []
+    _map_parts(parts.append, opt_state)
+    part_slots = [_slots(part) for part in parts]
+    sq, piece = [], opt_state
+    for i, (box, name) in enumerate(slots):
+        p = box[name]
+        g, out[i] = out[i].to(p.dtype), None
+        sq.append(torch.sum(torch.square(g.float())))
+        cut = iter([b[k] for b, k in (ps[i] for ps in part_slots)])
+        delta, piece = opt.update({"x": g}, _map_parts(
+            lambda _: {"x": next(cut)}, opt_state), {"x": p})
+        del g, cut
+        new = []
+        _map_parts(new.append, piece)
+        for ps, leaf in zip(part_slots, new):
+            b, k = ps[i]
+            b[k] = leaf["x"]
+        box[name] = p + delta["x"]
+        del p, delta, new
+    whole = iter(parts)
+    return sq, _map_parts(lambda _: next(whole), piece)
 
 
 def main(argv=None):  # pragma: no cover - thin CLI over the factories

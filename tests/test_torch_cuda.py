@@ -689,8 +689,16 @@ def _train_run(cfg, mesh, fields, device, steps, opt):
     dict(grad_dtype="float32"),
     dict(grad_dtype="float32", use_dsc=True, int8_wire=True),
     dict(grad_dtype="float32", int8_wire=True),
-    dict(grad_dtype="float32", use_dsc=True)],
-    ids=["fsa", "dsc_int8_fused", "int8", "dsc"])
+    dict(grad_dtype="float32", use_dsc=True),
+    dict(grad_dtype="float32", int8_wire=True, ldp_eps=8.0,
+         agg_dropout=0.25, link_failure=0.1),
+    dict(grad_dtype="float32", int8_wire=True, async_buffer=True,
+         buffer_cadence=2, client_dropout=0.25, delay_max=2),
+    dict(grad_dtype="float32", use_dsc=True, dsc_p=0.5, int8_wire=True,
+         agg_dropout=0.25, link_failure=0.1),
+    dict(grad_dtype="float32", secure_mask=True)],
+    ids=["fsa", "dsc_int8_fused", "int8", "dsc", "ldp_int8+agg_fail",
+         "async_int8", "dsc_int8+agg_fail", "secure_agg"])
 def test_cuda_train_step_equals_the_host(cuda, nccl_rank, fields):
     """Two sgd steps of the distributed step on the one-rank NCCL group
     (kernels) and on the host (gloo, plain versions), eris-gptneo-1.3b's
@@ -712,6 +720,29 @@ def test_cuda_train_step_equals_the_host(cuda, nccl_rank, fields):
     hx = torch.cat([t.reshape(-1) for t in tree_leaves(host)])
     assert float((cx - hx).norm() / hx.norm()) <= 1e-4
     np.testing.assert_allclose(closs, hloss, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_train_draws_equal_the_host(cuda):
+    """The distributed step's per-leaf draws on the card: every rank's
+    mask row at n_client 4 equal to the host's bit for bit, on a window
+    past 2**24, the four summing to exactly zero; each rank's LDP noise
+    within 8 ulps of the host's."""
+    from repro_torch.launch import train
+    key, n, window = random.PRNGKey(3), 2**25 + 77, (2**24 - 5, 2**24 + 4099)
+    rows = []
+    for aidx in range(4):
+        card = train.mask_row(key, 5, aidx, 4, n, device=cuda, window=window)
+        host = train.mask_row(key, 5, aidx, 4, n, window=window)
+        assert torch.equal(card.cpu(), host)
+        rows.append(card)
+        z_card = train.ldp_noise(key, 5, aidx, (n,), device=cuda,
+                                 window=window).cpu()
+        z_host = train.ldp_noise(key, 5, aidx, (n,), window=window)
+        ulps = (z_card.view(torch.int32).long()
+                - z_host.view(torch.int32).long()).abs().max()
+        assert torch.equal(z_card.sign(), z_host.sign()) and int(ulps) <= 8
+    assert bool(((rows[0] + rows[1] + rows[2] + rows[3]) == 0).all())
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ The multi-rank step is ``tests/test_torch_train.py``.
 """
 import dataclasses
 import functools
+import importlib
 import types
 
 import jax
@@ -331,19 +332,10 @@ def test_make_host_mesh(group, monkeypatch):
 
 
 UNPORTED = [
-    ("ldp_eps", dict(ldp_eps=1.0), "1.7"),
-    ("secure_mask", dict(secure_mask=True, grad_dtype="float32"), "1.7"),
-    ("agg_dropout", dict(agg_dropout=0.1), "1.7"),
-    ("link_failure", dict(link_failure=0.1), "1.7"),
-    ("async_buffer", dict(async_buffer=True), "1.7"),
-    ("async_", dict(async_=object()), "1.7"),
-    ("client_dropout", dict(client_dropout=0.1), "1.7"),
-    ("delay_max", dict(delay_max=2), "1.7"),
     ("capture_views", dict(capture_views=True), "1.8"),
     ("microbatches", dict(microbatches=2), "1.10"),
 ]
 UNPORTED_CALLS = [
-    ("cohort_batch", lambda: train.cohort_batch({}, None, 8, 4), "1.7"),
     ("lower_train_step", lambda: train.lower_train_step(None, None), "1.12"),
     ("make_production_mesh", lambda: mesh_lib.make_production_mesh(),
      "1.10"),
@@ -366,6 +358,18 @@ def test_unported_paths_name_their_queue(what, call, queue):
         call()
 
 
+def _settings(package, fields):
+    """``package.TrainSettings(**fields)``, an ``async_`` dict made into
+    that package's ``AsyncSettings``."""
+    fields = dict(fields)
+    if "async_" in fields:
+        mod = ("repro.core.settings" if package is ref_train
+               else "repro_torch.core.settings")
+        fields["async_"] = importlib.import_module(mod).AsyncSettings(
+            **fields["async_"])
+    return package.TrainSettings(**fields)
+
+
 VALIDATION = [
     dict(async_buffer=True, use_dsc=True),
     dict(ldp_eps=1.0, fsa=False),
@@ -373,6 +377,11 @@ VALIDATION = [
     dict(secure_mask=True),                       # bf16 wire
     dict(secure_mask=True, grad_dtype="float32", agg_dropout=0.1),
     dict(agg_dropout=0.1, async_buffer=True),
+    # a flat knob that disagrees with the attached AsyncSettings
+    dict(client_dropout=0.1, async_=dict(client_dropout=0.2)),
+    # the resolved arrival dropout, not the flat field, refuses the mask
+    dict(secure_mask=True, grad_dtype="float32",
+         async_=dict(client_dropout=0.1)),
 ]
 
 
@@ -385,11 +394,123 @@ def test_validation_errors_are_the_references(fields):
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     with pytest.raises(ValueError) as ref_err:
         ref_train.make_train_step(ref_cfg, mesh, ref_opt.sgd(0.1),
-                                  ref_train.TrainSettings(**fields))
+                                  _settings(ref_train, fields))
     with pytest.raises(ValueError) as err:
         train.make_train_step(get_config("qwen2-0.5b").smoke(), None,
-                              opt_lib.sgd(0.1), train.TrainSettings(**fields))
+                              opt_lib.sgd(0.1), _settings(train, fields))
     assert str(err.value) == str(ref_err.value)
+
+
+# one knob of the scenario and async matrix a case, at one rank: its
+# field set, and the params' tolerance as a share of the motion (int8:
+# a code flips where a draw falls within an ulp of its fraction).  At
+# PRNGKey(0..2) the one-rank draws kill the aggregator at steps 2 and 3
+# (agg_dropout 0.5), the link at steps 1 and 2 (link_failure 0.5), and
+# drop the client at step 1 (client_dropout 0.25); measured 3.4e-6 to
+# 5.1e-6 of the motion, int8 1.1e-4 to 2.4e-4, LDP 9.2e-8.
+KNOBS = [
+    ("ldp_eps", dict(ldp_eps=8.0), 1e-5),
+    ("secure_mask", dict(secure_mask=True), 1e-5),
+    ("agg_dropout", dict(agg_dropout=0.5), 1e-5),
+    ("link_failure", dict(int8_wire=True, link_failure=0.5), 1e-3),
+    ("async_buffer", dict(int8_wire=True, async_buffer=True,
+                          buffer_cadence=2), 1e-3),
+    ("async_", dict(async_buffer=True,
+                    async_=dict(delay_max=1, client_dropout=0.25)), 1e-5),
+    ("client_dropout", dict(async_buffer=True, client_dropout=0.25), 1e-5),
+    ("delay_max", dict(async_buffer=True, delay_max=2, buffer_cadence=2),
+     1e-5),
+]
+
+
+def _one_rank_runs(fields, steps, opt_name="sgd", lr=0.05):
+    """``steps`` steps of the reference's step on one device and of the
+    port's on the one-rank gloo group (the group fixture's), from the same
+    params (f32 smoke config) and tokens, keys ``PRNGKey(i)``.  Returns
+    (params0's leaves, the reference's, the port's), each of the last two
+    (params leaves, DSC/buffer state, optimizer state, [(loss,
+    grad_norm)] a step)."""
+    cfg = get_config("qwen2-0.5b").smoke()
+    ref_cfg = ref_get_config("qwen2-0.5b").smoke()
+    from repro.models import transformer as ref_tr
+    params0 = ref_tr.init_params(jax.random.PRNGKey(1), ref_cfg)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (8, 32)).astype(
+        np.int32)
+    rmesh = ref_mesh.make_host_mesh(data=1, model=1)
+    ropt = getattr(ref_opt, opt_name)(lr)
+    rsettings = _settings(ref_train, fields)
+    rstep, shardings = ref_train.make_train_step(ref_cfg, rmesh, ropt,
+                                                 rsettings)
+    with rmesh:
+        rp = jax.device_put(params0, shardings["store"])
+        rs = ropt.init(rp)
+        rd = ref_train.init_dsc_state(ref_cfg, rmesh, rsettings)
+        jstep = jax.jit(rstep)
+        rm = []
+        for i in range(steps):
+            rp, rs, rd, m = jstep(rp, rs, rd, {"tokens": toks},
+                                  jax.random.PRNGKey(i))
+            rm.append((float(m["loss"]), float(m["grad_norm"])))
+    mesh = mesh_lib.make_host_mesh(device="cpu")
+    settings = _settings(train, fields)
+    opt = getattr(opt_lib, opt_name)(lr)
+    step = train.make_train_step(cfg, mesh, opt, settings, device="cpu")
+    params = train.store_params(params_from_jax(
+        jax.tree.map(np.asarray, params0), device="cpu"), cfg, mesh, settings)
+    state = opt.init(params)
+    dsc_ref = train.init_dsc_state(cfg, mesh, settings, device="cpu")
+    pm = []
+    for i in range(steps):
+        params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                         {"tokens": torch.from_numpy(toks)},
+                                         random.PRNGKey(i))
+        pm.append((float(m["loss"]), float(m["grad_norm"])))
+    return ([np.asarray(x) for x in jax.tree.leaves(params0)],
+            ([np.asarray(x) for x in jax.tree.leaves(rp)], rd, rs, rm),
+            ([x.numpy() for x in tree_leaves(params)], dsc_ref, state, pm))
+
+
+def _flat(leaves):
+    return np.concatenate([np.ravel(x) for x in leaves])
+
+
+@pytest.mark.parametrize("what,fields,tol", KNOBS,
+                         ids=[k for k, _, _ in KNOBS])
+def test_one_rank_knob_step_matches_reference(group, what, fields, tol):
+    """Three sgd steps with one scenario or async knob on, on the one-rank
+    gloo group, against the reference's step on one device: params within
+    ``tol`` of the motion, losses and grad norms within 1e-4 (a held
+    round's grad norm exactly 0 in both), and the FedBuff buffer: t and w
+    equal, u within ``tol`` of its norm."""
+    fields = dict(grad_dtype="float32", **fields)
+    p0, (rp, rd, _, rm), (pp, pd, _, pm) = _one_rank_runs(fields, 3)
+    want, got = _flat(rp), _flat(pp)
+    err = np.linalg.norm(got - want) / np.linalg.norm(want - _flat(p0))
+    assert err <= tol, f"{what}: params {err:.3e} of the motion"
+    np.testing.assert_allclose(pm, rm, rtol=1e-4, atol=0)
+    if fields.get("async_buffer"):
+        rbuf, pbuf = rd["buffer"], pd["buffer"]
+        assert int(pbuf["t"]) == int(rbuf["t"]) == 3
+        assert float(pbuf["w"]) == float(rbuf["w"])
+        ru = _flat(jax.tree.leaves(rbuf["u"]))
+        pu = _flat([x.numpy() for x in tree_leaves(pbuf["u"])])
+        assert np.linalg.norm(pu - ru) <= tol * np.linalg.norm(ru)
+    held = [i for i, (_, gn) in enumerate(rm) if gn == 0.0]
+    if what in ("agg_dropout", "async_buffer", "delay_max"):
+        assert held, f"{what}: no step held still"
+
+
+def test_cohort_batch_is_the_references():
+    """``cohort_batch`` draws the reference's cohort (ids and gathered
+    rows, bit for bit) from a population of 8 at n_client 4."""
+    toks = np.arange(8 * 3 * 5, dtype=np.int32).reshape(8, 3, 5)
+    ids, rows = ref_train.cohort_batch({"tokens": jnp.asarray(toks)},
+                                       jax.random.PRNGKey(7), 8, 4)
+    got_ids, got = train.cohort_batch({"tokens": torch.from_numpy(toks)},
+                                      random.PRNGKey(7), 8, 4)
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(ids))
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  np.asarray(rows["tokens"]))
 
 
 def test_one_rank_step_matches_reference(group):
@@ -398,49 +519,15 @@ def test_one_rank_step_matches_reference(group):
     one-rank gloo group against the reference's step on one device, from
     the same params (f32 smoke config; 1e-4 as the multi-rank test's
     int8 configurations), keys ``PRNGKey(i)``; then the state's dtypes."""
-    cfg = get_config("qwen2-0.5b").smoke()
-    ref_cfg = ref_get_config("qwen2-0.5b").smoke()
-    from repro.models import transformer as ref_tr
-    params0 = ref_tr.init_params(jax.random.PRNGKey(1), ref_cfg)
-    toks = np.random.default_rng(1).integers(0, cfg.vocab, (8, 32)).astype(
-        np.int32)
     fields = dict(grad_dtype="float32", use_dsc=True, int8_wire=True)
-    rmesh = ref_mesh.make_host_mesh(data=1, model=1)
-    ropt = ref_opt.adam(1e-2)
-    rstep, shardings = ref_train.make_train_step(
-        ref_cfg, rmesh, ropt, ref_train.TrainSettings(**fields))
-    with rmesh:
-        rp = jax.device_put(params0, shardings["store"])
-        rs = ropt.init(rp)
-        rd = ref_train.init_dsc_state(ref_cfg, rmesh,
-                                      ref_train.TrainSettings(**fields))
-        jstep = jax.jit(rstep)
-        rloss = []
-        for i in range(2):
-            rp, rs, rd, m = jstep(rp, rs, rd, {"tokens": toks},
-                                  jax.random.PRNGKey(i))
-            rloss.append(float(m["loss"]))
-    mesh = mesh_lib.make_host_mesh(device="cpu")
-    settings = train.TrainSettings(**fields)
-    opt = opt_lib.adam(1e-2)
-    step = train.make_train_step(cfg, mesh, opt, settings, device="cpu")
-    params = train.store_params(params_from_jax(
-        jax.tree.map(np.asarray, params0), device="cpu"), cfg, mesh, settings)
-    state = opt.init(params)
-    dsc_ref = train.init_dsc_state(cfg, mesh, settings, device="cpu")
-    loss = []
-    for i in range(2):
-        params, state, dsc_ref, m = step(params, state, dsc_ref,
-                                         {"tokens": torch.from_numpy(toks)},
-                                         random.PRNGKey(i))
-        loss.append(float(m["loss"]))
-    got = np.concatenate([x.numpy().ravel() for x in tree_leaves(params)])
-    want = np.concatenate([np.asarray(x).ravel()
-                           for x in jax.tree.leaves(rp)])
+    _, (rp, _, _, rm), (pp, dsc_ref, state, pm) = _one_rank_runs(
+        fields, 2, "adam", 1e-2)
+    got, want = _flat(pp), _flat(rp)
     assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
-    np.testing.assert_allclose(loss, rloss, rtol=1e-4)
+    np.testing.assert_allclose([m[0] for m in pm], [m[0] for m in rm],
+                               rtol=1e-4)
     assert [x.shape for x in tree_leaves(dsc_ref["s_clients"])] == [
-        (1, *x.shape) for x in tree_leaves(params)]
+        (1, *x.shape) for x in pp]
     assert int(state.t) == 2 and state.t.dtype == torch.int32
 
 
@@ -529,12 +616,15 @@ def test_train_settings_are_the_references():
 
 @pytest.mark.parametrize("n", [1, 4])
 @pytest.mark.parametrize("use_dsc", [False, True])
-def test_abstract_train_state_is_the_references_cut_to_one_rank(n, use_dsc):
+@pytest.mark.parametrize("async_buffer", [False, True])
+def test_abstract_train_state_is_the_references_cut_to_one_rank(
+        n, use_dsc, async_buffer):
     """This rank's shapes and dtypes of (params_stored, opt_state,
     dsc_ref): the reference's global ones with each sharded leaf cut to
-    1/n at its scatter dim (s_k: one block of the client stack)."""
+    1/n at its scatter dim (s_k: one block of the client stack; the
+    FedBuff buffer's u like the params, f32, its w and t scalars)."""
     arch = "qwen2-0.5b"
-    settings = dict(use_dsc=use_dsc)
+    settings = dict(use_dsc=use_dsc, async_buffer=async_buffer)
     rp, rs, rd = ref_train.abstract_train_state(
         ref_get_config(arch).smoke(), _ref_mesh(n), ref_opt.adam(1e-2),
         ref_train.TrainSettings(**settings))
@@ -554,6 +644,14 @@ def test_abstract_train_state_is_the_references_cut_to_one_rank(n, use_dsc):
 
     ref_p = [(cut(x.shape, d), str(x.dtype))
              for x, d in zip(jax.tree.leaves(rp), dims)]
+    if async_buffer:
+        rb, pb = rd["buffer"], pd["buffer"]
+        assert [meta(t) for t in tree_leaves(pb["u"])] == [
+            (cut(x.shape, d), str(x.dtype))
+            for x, d in zip(jax.tree.leaves(rb["u"]), dims)]
+        assert [meta(pb[k]) for k in "wt"] == [
+            ((), str(rb[k].dtype)) for k in "wt"]
+        rd, pd = rd["dsc"], pd["dsc"]
     assert [meta(t) for t in tree_leaves(pp)] == ref_p
     assert [meta(t) for t in tree_leaves(ps)] == \
         ref_p + ref_p + [((), "int32")]

@@ -184,6 +184,12 @@ REF_SCRIPT = textwrap.dedent("""
                 for i, x in enumerate(jax.tree.leaves(
                         jax.device_get(dsc[part]))):
                     out[f"{name}/{part}{i}"] = np.asarray(x, np.float32)
+        if settings.async_buffer:
+            buf = jax.device_get(dsc["buffer"])
+            for i, x in enumerate(jax.tree.leaves(buf["u"])):
+                out[f"{name}/buf_u{i}"] = np.asarray(x, np.float32)
+            out[f"{name}/buf_w"] = np.asarray(buf["w"], np.float32)
+            out[f"{name}/buf_t"] = np.asarray(buf["t"], np.int32)
         out[f"{name}/loss"] = np.asarray(loss)
         out[f"{name}/gnorm"] = np.asarray(gnorm)
         if name == spec["ckpt"]:
@@ -215,7 +221,12 @@ PORT_WORKER = textwrap.dedent("""
     mesh = make_host_mesh(device="cpu")
     rank, world = dist.get_rank(), dist.get_world_size()
     out, dtypes = {}, {}
-    for name, dtype, (opt_name, lr), fields, *_ in spec[str(world)]:
+    # the configurations both packages run, then those only the port runs;
+    # a configuration may take its own step count, and keep its params
+    # after every step
+    port_only = spec.get("port_only", {}).get(str(world), [])
+    for name, dtype, (opt_name, lr), fields, *_ in (spec[str(world)]
+                                                    + port_only):
         cfg = dataclasses.replace(get_config("qwen2-0.5b").smoke(),
                                   dtype=dtype)
         params0 = {}
@@ -236,11 +247,14 @@ PORT_WORKER = textwrap.dedent("""
         toks = raw["tokens"][:len(raw["tokens"]) // world * world]
         batch = {"tokens": torch.from_numpy(toks)}
         loss, gnorm = [], []
-        for i in range(spec["steps"]):
+        for i in range(spec.get("steps_of", {}).get(name, spec["steps"])):
             params, opt_state, dsc, m = step(params, opt_state, dsc, batch,
                                              random.PRNGKey(i))
             loss.append(float(m["loss"]))
             gnorm.append(float(m["grad_norm"]))
+            if name in spec.get("traj", ()):
+                for j, x in enumerate(tree_leaves(params)):
+                    out[f"{name}/p{j}@{i}"] = x.float().numpy()
         leaves = tree_leaves(params)
         dtypes[name] = [str(x.dtype).replace("torch.", "") for x in leaves]
         for i, x in enumerate(leaves):
@@ -249,6 +263,12 @@ PORT_WORKER = textwrap.dedent("""
             for part in ("s_clients", "s_agg"):
                 for i, x in enumerate(tree_leaves(dsc[part])):
                     out[f"{name}/{part}{i}"] = x.float().numpy()
+        if settings.async_buffer:
+            buf = dsc["buffer"]
+            for i, x in enumerate(tree_leaves(buf["u"])):
+                out[f"{name}/buf_u{i}"] = x.numpy()
+            out[f"{name}/buf_w"] = buf["w"].numpy()
+            out[f"{name}/buf_t"] = buf["t"].numpy()
         out[f"{name}/loss"] = np.asarray(loss)
         out[f"{name}/gnorm"] = np.asarray(gnorm)
         if name == spec["ckpt"]:
