@@ -4,9 +4,9 @@ CUDA kernels, holds each to its plain torch version, serves
 eris-gptneo-1.3b at full width, runs ERIS rounds of it and of qwen2-0.5b
 at full width, training through the flash-attention kernels, and runs
 the reference's default round (threefry DSC), the distributed FSA train
-step over NCCL with its scenario and async knobs, and the round matrix
-(the baselines, defenses, failures and async methods), on one NVIDIA
-card.
+step over NCCL with its scenario and async knobs, the round matrix (the
+baselines, defenses, failures and async methods), and the privacy audit
+of the step's captured wire, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -175,7 +175,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     method and every feasible scenario cell (the ``dsc_int8`` cells once
     more through the fused kernel, whose launches are counted) two rounds
     on the card and on the host from the same seeds, x within 1e-4.
-13. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+13. the privacy audit of the captured wire -- eris-gptneo-1.3b at full
+    width (bf16 params from ``--seed``, sgd lr 0.1) on a one-rank
+    ``cpu:gloo,cuda:nccl`` group, two steps with ``capture_views`` in (j)
+    the int8 wire and (k) DSC (p 1.0, gamma 0.5) on the fused int8 wire,
+    8 x 64 tokens.  Each step's captured views, put through Eq. 4 (with
+    DSC) and sgd's update from the pre-step params, must give the
+    post-step params bit for bit, leaf by leaf.  Then ``mia_audit`` of the
+    two pre-step iterates and views ((k)'s after ``deshift_views``) at
+    full observation (A = 1), 4 members from the step's batch and 4 fresh
+    rows of the same draw, 64 bootstrap resamples: a finite AUC inside its
+    CI, n_layers launches of each flash kernel a canary gradient, member
+    0's alignment again with flash off within 5e-2; the audit's and one
+    canary gradient's ms and the phase's peak (under 80 GB).  Then, at the
+    smoke size, card vs host from the same seeds: ``mia_mlp`` at A = 1 and
+    4 and on the int8 wire, ``mia_lm`` on ``tiny_lm_config`` (scores within
+    1e-4, AUC, balanced accuracy and intervals equal), ``dlg_mlp`` on the
+    int8 wire and ``dlg_lm`` at A = 1 and 4 (match losses within 1e-3 over
+    20 steps); and a ``create_graph=True`` backward through the flash
+    kernels must raise.
+14. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -2652,6 +2671,343 @@ def matrix_small_input_phase(dev, seed) -> None:
 
 
 # ------------------------------------------------------------------- main
+# --------------------------------------------------------------- phase 13
+# The privacy audit of the distributed step's captured wire at full
+# width: eris-gptneo-1.3b in bf16 from --seed, sgd at phase 11's knob lr,
+# on a one-rank cpu:gloo,cuda:nccl group (n_client = 1: every leaf is the
+# aggregator's whole, and its view is the whole update), AUDIT_STEPS steps
+# with capture_views in (j) the int8 wire and (k) DSC at p 1.0, gamma 0.5
+# on the fused int8 wire (the reference's view-parity settings).  The
+# batch is rows [0, 8) of one lm_token_batches(PRNGKey(0)) draw of 12 x 64
+# tokens; its rows [0, 4) are the members, rows [8, 12) the non-members.
+AUDIT_STEPS, AUDIT_LR, AUDIT_BATCH, AUDIT_CANARIES = 2, 0.1, 8, 4
+AUDIT_SEQ, AUDIT_BOOTSTRAP, AUDIT_KEY_SALT = 64, 64, 0xA0D3
+AUDIT_CONFIGS = (
+    # (name, TrainSettings fields, wire kernels launched once a leaf a step)
+    ("j int8", dict(grad_dtype="float32", int8_wire=True),
+     ("quantize", "dequantize")),
+    ("k dsc int8 fused", dict(grad_dtype="float32", int8_wire=True,
+                              use_dsc=True, dsc_p=1.0, dsc_gamma=0.5),
+     ("dsc_quantize", "dequantize")),
+)
+# one member's alignment with flash on and off (the plain chunked
+# attention), as phase 8 holds the two gradients
+AUDIT_FLASH_OFF_TOL = 5e-2
+# the smoke size, card vs host from the same seeds: scores within
+# AUDIT_SMOKE_TOL of the largest |score|, AUC and balanced accuracy equal;
+# DLG's match losses within AUDIT_DLG_TOL over its first AUDIT_DLG_STEPS
+AUDIT_SMOKE_TOL, AUDIT_DLG_TOL, AUDIT_DLG_STEPS = 1e-4, 1e-3, 20
+
+
+def _audit_capture(dev, seed, cfg, mesh, toks, name, fields, path,
+                   totals) -> tuple:
+    """AUDIT_STEPS steps of one configuration with ``capture_views``.
+    Each step's views, put through Eq. 4 (with DSC: s_agg from the
+    earlier views) and sgd's own update from the pre-step params, must
+    give the post-step params bit for bit, leaf by leaf.  Returns (the
+    pre-step iterates (T, n) in the params' dtype, the views (T, n) f32,
+    the unravel of a flat vector, the steps' ms), the step state freed."""
+    from repro_torch.convert import ravel_params
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+    from repro_torch.optim.optimizers import weak
+    settings = train.TrainSettings(capture_views=True, **fields)
+    opt = sgd(AUDIT_LR)
+    step = train.make_train_step(cfg, mesh, opt, settings, device=dev)
+    params = train.store_params(tr.init_params(cfg, seed=seed, device=dev),
+                                cfg, mesh, settings)
+    state = opt.init(params)
+    dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=dev)
+    _, unravel = ravel_params(tree_map(lambda t: t.to("meta"), params))
+    sizes = [t.numel() for t in tree_leaves(params)]
+    n, n_leaves = sum(sizes), len(sizes)
+    x_traj = torch.empty(AUDIT_STEPS, n, dtype=tree_leaves(params)[0].dtype,
+                         device=dev)
+    views = torch.empty(AUDIT_STEPS, n, dtype=torch.float32, device=dev)
+    flash = cfg.n_layers if tr.uses_flash_kernel(cfg, AUDIT_SEQ) else 0
+    step_ms = []
+    for t in range(AUDIT_STEPS):
+        torch.cat([x.reshape(-1) for x in tree_leaves(params)], out=x_traj[t])
+        _set_round_launches(0)                    # the main path starts
+        start, end = _event_pair()
+        start.record()
+        params, state, dsc_ref, m, v = step(params, state, dsc_ref,
+                                            {"tokens": toks},
+                                            random.PRNGKey(t))
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        for k, fn in ROUND.items():               # the main path ended
+            totals[k] += fn.launches
+            want = flash if k in FLASH else n_leaves if k in path else 0
+            check(fn.launches == want, f"{name} step {t + 1}: {k} launched "
+                  f"{fn.launches} times, want {want}")
+        _check_tensor_cores(f"{name} step {t + 1}", flash, True)
+        check(sorted(v, key=int) == [str(i) for i in range(n_leaves)],
+              f"{name} step {t + 1}: views of leaves {sorted(v, key=int)}")
+        torch.cat([v[str(i)].reshape(-1) for i in range(n_leaves)],
+                  out=views[t])
+        del v
+        check(math.isfinite(float(m["loss"])), f"{name}: loss {m}")
+        # the view is what was aggregated: sgd's update of it, bit for bit
+        pre = tree_leaves(unravel(x_traj[t]))
+        off = 0
+        for i, (p0, p1) in enumerate(zip(pre, tree_leaves(params))):
+            u = views[t, off:off + sizes[i]].view(p0.shape)
+            if settings.use_dsc:
+                s = torch.zeros_like(u)
+                for tau in range(t):        # Eq. 4's s_agg, from the views
+                    w = s + views[tau, off:off + sizes[i]].view(p0.shape)
+                    s = dsc_lib.fma_shift(settings.dsc_gamma, w - s, s)
+                u = s + u
+            g = u.to(p0.dtype)
+            check(torch.equal(p1, p0 + weak(-AUDIT_LR, g) * g),
+                  f"{name} step {t + 1}: leaf {i}'s view does not give the "
+                  f"step's update")
+            off += sizes[i]
+        print(f"  {name} step {t + 1}: {step_ms[-1]:.1f} ms, loss "
+              f"{float(m['loss']):.4f}; {n_leaves} leaves captured, "
+              f"{views[t].numel() * 4 / 1e9:.2f} GB of f32 views; the "
+              f"views give the step's update bit for bit", flush=True)
+    del params, state, dsc_ref, step, pre, p0, p1, u, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return x_traj, views, unravel, step_ms
+
+
+def _audit_full(dev, seed, cfg, unravel, x_traj, views, members, non,
+                name, totals) -> dict:
+    """``mia_audit`` of one configuration's captured views at full
+    observation (A = 1, the mask all ones), with its launches, then one
+    member's alignment again with flash off."""
+    from repro_torch.core import privacy
+    from repro_torch.privacy import harness
+    n = views.shape[1]
+    obs = torch.ones(n, device=dev)
+
+    def grads_of(c):
+        return harness.flat_grad(
+            lambda p, tok: tr.loss_fn(p, c, {"tokens": tok[None]}), unravel)
+
+    _set_round_launches(0)                        # the main path starts
+    start, end = _event_pair()
+    start.record()
+    res = privacy.mia_audit(
+        random.fold_in(random.PRNGKey(seed), AUDIT_KEY_SALT), grads_of(cfg),
+        x_traj, views, obs, members, non, n_bootstrap=AUDIT_BOOTSTRAP)
+    end.record()
+    torch.cuda.synchronize()
+    audit_ms = start.elapsed_time(end)
+    grads = AUDIT_STEPS * (len(members) + len(non))
+    flash = cfg.n_layers * grads if tr.uses_flash_kernel(cfg, AUDIT_SEQ) \
+        else 0
+    for k, fn in ROUND.items():                   # the main path ended
+        totals[k] += fn.launches
+        want = flash if k in FLASH else 0
+        check(fn.launches == want, f"{name} audit: {k} launched "
+              f"{fn.launches} times, want {want} ({grads} canary gradients "
+              f"of {cfg.n_layers} layers)")
+    _check_tensor_cores(f"{name} audit", flash, True)
+    lo, hi = res["auc_ci"]
+    check(math.isfinite(res["auc"]) and lo <= res["auc"] <= hi,
+          f"{name}: AUC {res['auc']} outside its CI {res['auc_ci']}")
+    # member 0's alignment sum_t <g, v> / ||v||, flash on and off
+    off_cfg = dataclasses.replace(cfg, flash_attention=False)
+    align, grad_ms = {True: 0.0, False: 0.0}, []
+    for t in range(AUDIT_STEPS):
+        w, inv = privacy._round_weights(views[t], obs)
+        for flash_on, c in ((True, cfg), (False, off_cfg)):
+            start, end = _event_pair()
+            start.record()
+            g = grads_of(c)(x_traj[t], members[0])
+            end.record()
+            align[flash_on] += privacy._dot(g, w) * inv
+            if flash_on:
+                grad_ms.append(start.elapsed_time(end))
+            del g
+        del w
+    rel = abs(align[True] - align[False]) / abs(align[False])
+    check(rel <= AUDIT_FLASH_OFF_TOL, f"{name}: member 0's alignment with "
+          f"flash {align[True]} and without {align[False]} (relative {rel})")
+    out = dict(res, audit_ms=audit_ms, canary_grads=grads,
+               canary_grad_ms=grad_ms[-1], member0_align_flash=align[True],
+               member0_align_plain=align[False], flash_off_rel=rel)
+    print(f"  {name} audit (A = 1, {len(members)} members, {len(non)} "
+          f"non-members, {AUDIT_BOOTSTRAP} resamples): AUC {res['auc']:.4f} "
+          f"CI {res['auc_ci']}, balanced accuracy "
+          f"{res['balanced_accuracy']:.4f} CI {res['bal_acc_ci']}, score gap "
+          f"{res['score_gap']:.4e}; {audit_ms:.1f} ms for {grads} canary "
+          f"gradients ({grad_ms[-1]:.1f} ms one); member 0 flash on "
+          f"{align[True]:.6e} vs off {align[False]:.6e} (relative "
+          f"{rel:.2e}, tol {AUDIT_FLASH_OFF_TOL})", flush=True)
+    return out
+
+
+def _smoke_scores(dev, spec, lm_cfg=None, params0=None):
+    """``mia_mlp`` (or ``mia_lm`` on ``lm_cfg``) step by step on ``dev``,
+    returning the scores beside the statistics."""
+    from repro_torch.core import masks as masks_lib
+    from repro_torch.core import privacy
+    from repro_torch.privacy import harness
+    if lm_cfg is None:
+        params0, loss_fn, batches, members, non = \
+            harness.mlp_canary_problem(spec, device=dev)
+    else:
+        params0, loss_fn, batches, members, non = harness.lm_canary_problem(
+            lm_cfg, spec, params0=params0, device=dev)
+    run, x_traj, views = harness.capture_run(spec, params0, loss_fn,
+                                             batches, device=dev)
+    grad_fn = (harness._mlp_grad_fn(run, loss_fn) if lm_cfg is None else
+               harness.flat_grad(lambda p, c: tr.loss_fn(
+                   p, lm_cfg, {"tokens": c[None]}), run.unravel))
+    assign = masks_lib.make_assignment(run.n, spec.A, spec.mask_scheme,
+                                       device=dev)
+    obs, v = harness.coalition_views(views, assign, spec.a_c)
+    v = harness.deshift_views(v, harness.dsc_gamma_of(run))
+    scores = privacy._mia_scores(grad_fn, x_traj, v, obs,
+                                 torch.cat([members, non]))
+    salt = 0xA0D1 if lm_cfg is None else 0xA0D2
+    stats = privacy._host_stats(privacy._stats_from_scores(
+        random.fold_in(random.PRNGKey(spec.seed), salt), scores,
+        len(members), spec.n_bootstrap))
+    return scores, stats
+
+
+def _audit_smoke(dev, seed) -> dict:
+    """The smoke-size audits card vs host from the same seeds: mia_mlp at
+    A = 1 and 4 and on the int8 wire, mia_lm on ``tiny_lm_config``, then
+    DLG on the int8 wire (dlg_mlp) and at A = 1 and 4 (dlg_lm)."""
+    from repro_torch.privacy import harness
+    cpu = torch.device("cpu")
+    out = {}
+    lm_cfg = harness.tiny_lm_config()
+    lm_params = tr.init_params(lm_cfg, seed=seed, device=cpu)
+    cases = [("mia_mlp A=1", harness.AuditSpec(A=1, rounds=12,
+                                               n_bootstrap=64, seed=seed),
+              None),
+             ("mia_mlp A=4", harness.AuditSpec(A=4, rounds=12,
+                                               n_bootstrap=64, seed=seed),
+              None),
+             ("mia_mlp A=4 int8", harness.AuditSpec(
+                 A=4, rounds=12, n_bootstrap=64, seed=seed,
+                 int8_wire=True), None),
+             ("mia_lm A=2", harness.AuditSpec(A=2, rounds=4, K=2,
+                                              n_canaries=4, lr=0.5,
+                                              n_bootstrap=32, seed=seed),
+              lm_cfg)]
+    for name, spec, c in cases:
+        (s_card, st_card), (s_host, st_host) = [
+            _smoke_scores(d, spec, c, None if c is None else tree_map(
+                lambda t: t.to(d), lm_params)) for d in (dev, cpu)]
+        err = float((s_card - s_host).abs().max() / s_host.abs().max())
+        check(err <= AUDIT_SMOKE_TOL, f"{name}: scores card vs host "
+              f"{err:.3e} of the largest (tol {AUDIT_SMOKE_TOL})")
+        for k in ("auc", "balanced_accuracy", "auc_ci", "bal_acc_ci"):
+            check(st_card[k] == st_host[k], f"{name}: {k} card "
+                  f"{st_card[k]}, host {st_host[k]}")
+        if c is None:                     # the entry point, on the card
+            entry = harness.mia_mlp(spec, device=dev)
+            check(entry["auc"] == st_card["auc"],
+                  f"{name}: mia_mlp's AUC {entry['auc']}, steps' "
+                  f"{st_card['auc']}")
+        out[name] = dict(auc=st_card["auc"], auc_ci=st_card["auc_ci"],
+                         score_err=err)
+        print(f"  {name}: AUC {st_card['auc']:.4f} CI {st_card['auc_ci']} "
+              f"on both; scores card vs host {err:.2e} of the largest",
+              flush=True)
+    for name, fn, kw in (
+            ("dlg_mlp int8", harness.dlg_mlp_runs,
+             dict(A_values=[1, 8], wire="int8", seed=seed)),
+            ("dlg_lm", harness.dlg_lm_runs,
+             dict(cfg=lm_cfg, A_values=[1, 4], seed=seed))):
+        got = []
+        for d in (dev, cpu):
+            extra = ({} if fn is harness.dlg_mlp_runs else
+                     dict(params0=tree_map(lambda t: t.to(d), lm_params)))
+            got.append(fn(steps=AUDIT_DLG_STEPS, device=d, **kw, **extra)[0])
+        for A in kw["A_values"]:
+            card = got[0][A]["match_losses"].cpu()
+            host = got[1][A]["match_losses"]
+            rel = float(((card - host).abs() / host.abs()).max())
+            check(bool(card.isfinite().all()) and rel <= AUDIT_DLG_TOL,
+                  f"{name} A={A}: match losses card vs host {rel:.3e} "
+                  f"(tol {AUDIT_DLG_TOL})")
+            out[f"{name} A={A}"] = dict(match_loss_rel=rel,
+                                        first=float(host[0]),
+                                        last=float(host[-1]))
+            print(f"  {name} A={A}: match losses {float(host[0]):.4e} -> "
+                  f"{float(host[-1]):.4e} over {AUDIT_DLG_STEPS} steps, card "
+                  f"vs host {rel:.2e} (tol {AUDIT_DLG_TOL})", flush=True)
+    return out
+
+
+def _refuse_double_backward(dev) -> None:
+    """A create_graph=True backward through the flash Function on the card
+    raises (its kernels record no graph)."""
+    x = torch.randn(1, AUDIT_SEQ, 64, device=dev, requires_grad=True)
+    w = torch.randn(64, 256, device=dev, requires_grad=True)
+    q = (x @ w).view(1, AUDIT_SEQ, 2, 128).transpose(1, 2)
+    loss = (fa.flash_attention(q, q, q) ** 2).sum()
+    try:
+        torch.autograd.grad(loss, (w,), create_graph=True)
+    except RuntimeError as err:
+        check("once differentiable" in str(err), f"double backward: {err}")
+        print(f"  a create_graph=True backward through the flash kernels "
+              f"raises: {str(err)[:72]}...")
+        return
+    raise PhaseError("a create_graph=True backward through the flash "
+                     "kernels did not raise")
+
+
+def audit_phase(dev, seed) -> dict:
+    """The privacy audit of eris-gptneo-1.3b's captured wire at full width
+    over a one-rank NCCL group, then the smoke-size audits card vs host and
+    the double-backward refusal.  Returns the kernels' launches over the
+    full-width steps and audits (the main path's count)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.privacy import harness
+    _expect_free_card("before the audit")
+    torch.cuda.reset_peak_memory_stats()
+    totals = {name: 0 for name in ROUND}
+    results = {}
+    cfg = get_config("eris-gptneo-1.3b")
+    rows = lm_token_batches(random.PRNGKey(0), 1, AUDIT_BATCH
+                            + AUDIT_CANARIES, AUDIT_SEQ, cfg.vocab,
+                            device=dev)[0]
+    toks = rows[:AUDIT_BATCH]
+    members, non = rows[:AUDIT_CANARIES], rows[AUDIT_BATCH:]
+    mesh_lib.init_process_group(dev)
+    try:
+        mesh = mesh_lib.make_host_mesh(device=dev)
+        for name, fields, path in AUDIT_CONFIGS:
+            t0 = time.monotonic()
+            x_traj, views, unravel, step_ms = _audit_capture(
+                dev, seed, cfg, mesh, toks, name, fields, path, totals)
+            gamma = fields.get("dsc_gamma", 0.0) if fields.get("use_dsc") \
+                else 0.0
+            harness.deshift_views(views, gamma, inplace=True)
+            results[name] = _audit_full(dev, seed, cfg, unravel, x_traj,
+                                        views, members, non, name, totals)
+            results[name].update(step_ms=step_ms,
+                                 seconds=time.monotonic() - t0)
+            del x_traj, views
+            _expect_free_card(f"after {name}")
+    finally:
+        dist.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 80e9, f"audit: peak {peak / 1e9:.2f} GB does not fit")
+    results["peak_gb"] = peak / 1e9
+    print(f"  audit peak device memory {peak / 1e9:.2f} GB "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    t0 = time.monotonic()
+    results["smoke"] = _audit_smoke(dev, seed)
+    results["smoke_seconds"] = time.monotonic() - t0
+    _refuse_double_backward(dev)
+    print("privacy_audit " + json.dumps(results))
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2726,7 +3082,13 @@ def main() -> None:
     for name in round_launches:
         round_launches[name] += matrix_launches[name]
 
-    phase("13 result")
+    phase("13 the privacy audit of eris-gptneo-1.3b's captured wire at "
+          "full width")
+    audit_launches = audit_phase(dev, args.seed)
+    for name in round_launches:
+        round_launches[name] += audit_launches[name]
+
+    phase("14 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -145,15 +145,27 @@ class FLRun:
             weights=weights, collect_views=collect_views)
         return views if collect_views else None
 
-    def run_scanned(self, batches_stacked) -> torch.Tensor:
+    def run_scanned(self, batches_stacked, collect_views: bool = False):
         """T rounds (T = leading dim of ``batches_stacked``), stepping in
         order; returns the model iterates (T, n), as the reference's
-        scan-compiled driver does."""
+        scan-compiled driver does.  With ``collect_views`` also the
+        rounds' adversary views stacked on a leading T axis (``(T, A, K,
+        n)`` under ``FLConfig.keep_views``): the privacy audit's
+        capture."""
         T = len(tree_leaves(batches_stacked)[0])
-        xs = []
+        xs, views = [], []
         for t in range(T):
-            self.step(client_batch(batches_stacked, t))
+            v = self.step(client_batch(batches_stacked, t),
+                          collect_views=collect_views)
+            if collect_views:
+                if v is None:
+                    raise ValueError(
+                        "collect_views: this pipeline exposes no adversary "
+                        "view (view='none' and no aggregate override)")
+                views.append(v)
             xs.append(self.x.clone())
+        if collect_views:
+            return torch.stack(xs), torch.stack(views)
         return torch.stack(xs)
 
     def params(self):

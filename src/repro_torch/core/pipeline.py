@@ -456,7 +456,11 @@ class FSASharded(AggregateStage):
     all K vectors (and, with ``keep_views``, the (A, K, n) views), so it
     is for simulator sizes.  ``fresh_masks`` draws a new random
     assignment every round (the paper's m^t) with the round's ``mask``
-    key."""
+    key.  ``assign_override`` pins the coordinate->aggregator assignment
+    to an explicit (n,) vector, ahead of ``fresh_masks`` and the scheme:
+    the privacy audit attacks the simulator under the distributed step's
+    per-leaf segment layout (``privacy.views.mesh_flat_assignment``), so
+    that the per-aggregator views of the two engines line up."""
 
     A: int = 4
     mask_scheme: str = "strided"
@@ -465,8 +469,11 @@ class FSASharded(AggregateStage):
     use_dsc: bool = False
     gamma: float = 0.0
     key_role: str = "mask"
+    assign_override: Optional[torch.Tensor] = None
 
     def assignment(self, keys: RoundKeys, n: int, device) -> torch.Tensor:
+        if self.assign_override is not None:
+            return torch.as_tensor(self.assign_override).to(device)
         if self.fresh_masks:
             return masks_lib.make_assignment(n, self.A, "random",
                                              key=self._key(keys),

@@ -247,7 +247,12 @@ for _fn in (flash_fwd, flash_dq, flash_dkv):
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's custom VJP: forward kernel, then delta, dq and
-    dk/dv from the saved (q, k, v, o, lse)."""
+    dk/dv from the saved (q, k, v, o, lse).  The backward's kernels
+    record no graph, so it is once differentiable on every device: a
+    ``create_graph=True`` backward through it (the first half of a
+    second derivative, as DLG takes) raises, on the host's plain
+    versions as on the card, rather than drop attention's share of the
+    second derivative in silence."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -258,6 +263,22 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        # create_graph=True runs the backward with grad mode on; the
+        # graph it asks for would miss the kernels' second derivative.
+        # once_differentiable alone would not say so: its error node is
+        # pruned when no path from it reaches the inputs asked for.
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "flash_attention is once differentiable: its backward "
+                "kernels record no graph, so a create_graph=True backward "
+                "(a second derivative, as gradient inversion takes) cannot "
+                "go through them; run that model with "
+                "cfg.flash_attention=False (the plain chunked attention)")
+        return _FlashAttention._backward(ctx, do)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def _backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         causal, window = ctx.mask
         # e.g. the expanded grad of a sum, or rows off 16 bytes

@@ -50,9 +50,16 @@ passes copies.  Its arithmetic follows the reference's dtypes (JAX's
 promotion, ``optim/optimizers.py``) and, where XLA fuses a multiply-add
 (the DSC shift updates), its single rounding.
 
-The model and pipe axes (queue 1.10), the adversary-view tap (1.8) and
-the lowering for accounting (1.12) raise ``NotImplementedError`` naming
-their ROADMAP queue.
+With ``capture_views`` the step also returns the adversary-view tap: per
+aggregator, the real observed wire payload of every leaf with a scatter
+dim (the dequantized int8 segments, or the ``grad_dtype`` rows), with a
+dropped client's row and the rows of dead links and a dead aggregator
+zeroed.  The f32 or bf16 wire's reduce-scatter then lowers to its
+scatter half (an all-to-all of the segments) and the aggregator reduces
+the rows it received, in the reference's order.
+
+The model and pipe axes (queue 1.10) and the lowering for accounting
+(1.12) raise ``NotImplementedError`` naming their ROADMAP queue.
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --smoke --steps 4 [--dsc] [--int8-wire]
@@ -104,7 +111,10 @@ class TrainSettings:
     microbatches: int = 1            # 1F1B microbatches (pipe axis: 1.10)
     remat: bool = True
     fsa: bool = True                 # False => FedAvg all-reduce baseline
-    capture_views: bool = False      # adversary-view tap (queue 1.8)
+    capture_views: bool = False      # adversary-view tap: per aggregator,
+                                     # the observed wire payload (the
+                                     # dequantized int8 segments or the
+                                     # grad_dtype rows) as a step output
     # ---- FedBuff-style buffered async aggregation: arrivals fold
     # staleness-weighted updates into a per-segment buffer riding the DSC
     # state tree; params and optimizer apply every buffer_cadence rounds.
@@ -209,7 +219,6 @@ def _validate(settings: TrainSettings) -> AsyncSettings:
             "step; the async buffered runtime models client dropout "
             "through its ArrivalModel instead")
     unported = [
-        ("capture_views", settings.capture_views, "1.8"),
         ("microbatches > 1", settings.microbatches > 1, "1.10"),
     ]
     for what, on, queue in unported:
@@ -231,6 +240,12 @@ def _scatter_dims(cfg: ModelConfig, mesh, settings: TrainSettings) -> dict:
     FedAvg baseline keeps every leaf whole)."""
     dims = sh.fsa_scatter_dims(cfg, mesh)
     return dims if settings.fsa else tree_map(lambda d: -1, dims)
+
+
+def _axis_size(mesh, name: str) -> int:
+    """The size of the mesh's axis ``name`` (1 where it has none)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    return int(mesh.size(names.index(name))) if name in names else 1
 
 
 def _rank(mesh) -> int:
@@ -361,13 +376,45 @@ def mask_row(key: torch.Tensor, i: int, aidx: int, n_client: int, n: int, *,
 
 
 def _weighted_rows(w: list, rows: torch.Tensor) -> torch.Tensor:
-    """``einsum("k,km->m", w, rows)`` for f32 rows and f32 weights, as
-    XLA's CPU compiler computes it: a chain of f32 fused multiply-adds
-    over k, from zero."""
+    """``einsum("k,km->m", w, rows)`` for f32 weights, as XLA's CPU
+    compiler computes it: a chain of f32 fused multiply-adds over k, from
+    zero.  Rows of a 16-bit wire are widened to f32 and the sum rounded
+    once to their dtype (weights rounded to it first, as the reference's
+    ``astype(rx.dtype)``)."""
+    if rows.dtype != torch.float32:
+        w = [float(torch.tensor(x, dtype=rows.dtype)) for x in w]
+        return _weighted_rows(w, rows.float()).to(rows.dtype)
     acc = rows[0] * w[0]
     for k in range(1, len(w)):
         acc = fma_shift(w[k], rows[k], acc)
     return acc
+
+
+def _reduce_rows(rows: torch.Tensor, rx_w: Optional[list] = None,
+                 omega: Optional[list] = None) -> torch.Tensor:
+    """An aggregator's reduction of the (n_client, m) rows it received:
+    their mean (the rows summed in order times the f32 reciprocal of
+    their count; a 16-bit wire summed in f32, as ``jnp.mean`` upcasts);
+    with ``rx_w`` the failure-weighted sum; with ``omega`` the
+    arrival-weighted sum over n_client."""
+    n = rows.shape[0]
+    if rx_w is not None:
+        return _weighted_rows(rx_w, rows)
+    if omega is not None:
+        return scale_by_reciprocal(_weighted_rows(omega, rows), n)
+    if rows.dtype != torch.float32:
+        return _mean_rows(rows.float()).to(rows.dtype)
+    return _mean_rows(rows)
+
+
+def _tapped_rows(rx: torch.Tensor, w: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """Received rows as the view tap captures them: each row times its
+    0/1 weight (None keeps them all), f32, under a leading (1, ...)
+    aggregator axis."""
+    if w is not None:
+        rx = rx * w.to(rx.device, rx.dtype)[:, None]
+    return rx.float()[None]
 
 
 # ------------------------------------------------------- tree plumbing
@@ -495,7 +542,8 @@ class _Wire:
         ``_int8_wire_exchange``): :func:`int8_payload`, codes and scales
         exchanged, what arrives dequantized and reduced (:meth:`_receive`).
         Returns (my segment's reduction, f32, in the store shard's shape;
-        the full leaf's local round trip or None)."""
+        the full leaf's local round trip or None; the (n_client, m)
+        dequantized rows received, the adversary's view of the leaf)."""
         n = self.n
         lay = sh.wire_layout_for(tuple(v.shape), n)
         q, scale = int8_payload(v, dim, n, seed)
@@ -504,26 +552,43 @@ class _Wire:
             v_hat = sh.merge_shards(
                 q_kernel.dequantize(q.view(-1), scale.view(-1))
                 .view(n, -1)[:, :lay.shard_elems], dim, tuple(v.shape), n)
-        return self._receive(q, scale, lay, dim, tuple(v.shape), rx_w,
-                             omega), v_hat
+        my, rx = self._receive(q, scale, lay, dim, tuple(v.shape), rx_w,
+                               omega)
+        return my, v_hat, rx
 
     def fused_exchange(self, g: torch.Tensor, s: torch.Tensor, dim: int,
                        seed_mask: int, seed_round: int, p: float,
                        gamma: float, rx_w: Optional[list] = None):
         """The int8+DSC wire of one leaf (the reference's
         ``_fused_wire_exchange``): :func:`fused_payload`, then the
-        exchange.  Returns (my segment's reduction, s_new in s's dtype)."""
+        exchange.  Returns (my segment's reduction, s_new in s's dtype,
+        the dequantized rows received)."""
         lay = sh.wire_layout_for(tuple(g.shape), self.n)
         q, scale, s_new = fused_payload(g, s, dim, self.n, seed_mask,
                                         seed_round, p, gamma)
-        return self._receive(q, scale, lay, dim, tuple(g.shape),
-                             rx_w), s_new
+        my, rx = self._receive(q, scale, lay, dim, tuple(g.shape), rx_w)
+        return my, s_new, rx
+
+    def scatter_exchange(self, g: torch.Tensor, dim: int,
+                         rx_w: Optional[list] = None,
+                         omega: Optional[list] = None):
+        """The reduce-scatter of one leaf in its own dtype lowered to its
+        scatter half, for the view tap: its segments to their aggregators
+        (an all-to-all), and the aggregator's reduction of the rows it
+        received (:func:`_reduce_rows`).  Returns (my segment's reduction
+        in the store shard's shape, the rows received)."""
+        rx = self.all_to_all(sh.split_shards(g, dim, self.n))
+        shape = list(g.shape)
+        shape[dim] //= self.n
+        return _reduce_rows(rx, rx_w, omega).view(shape), rx
 
     def _receive(self, q, scale, lay, dim, shape, rx_w=None, omega=None):
         """The exchange and the aggregator's reduction of the rows it
-        receives: their mean; with ``rx_w`` the failure-weighted sum (live
-        links renormalized by their count, zero at a dead aggregator);
-        with ``omega`` the arrival-weighted sum over n_client."""
+        receives (:func:`_reduce_rows`: their mean; with ``rx_w`` the
+        failure-weighted sum, live links renormalized by their count, zero
+        at a dead aggregator; with ``omega`` the arrival-weighted sum over
+        n_client).  Returns (the reduction in the store shard's shape, the
+        (n_client, m) dequantized rows, a view of the received block)."""
         n, m, mp = self.n, lay.shard_elems, lay.padded_elems
         q_rx = self.all_to_all(q)
         s_rx = self.all_to_all(scale)
@@ -531,13 +596,8 @@ class _Wire:
         rx = q_kernel.dequantize(q_rx.view(-1), s_rx.view(-1)).view(n, mp)
         shard_shape = list(shape)
         shard_shape[dim] //= n
-        if rx_w is not None:
-            my = _weighted_rows(rx_w, rx[:, :m])
-        elif omega is not None:
-            my = scale_by_reciprocal(_weighted_rows(omega, rx[:, :m]), n)
-        else:
-            my = _mean_rows(rx[:, :m])
-        return my.view(shard_shape)
+        return _reduce_rows(rx[:, :m], rx_w, omega).view(shard_shape), \
+            rx[:, :m]
 
 
 # ------------------------------------------------------------- the step
@@ -558,6 +618,12 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
       [a B / n, (a + 1) B / n) of each leaf, as ``P(caxis)`` does;
     * ``key``: the round key (``repro_torch.random``), replicated.
 
+    With ``capture_views`` (and FSA) the step returns a fifth element,
+    the adversary-view tap: ``{str(i): (1, n_client, m)}`` f32 for every
+    leaf i with a scatter dim, the rows of leaf i's segment that this
+    aggregator received, one per client (the reference's per-aggregator
+    block of its ``(A, K, m)`` view).
+
     The tensors live on ``device``, the CUDA card unless the caller asks
     for the CPU.  ``mark(name)``, when given, is called as each part of
     the step begins ("gather", "gradient", "ldp" with LDP on, "wire",
@@ -565,6 +631,12 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
     if cfg.attn_batch_shard:
         cfg = dataclasses.replace(cfg, attn_batch_shard=False)
     async_cfg = _validate(settings)
+    if settings.capture_views and _axis_size(mesh, "pipe") > 1:
+        raise ValueError(
+            "capture_views does not compose with a pipe axis yet: the "
+            "adversary-view tap concatenates wire segments over 'model' "
+            "only, so stage-sliced block leaves would alias")
+    capture = settings.capture_views and settings.fsa
     device = resolve_device(device)
     wire = _Wire(mesh)
     n_client, aidx = wire.n, wire.aidx
@@ -639,12 +711,30 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
                                     window=(lo, hi)).to(g.dtype)
         return g
 
-    def aggregate_leaf(i: int, g, dim: int, s_slot, key, fail, rx_w, omega):
+    def tap_weights(fail, alive):
+        """The view tap's row weights (None keeps every row): ``fail_w``
+        zeroes the rows that never arrived (dead links into this
+        aggregator, every row at a dead aggregator), ``drop_w`` a dropped
+        client's row too (it sent nothing)."""
+        fail_w = (None if fail is None
+                  else fail[1][:, aidx] * fail[0][aidx])
+        if alive is None:
+            return fail_w, fail_w
+        drop_w = alive.float()
+        return fail_w, drop_w if fail_w is None else fail_w * drop_w
+
+    def aggregate_leaf(i: int, g, dim: int, s_slot, key, fail, rx_w, omega,
+                       views: Optional[dict] = None, row_w=(None, None)):
         """Leaf i's compression and exchange (the reference's loop body,
         :523-634): this aggregator's reduction of its segment, or of the
         whole leaf where it has no scatter dim.  Writes client shift s_k's
-        new leaf into its slot ``s_slot`` of ``dsc_ref``."""
+        new leaf into its slot ``s_slot`` of ``dsc_ref``; with ``views``
+        (the tap) the rows this aggregator received into
+        ``views[str(i)]``, weighed by ``row_w`` (:func:`tap_weights`: the
+        DSC wires, where no client drops, by ``fail_w``)."""
         int8 = settings.int8_wire and settings.fsa and dim >= 0
+        tapped = views is not None and dim >= 0
+        fail_w, drop_w = row_w
         if settings.secure_mask:
             g = mask_leaf(g, i, key)
         if stage is not None:
@@ -652,35 +742,50 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
             box, name = s_slot
             s = box[name][0]
             if int8 and settings.fused_wire:
-                agg, s_new = wire.fused_exchange(
+                agg, s_new, rx = wire.fused_exchange(
                     g, s, dim, int(random.bits(k)), wire_seed(key, i),
                     settings.dsc_p, settings.dsc_gamma, rx_w=rx_w)
                 box[name] = s_new[None]
+                if tapped:
+                    views[str(i)] = _tapped_rows(rx, fail_w)
                 return agg
             if int8:
                 # the wire format inside the shifted compressor: s_k tracks
                 # what the aggregators actually receive
                 v = stage.compressor(k, g.to(s.dtype) - s)
-                agg, v_hat = wire.int8_exchange(v, dim, wire_seed(key, i),
-                                                need_round_trip=True,
-                                                rx_w=rx_w)
+                agg, v_hat, rx = wire.int8_exchange(
+                    v, dim, wire_seed(key, i), need_round_trip=True,
+                    rx_w=rx_w)
                 del v
                 box[name] = fma_shift(stage.gamma, v_hat, s)[None]
+                if tapped:
+                    views[str(i)] = _tapped_rows(rx, fail_w)
                 return agg
             v, s_new = stage.apply_leaf(k, g, s)
             box[name] = s_new[None]
             g = v.to(g.dtype)
             del v, s_new, s
         if int8:
-            return wire.int8_exchange(g, dim, wire_seed(key, i),
-                                      need_round_trip=False, rx_w=rx_w,
-                                      omega=omega)[0]
-        if omega is not None:
+            agg, _, rx = wire.int8_exchange(g, dim, wire_seed(key, i),
+                                            need_round_trip=False,
+                                            rx_w=rx_w, omega=omega)
+            if tapped:
+                views[str(i)] = _tapped_rows(rx, drop_w)
+            return agg
+        if omega is not None and not tapped:
             # each rank is one client: its arrival weight discounts its
-            # own contribution before the reduce
+            # own contribution before the reduce (with the tap, the
+            # aggregator weighs the rows it received instead)
             g = g * torch.tensor(omega[aidx], dtype=g.dtype)
         g = g.to(grad_dtype)
         if settings.fsa and dim >= 0:
+            if tapped:
+                # the tap needs the per-client segments: the reduce-scatter
+                # lowers to its scatter half, as on the int8 wire, and the
+                # aggregator reduces what it received
+                agg, rx = wire.scatter_exchange(g, dim, rx_w, omega)
+                views[str(i)] = _tapped_rows(rx, drop_w)
+                return agg
             if fail is not None:
                 # the failure-injected reduce-scatter: segment a scaled by
                 # link_alive[aidx, a] / link_cnt[a] before the collective
@@ -731,9 +836,10 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
         if settings.async_buffer:
             state, buf = dsc_ref["dsc"], dsc_ref["buffer"]
         # the round's draws, on the host, the same on every rank
-        omega = w_round = None
+        omega = w_round = alive = None
         if settings.async_buffer and not arrival.trivial:
-            _, _, omega_t, w_round = arrival_draws(key, n_client, arrival)
+            _, alive, omega_t, w_round = arrival_draws(key, n_client,
+                                                       arrival)
             omega = [float(x) for x in omega_t]
         fail = rx_w = None
         if failures:
@@ -775,10 +881,12 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
         s_slots = (_slots(state["s_clients"]) if settings.use_dsc
                    else [None] * len(dims))
         out: list = [None] * len(grads)
+        views = {} if capture else None
+        row_w = tap_weights(fail, alive)
         for i, (dim, s_slot) in enumerate(zip(dims, s_slots)):
             g, grads[i] = grads[i], None
             out[i] = aggregate_leaf(i, g, dim, s_slot, key, fail, rx_w,
-                                    omega)
+                                    omega, views, row_w)
             del g
         del grads
 
@@ -811,6 +919,8 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
             gn2 = wire.all_reduce(gn2.reshape(1))[0]
         metrics = {"loss": loss_val, "grad_norm": torch.sqrt(gn2)}
         note("end")
+        if capture:
+            return params_stored, new_state, dsc_ref, metrics, views
         return params_stored, new_state, dsc_ref, metrics
 
     return step

@@ -190,26 +190,39 @@ def uses_flash_kernel(cfg: ModelConfig, seq_len: int,
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            mode: str = "prefill", window: Optional[int] = None):
+            mode: str = "prefill", window: Optional[int] = None,
+            inputs_embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward.  Returns (logits, caches, aux).
 
     ``mode="prefill"`` runs without autograd and returns the per-layer
     K/V stacked as (L, B, S, KV, hd) under ``caches["kv"]``;
     ``mode="train"`` records the graph for the backward and returns no
     caches; its attention goes through the flash kernels where the
-    reference's does (:func:`uses_flash_kernel`)."""
+    reference's does (:func:`uses_flash_kernel`).
+
+    ``inputs_embeds`` (B, S, D) replaces the token-embedding lookup: the
+    continuous input that the DLG gradient inversion optimizes
+    (``repro_torch.privacy``); ``tokens`` still gives the positions and
+    the targets."""
     if mode == "prefill":
         with torch.no_grad():
-            return _forward(params, cfg, tokens, window, keep_cache=True)
+            return _forward(params, cfg, tokens, window, keep_cache=True,
+                            inputs_embeds=inputs_embeds)
     if mode != "train":
         raise NotImplementedError(
             f"forward(mode={mode!r}): prefill and train are ported; the "
             f"dense ring-cache decode is ROADMAP queue 1.11")
-    return _forward(params, cfg, tokens, window, keep_cache=False)
+    return _forward(params, cfg, tokens, window, keep_cache=False,
+                    inputs_embeds=inputs_embeds)
 
 
-def _forward(params, cfg, tokens, window, keep_cache: bool):
-    x = embed_inputs(params, cfg, tokens)
+def _forward(params, cfg, tokens, window, keep_cache: bool,
+             inputs_embeds=None):
+    if inputs_embeds is None:
+        x = embed_inputs(params, cfg, tokens)
+    else:
+        _require_family(cfg)
+        x = inputs_embeds
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
@@ -235,10 +248,12 @@ def _select_logit(pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
             window: Optional[int] = None) -> torch.Tensor:
     """Causal LM loss (the reference's replicated path, ``tp=None``).
-    batch: dict(tokens (B, S) [, loss_mask (B, S)]).  Next-token CE with
-    f32 logits unless the config keeps them in the compute dtype."""
+    batch: dict(tokens (B, S) [, loss_mask (B, S)] [, inputs_embeds (B,
+    S, D)]).  Next-token CE with f32 logits unless the config keeps them
+    in the compute dtype."""
     tokens = batch["tokens"]
-    logits, _, _ = forward(params, cfg, tokens, "train", window)
+    logits, _, _ = forward(params, cfg, tokens, "train", window,
+                           inputs_embeds=batch.get("inputs_embeds"))
     return _ce(cfg, logits, tokens, batch.get("loss_mask"))
 
 

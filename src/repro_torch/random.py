@@ -109,7 +109,8 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
-    """``jax.random.split``: ``(*shape, 2)`` new keys."""
+    """``jax.random.split``: ``(*shape, 2)`` new keys; ``(B, *shape, 2)``
+    for a (B, 2) batch of keys (jax's ``vmap``)."""
     shape = (num,) if isinstance(num, int) else tuple(num)
     count = math.prod(shape)
     k1, k2 = _words(key)
@@ -118,7 +119,7 @@ def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
         out = torch.stack(threefry2x32(k1, k2, i >> 32, i & MASK), -1)
     else:
         out = _iota_hash(k1, k2, 2 * count, 0, 2 * count, key.device)
-    return out.reshape(*shape, 2)
+    return out.reshape(*key.shape[:-1], *shape, 2)
 
 
 # ------------------------------------------------------------------ bits
@@ -238,7 +239,7 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int, *,
     """``jax.random.randint`` into int32 (returned as int64): two 32-bit
     draws folded modulo the span, as ``random._randint`` does in
     uint32.  With a ``window``, the flat elements [lo, hi) of the draw
-    over ``shape``."""
+    over ``shape``.  A (B, 2) batch of keys draws (B, *shape)."""
     lo32, hi32 = -2**31, 2**31 - 1
     minval = min(max(int(minval), lo32), hi32)
     out_of_range = int(maxval) > hi32
@@ -248,7 +249,8 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int, *,
         span = 1
     elif out_of_range:
         span = (span + 1) & MASK
-    k1, k2 = split(key)
+    keys = split(key)
+    k1, k2 = keys[..., 0, :], keys[..., 1, :]
     higher = bits(k1, shape, device=device, window=window)
     lower = bits(k2, shape, device=device, window=window)
     if span == 0:                      # the full 2**32 range

@@ -332,7 +332,6 @@ def test_make_host_mesh(group, monkeypatch):
 
 
 UNPORTED = [
-    ("capture_views", dict(capture_views=True), "1.8"),
     ("microbatches", dict(microbatches=2), "1.10"),
 ]
 UNPORTED_CALLS = [
@@ -356,6 +355,90 @@ def test_unported_paths_name_their_queue(what, call, queue):
     NotImplementedError naming its ROADMAP queue."""
     with pytest.raises(NotImplementedError, match=f"queue {queue}"):
         call()
+
+
+def test_capture_views_with_a_pipe_axis_is_the_references_error():
+    """The tap refuses a pipe axis with the reference's words (meshes
+    stubbed: the port's have no pipe axis yet)."""
+    ref_mesh_stub = types.SimpleNamespace(
+        axis_names=("data", "pipe"), devices=np.zeros((1, 2)),
+        shape={"data": 1, "pipe": 2})
+    with pytest.raises(ValueError) as ref_err:
+        ref_train.make_train_step(
+            ref_get_config("qwen2-0.5b").smoke(), ref_mesh_stub,
+            ref_opt.sgd(0.1), ref_train.TrainSettings(capture_views=True))
+    mesh_stub = types.SimpleNamespace(mesh_dim_names=("data", "pipe"),
+                                      size=lambda i: (1, 2)[i])
+    with pytest.raises(ValueError) as err:
+        train.make_train_step(get_config("qwen2-0.5b").smoke(), mesh_stub,
+                              opt_lib.sgd(0.1),
+                              train.TrainSettings(capture_views=True))
+    assert str(err.value) == str(ref_err.value)
+
+
+# (name, TrainSettings fields) of the one-rank tap: every wire the tap
+# takes, with failures and arrivals
+TAP_WIRES = [
+    ("f32", dict(grad_dtype="float32")),
+    ("bf16", dict(grad_dtype="bfloat16")),
+    ("int8", dict(grad_dtype="float32", int8_wire=True)),
+    ("dsc_fused_int8", dict(grad_dtype="float32", int8_wire=True,
+                            use_dsc=True, dsc_p=1.0)),
+    ("dsc_unfused_int8", dict(grad_dtype="float32", int8_wire=True,
+                              use_dsc=True, dsc_p=1.0, fused_wire=False)),
+    ("dsc_f32", dict(grad_dtype="float32", use_dsc=True, dsc_p=1.0)),
+    ("int8_failures", dict(grad_dtype="float32", int8_wire=True,
+                           agg_dropout=0.5, link_failure=0.5)),
+    ("f32_failures", dict(grad_dtype="float32", agg_dropout=0.5,
+                          link_failure=0.5)),
+    ("bf16_failures", dict(grad_dtype="bfloat16", agg_dropout=0.5,
+                           link_failure=0.5)),
+    ("int8_arrivals", dict(grad_dtype="float32", int8_wire=True,
+                           async_buffer=True, client_dropout=0.5)),
+]
+
+
+@pytest.mark.parametrize("name,fields", TAP_WIRES,
+                         ids=[n for n, _ in TAP_WIRES])
+def test_one_rank_tap_views_are_the_applied_update(group, name, fields):
+    """At n_client = 1 the aggregator's reduction of its one row is that
+    row: each step's captured views, put through Eq. 4 (with DSC) and
+    sgd's own update from the pre-step params, give the post-step params
+    bit for bit, leaf by leaf (what ``chip_smoke.py`` holds on the card
+    at full width).  Every leaf is captured as (1, 1, m) f32."""
+    from repro_torch.core.dsc import fma_shift
+    from repro_torch.privacy import harness
+    cfg = harness.tiny_lm_config()
+    mesh = mesh_lib.make_host_mesh(device="cpu")
+    settings = train.TrainSettings(capture_views=True, **fields)
+    opt = opt_lib.sgd(0.1)
+    step = train.make_train_step(cfg, mesh, opt, settings, device="cpu")
+    params = train.store_params(tr.init_params(cfg, seed=1, device="cpu"),
+                                cfg, mesh, settings)
+    state, dsc_ref = opt.init(params), train.init_dsc_state(
+        cfg, mesh, settings, device="cpu")
+    toks = {"tokens": random.randint(random.PRNGKey(5), (2, 32), 0,
+                                     cfg.vocab)}
+    s_agg = [torch.zeros(x.shape) for x in tree_leaves(params)]
+    zero_rows = 0
+    for t in range(2):
+        pre = [x.clone() for x in tree_leaves(params)]
+        params, state, dsc_ref, _, views = step(params, state, dsc_ref,
+                                                toks, random.PRNGKey(t))
+        assert sorted(views, key=int) == [str(i) for i in range(len(pre))]
+        for i, (p0, p1) in enumerate(zip(pre, tree_leaves(params))):
+            v = views[str(i)]
+            assert v.dtype == torch.float32 and v.shape == (1, 1, p0.numel())
+            u = v[0, 0].view(p0.shape)
+            zero_rows += int(not u.any())
+            if settings.use_dsc:
+                u, s_prev = s_agg[i] + u, s_agg[i]
+                s_agg[i] = fma_shift(settings.dsc_gamma, u - s_prev, s_prev)
+            g = u.to(p0.dtype)
+            assert torch.equal(p1, p0 + opt_lib.weak(-0.1, g) * g), (name,
+                                                                     t, i)
+    if "failures" in name or "arrivals" in name:
+        assert zero_rows, "no dropped row in two steps"
 
 
 def _settings(package, fields):

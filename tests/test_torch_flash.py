@@ -154,6 +154,26 @@ def test_no_grad_runs_the_forward_only_and_saves_nothing():
     assert torch.equal(o, with_graph.detach())
 
 
+def test_a_create_graph_backward_through_the_function_raises():
+    """The Function's backward is once differentiable: a
+    ``create_graph=True`` backward (DLG's second derivative, here of a
+    projection's gradient in the input) raises on the host's plain
+    versions as the kernels would have to on the card, and the plain
+    first-order backward still runs."""
+    torch.manual_seed(0)
+    x = torch.randn(1, 64, 8, requires_grad=True)
+    w = torch.randn(8, 64, requires_grad=True)
+
+    def loss():
+        q = (x @ w).view(1, 64, 2, 32).transpose(1, 2)
+        return (fa.flash_attention(q, q, q) ** 2).sum()
+
+    with pytest.raises(RuntimeError, match="once differentiable"):
+        torch.autograd.grad(loss(), (w,), create_graph=True)
+    (gw,) = torch.autograd.grad(loss(), (w,))
+    assert gw.shape == w.shape and not gw.requires_grad
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     _, (tq, tk, tv, _), _, _, _ = _inputs("mha-causal-s64")
     with pytest.raises(ValueError, match="implies causal"):

@@ -67,6 +67,18 @@ def test_keys_split_and_fold_in_equal_jax(layout, seed):
         np.asarray(jax.random.PRNGKey(2**40 + 7)).tolist()
 
 
+def test_batched_keys_split_and_randint_equal_jax_vmap(layout):
+    """A (B, 2) batch of keys splits and draws ``randint`` as jax's vmap
+    over the keys does (the MIA audit's bootstrap)."""
+    keys = random.split(random.PRNGKey(3), 7)
+    jkeys = jax.random.split(jax.random.PRNGKey(3), 7)
+    _eq(random.split(keys), jax.vmap(jax.random.split)(jkeys))
+    _eq(random.split(keys, (2, 3)),
+        jax.vmap(lambda k: jax.random.split(k, (2, 3)))(jkeys))
+    _eq(random.randint(keys, (5,), 0, 11),
+        jax.vmap(lambda k: jax.random.randint(k, (5,), 0, 11))(jkeys))
+
+
 def test_threefry_hash_takes_ints_and_tensors():
     ints = random.threefry2x32(0x13198A2E, 0x03707344, 0x243F6A88,
                                0x85A308D3)
