@@ -5,8 +5,10 @@ eris-gptneo-1.3b at full width, runs ERIS rounds of it and of qwen2-0.5b
 at full width, training through the flash-attention kernels, and runs
 the reference's default round (threefry DSC), the distributed FSA train
 step over NCCL with its scenario and async knobs, the round matrix (the
-baselines, defenses, failures and async methods), and the privacy audit
-of the step's captured wire, on one NVIDIA card.
+baselines, defenses, failures and async methods), the privacy audit
+of the step's captured wire, and the non-IID feeds, the reference's
+init draws and the MoE family (olmoe-1b-7b served, a gradient and ERIS
+rounds), on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -194,7 +196,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     int8 wire and ``dlg_lm`` at A = 1 and 4 (match losses within 1e-3 over
     20 steps); and a ``create_graph=True`` backward through the flash
     kernels must raise.
-14. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+14. non-IID feeds, init and MoE -- (a) ``federated_population`` (10,000
+    clients of 64 samples, alpha 0.5) and ``federated_classification``
+    (100 clients of 64, alpha 0.1) on the card and on the host from one
+    key: labels and the Dirichlet partition's indices (owners for the
+    latter) equal, features within 4e-6, each timed.  (b) ``init_params``
+    of olmoe-1b-7b at full width (16 layers, d_model 2048, 64 experts of
+    d_ff 1024, top 8; bf16, the reference's threefry draws) on the card,
+    timed, with its peak; w_gate's 2**31 elements around 2**30 and its
+    last 4,096 recomputed on the host, equal.  (c) ``ServeEngine`` on
+    those params as phase 4 runs eris-gptneo-1.3b: 8 requests, every one
+    ending by length, finite logits, n_layers paged launches a decode
+    step, one decode step replayed through the kernel and through the
+    plain version on the kernel step's expert slots and combine weights
+    (so the two differ in attention only; logits within 3e-2, as phase
+    4's; the layers and rows where the plain version's own routes would
+    differ counted), a profile of three steps; then olmoe's smoke variant in f32
+    served card vs host, greedy and sampled, tokens equal.  (d) one
+    full-width gradient on 1 x 128 tokens, flash on (n_layers launches
+    of each flash kernel, on the bf16 tensor cores) and off: the losses
+    within 1e-2 relative, the share of layer 0's routes (top-k experts,
+    dispatch rows) that differ printed beside the gap, ms and peaks.
+    (e) two ERIS rounds of olmoe cut to 4 of its 16 layers (n =
+    1,884,309,504) as phase 12 runs gptneo: the int8 wire, flash on, K =
+    4, A = 8; x finite, K ``quantize`` and ``dequantize`` launches a
+    round, n_layers x K of each flash kernel, the split and the peak
+    (under 80 GB).  Prints each part's seconds.
+15. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -239,6 +267,7 @@ from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core.pipeline import (DSCCompress, Int8Wire,  # noqa: E402
                                        _seed_of, split_round_keys)
 from repro_torch.core.rounds import scenarios as sc  # noqa: E402
+from repro_torch import data as data_lib  # noqa: E402
 from repro_torch.data import lm_token_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import dsc_quantize as dq  # noqa: E402
@@ -249,6 +278,7 @@ from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import ref as wire_ref  # noqa: E402
 from repro_torch.launch import fl_train  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.serve import SamplingParams, ServeEngine, pages_for  # noqa: E402
 
@@ -658,6 +688,41 @@ def serving_phase(dev, seed, cfg, params, requests, settings):
     return launches, metrics
 
 
+class RouteSpy:
+    """Keeps every ``route_tokens`` call's top-k experts, dispatch and
+    combine weights, in layer order, of the forward run inside it (none
+    for a dense model): ``idxs[0]`` and ``disps[0]`` are layer 0's
+    routes.  With ``pin`` (another run's ``(disp, comb)`` list) each
+    call still records its own routes but returns the pinned ones."""
+
+    def __init__(self, pin=None):
+        self.pin = pin
+
+    def __enter__(self):
+        self.idxs, self.disps, self.routes = [], [], []
+        self._saved = (moe_lib.route_tokens, moe_lib.sorted_top_k)
+        route, top_k = self._saved
+
+        def spy_top_k(x, k):
+            vals, idx = top_k(x, k)
+            self.idxs.append(idx.detach().clone())
+            return vals, idx
+
+        def spy_route(*a, **kw):
+            disp, comb, aux = route(*a, **kw)
+            self.disps.append(disp.detach().clone())
+            self.routes.append((disp.detach().clone(), comb.detach().clone()))
+            if self.pin is not None:
+                disp, comb = self.pin[len(self.routes) - 1]
+            return disp, comb, aux
+
+        moe_lib.route_tokens, moe_lib.sorted_top_k = spy_route, spy_top_k
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.route_tokens, moe_lib.sorted_top_k = self._saved
+
+
 def replay_phase(dev, cfg, params, requests, settings, step_ms):
     """One decode step of a live engine state, through the kernel and
     through the plain version, on copies of the same pools; then a
@@ -670,24 +735,43 @@ def replay_phase(dev, cfg, params, requests, settings, step_ms):
     engine._schedule()
     tables, ctxs, toks, _ = engine._decode_batch()
 
-    def step(use_kernel):
+    def step(use_kernel, pin=None):
         pools = {n: t.clone() for n, t in engine.pools.items()}
-        logits, _ = tr.paged_decode_step(
-            engine.params, cfg, pools, tables, ctxs, toks,
-            window=engine.window, use_kernel=use_kernel)
-        return logits[:, 0].float()
+        with RouteSpy(pin) as spy:
+            logits, _ = tr.paged_decode_step(
+                engine.params, cfg, pools, tables, ctxs, toks,
+                window=engine.window, use_kernel=use_kernel)
+        return logits[:, 0].float(), spy
 
-    got, want = step(True), step(False)
+    # a moe step's plain replay takes the kernel step's expert slots and
+    # combine weights in every layer, so the two differ in attention only
+    # (bf16 attention moves near-tie routes, and at capacity 1 a moved
+    # route moves its batch's others; those rows are counted)
+    got, kernel_spy = step(True)
+    want, plain_spy = step(False, kernel_spy.routes if kernel_spy.routes
+                           else None)
     check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
           "non-finite logits in the replayed step")
     rel = float((got - want).norm() / want.norm())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    note = ""
+    if kernel_spy.routes:
+        moved = [bool((a != b).any()) for a, b in
+                 zip(kernel_spy.disps, plain_spy.disps)]
+        rows = torch.zeros(got.shape[0], dtype=torch.bool)
+        for a, b in zip(kernel_spy.disps, plain_spy.disps):
+            rows |= (a != b).flatten(2).any(-1).flatten().cpu()
+        note = (f"; the plain version's own routes differ in "
+                f"{sum(moved)} of {len(moved)} layers (first: "
+                f"{moved.index(True) if any(moved) else None}), "
+                f"{int(rows.sum())} of {len(rows)} rows; replayed with "
+                f"the kernel step's routes")
     check(rel <= LOGITS_REL_TOL,
           f"decode step logits, kernel vs plain: relative error {rel:.3e}")
     print(f"  replayed decode step at ctx {ctxs.tolist()}: logits kernel vs "
           f"plain relative error {rel:.3e} (tol {LOGITS_REL_TOL:g}), max abs "
           f"{float((got - want).abs().max()):.3e}, argmax agreement "
-          f"{agree:.3f}")
+          f"{agree:.3f}{note}")
     profile_steps(engine, cfg, tables, ctxs, toks, step_ms)
 
 
@@ -726,12 +810,12 @@ def profile_steps(engine, cfg, tables, ctxs, toks, step_ms):
               f"{e.count // steps:5d}x  {e.key[:80]}")
 
 
-def small_input_phase(dev, seed):
-    """qwen2-0.5b's smoke variant (GQA 4/2, qkv bias, tied embeddings) in
-    f32: greedy and sampled tokens on the card, through the kernel and
-    the threefry sampler, equal the host's plain-torch tokens, which the
-    CPU tests hold to the JAX reference."""
-    cfg = get_config("qwen2-0.5b").smoke()
+def small_input_phase(dev, seed, arch="qwen2-0.5b"):
+    """``arch``'s smoke variant in f32 (qwen2-0.5b's: GQA 4/2, qkv bias,
+    tied embeddings): greedy and sampled tokens on the card, through the
+    kernel and the threefry sampler, equal the host's plain-torch tokens,
+    which the CPU tests hold to the JAX reference."""
+    cfg = get_config(arch).smoke()
     requests = [(p, serve_lib.SAMPLED if i % 2 else SamplingParams())
                 for i, (p, _) in enumerate(serve_lib.random_requests(
                     cfg.vocab, 6, 5, 40, seed))]
@@ -745,8 +829,8 @@ def small_input_phase(dev, seed):
     b = serve_lib.serve(ServeEngine(cfg, host, settings, device="cpu"),
                         requests)
     check([o.tokens for o in a] == [o.tokens for o in b],
-          "qwen2-0.5b smoke: card and host tokens differ")
-    print(f"  qwen2-0.5b smoke f32: {len(a)} streams (greedy and sampled, "
+          f"{arch} smoke: card and host tokens differ")
+    print(f"  {arch} smoke f32: {len(a)} streams (greedy and sampled, "
           f"{serve_lib.SAMPLED}) on the card == on the host")
 
 
@@ -3008,6 +3092,216 @@ def audit_phase(dev, seed) -> dict:
     return totals
 
 
+# --------------------------------------------------------------- phase 14
+MOE_ARCH = "olmoe-1b-7b"
+# the round's cut: 4 of olmoe's 16 layers, n = 1,884,309,504 (under 2**31
+# as eris-gptneo-1.3b's); at 16 layers a round's weights, gradient and
+# two f32 vectors of n do not fit the card, and n passes 2**32
+MOE_ROUND_LAYERS = 4
+FEEDS = (("federated_population",
+          dict(population=10_000, samples_per_client=64, alpha=0.5)),
+         ("federated_classification",
+          dict(K=100, samples_per_client=64, alpha=0.1)))
+FEED_X_ATOL = 4e-6              # features: normal's ulps, |x| < 10
+MOE_GRAD_TOKENS = 128
+# olmoe's loss on 1 x 128 tokens, flash vs the plain chunked attention,
+# 16 layers of random bf16 weights (a flipped route moves that token a
+# long way; the share of first-layer flips is printed beside the gap)
+MOE_LOSS_REL_TOL = 1e-2
+INIT_CHECK = 4096               # w_gate elements recomputed on the host
+
+
+def _feed_phase(dev, seed) -> dict:
+    """(a) the non-IID feeds on the card and on the host from one key:
+    labels and the partition's indices equal, features within normal's
+    ulps, each call timed."""
+    key = random.PRNGKey(seed)
+    out = {}
+    for name, kw in FEEDS:
+        fn = getattr(data_lib, name)
+        got = {}
+        for where in (dev, torch.device("cpu")):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            x, y = fn(key, **kw, device=where)
+            torch.cuda.synchronize()
+            got[where.type] = (x.cpu(), y.cpu(), time.monotonic() - t0)
+        (xc, yc, tc), (xh, yh, th) = got["cuda"], got["cpu"]
+        _same(f"{name} labels", yc, yh)
+        err = float((xc - xh).abs().max())
+        check(err <= FEED_X_ATOL, f"{name}: features card vs host differ "
+              f"by {err:.3e} (atol {FEED_X_ATOL:g})")
+        # the partition itself, as each call draws it
+        n = x.shape[0] * x.shape[1] * (1 if name == "federated_population"
+                                       else 4)
+        parts = {}
+        for where in (dev, torch.device("cpu")):
+            if name == "federated_population":
+                kd, kp = random.split(key)
+                _, labels = data_lib.make_classification(kd, n, 16, 4,
+                                                         device=where)
+                parts[where.type] = data_lib.balanced_dirichlet_indices(
+                    kp, labels, kw["population"], kw["alpha"], 4).cpu()
+            else:
+                kd, kp, _ = random.split(key, 3)
+                _, labels = data_lib.make_classification(kd, n, 16, 4,
+                                                         device=where)
+                parts[where.type] = data_lib.dirichlet_partition(
+                    kp, labels, kw["K"], kw["alpha"], 4).cpu()
+        _same(f"{name} partition indices", parts["cuda"], parts["cpu"])
+        out[name] = dict(card_s=tc, host_s=th, x_max_abs_err=err,
+                         shape=list(x.shape))
+        print(f"  {name}({kw}): x {tuple(x.shape)}; labels and partition "
+              f"indices card == host, features within {err:.2e}; "
+              f"{tc:.2f} s on the card, {th:.2f} s on the host")
+    return out
+
+
+def _leaf_index(cfg, leaf: str) -> int:
+    """Leaf ``blocks/<leaf>``'s place in ``param_spec`` order: the i of
+    its ``fold_in(key, i)``."""
+    i = 0
+    for name, shape in tr.param_spec(cfg).items():
+        if name != "blocks":
+            i += 1
+            continue
+        for bn in shape:
+            if bn == leaf:
+                return i
+            i += 1
+    raise KeyError(leaf)
+
+
+def _moe_init(dev, seed, cfg) -> tuple:
+    """(b) ``init_params`` at full width on the card, timed, with its
+    peak; w_gate's 2**31 elements around 2**30 and at the end recomputed
+    on the host."""
+    _expect_free_card("before olmoe's init")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params = tr.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    count = sum(t.numel() for t in _leaves(params))
+    shape = tuple(params["blocks"]["w_gate"].shape)
+    n = math.prod(shape)
+    check(n == 2**31, f"olmoe's w_gate holds {n} elements, not 2**31")
+    key = random.fold_in(random.PRNGKey(seed), _leaf_index(cfg, "w_gate"))
+    scale = float(np.float32(shape[-2] ** -0.5))
+    flat = params["blocks"]["w_gate"].view(-1)
+    for lo, hi in ((2**30 - INIT_CHECK // 2, 2**30 + INIT_CHECK // 2),
+                   (n - INIT_CHECK, n)):
+        host = (random.normal(key, shape, device="cpu", window=(lo, hi))
+                * scale).to(flat.dtype)
+        _same(f"olmoe w_gate [{lo}, {hi}) card vs host", flat[lo:hi].cpu(),
+              host)
+    print(f"  init_params {cfg.name}: {count} params ({cfg.dtype}) in "
+          f"{secs:.2f} s on the card ({count / secs / 1e9:.2f} G params/s), "
+          f"peak {peak:.2f} GB; w_gate (2**31 elements) around 2**30 and "
+          f"its last {INIT_CHECK} == the host's draws")
+    return params, dict(seconds=secs, params=count, peak_gb=peak)
+
+
+def _moe_grad(dev, seed, cfg, params) -> dict:
+    """(d) one full-width gradient on 1 x 128 tokens, flash on and off."""
+    off = dataclasses.replace(cfg, flash_attention=False)
+    check(tr.uses_flash_kernel(cfg, MOE_GRAD_TOKENS),
+          f"{cfg.name}: {MOE_GRAD_TOKENS} tokens do not take flash")
+    toks = lm_token_batches(random.fold_in(random.PRNGKey(seed), 3), 1, 1,
+                            MOE_GRAD_TOKENS, cfg.vocab, device=dev)[0]
+    _client_grad(off, params, toks[:, :64])    # cuBLAS handles
+    res = {}
+    for c in (cfg, off):
+        _set_round_launches(0)
+        with RouteSpy() as spy:
+            grads, loss, ms, peak = _client_grad(c, params, toks)
+        finite = all(bool(g.isfinite().all()) for g in grads)
+        del grads
+        check(finite and math.isfinite(loss),
+              f"{cfg.name} gradient (flash {c.flash_attention}) not finite")
+        if c.flash_attention:
+            _check_tensor_cores(f"{cfg.name} flash gradient", cfg.n_layers,
+                                True)
+            for k in FLASH:
+                check(FLASH[k].launches == cfg.n_layers,
+                      f"{cfg.name} gradient: {k} launched "
+                      f"{FLASH[k].launches} times, want {cfg.n_layers}")
+        res[c.flash_attention] = dict(loss=loss, ms=ms, peak_gb=peak,
+                                      idx=spy.idxs[0], disp=spy.disps[0])
+    on, pl = res[True], res[False]
+    idx_diff = float((on["idx"] != pl["idx"]).float().mean())
+    disp_diff = float((on["disp"] != pl["disp"]).flatten(2).any(-1)
+                      .float().mean())
+    gap = abs(on["loss"] - pl["loss"]) / abs(pl["loss"])
+    out = dict(tokens=MOE_GRAD_TOKENS, loss_flash=on["loss"],
+               loss_plain=pl["loss"], loss_rel_gap=gap,
+               flash_ms=on["ms"], plain_ms=pl["ms"],
+               flash_peak_gb=on["peak_gb"], plain_peak_gb=pl["peak_gb"],
+               first_layer_idx_differ=idx_diff,
+               first_layer_dispatch_differ=disp_diff)
+    print(f"  {cfg.name} gradient on 1 x {MOE_GRAD_TOKENS} tokens: loss "
+          f"flash {on['loss']:.5f} / plain {pl['loss']:.5f} (relative gap "
+          f"{gap:.2e}, tol {MOE_LOSS_REL_TOL:g}); first-layer routes that "
+          f"differ: top-k experts {100 * idx_diff:.2f}% of (token, choice), "
+          f"dispatch rows {100 * disp_diff:.2f}% of tokens; {on['ms']:.1f} "
+          f"ms flash, {pl['ms']:.1f} ms plain; peak above the params "
+          f"{on['peak_gb']:.2f} / {pl['peak_gb']:.2f} GB")
+    check(gap <= MOE_LOSS_REL_TOL, f"{cfg.name} loss flash vs plain: "
+          f"relative gap {gap:.3e}")
+    return out
+
+
+def moe_phase(dev, seed) -> tuple:
+    """Phase 14: the non-IID feeds, the reference's init draws and the MoE
+    family on olmoe-1b-7b.  Returns (the paged kernel's launches while
+    serving, the round kernels' launches over (e)'s rounds)."""
+    parts = {}
+    t0 = time.monotonic()
+    results = {"feeds": _feed_phase(dev, seed)}
+    parts["a feeds"] = time.monotonic() - t0
+    cfg = get_config(MOE_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.flash_attention,
+          f"{MOE_ARCH}: {cfg.dtype}, flash {cfg.flash_attention}")
+
+    t0 = time.monotonic()
+    params, results["init"] = _moe_init(dev, seed, cfg)
+    parts["b init"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    requests = serve_lib.random_requests(cfg.vocab, REQUESTS, PROMPT_MIN,
+                                         PROMPT_MAX, seed)
+    settings = serve_lib.settings_for(requests, GEN, REQUESTS,
+                                      cache_dtype="bfloat16")
+    paged, metrics = serving_phase(dev, seed, cfg, params, requests,
+                                   settings)
+    results["serving"] = metrics
+    replay_phase(dev, cfg, params, requests, settings,
+                 metrics["decode_step_ms_median"])
+    small_input_phase(dev, seed, MOE_ARCH)
+    parts["c serving"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    results["gradient"] = _moe_grad(dev, seed, cfg, params)
+    parts["d gradient"] = time.monotonic() - t0
+    del params
+
+    t0 = time.monotonic()
+    totals = {name: 0 for name in ROUND}
+    cut = dataclasses.replace(cfg, n_layers=MOE_ROUND_LAYERS)
+    results["round"] = _matrix_config(
+        dev, seed, cut, f"e {MOE_ARCH} {MOE_ROUND_LAYERS} layers eris int8",
+        dict(method="eris", int8_wire=True), 2, totals)
+    parts["e round"] = time.monotonic() - t0
+    _expect_free_card("after the moe round")
+    results["seconds"] = parts
+    print("moe " + json.dumps(results))
+    print("  phase 14 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return paged, totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3088,7 +3382,13 @@ def main() -> None:
     for name in round_launches:
         round_launches[name] += audit_launches[name]
 
-    phase("14 result")
+    phase("14 non-IID feeds, init and MoE: olmoe-1b-7b at full width")
+    moe_paged, moe_launches = moe_phase(dev, args.seed)
+    launches += moe_paged
+    for name in round_launches:
+        round_launches[name] += moe_launches[name]
+
+    phase("15 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -7,8 +7,9 @@ leaf-for-leaf copy (``repro_torch.convert``).  The reference scans the
 layer axis with ``lax.scan``; here a Python loop walks it.
 
 Families: the dense decoder (and ``audio``, whose language model is the
-same dense stack).  moe, hybrid, ssm and vlm come with the slice that
-ports the rest of the model zoo.  Training (``mode="train"``, ``loss_fn``)
+same dense stack) and ``moe``, whose blocks swap the FFN for the routed
+experts of ``models/moe.py``.  hybrid, ssm and vlm are ROADMAP queue
+1.9.  Training (``mode="train"``, ``loss_fn``)
 runs through PyTorch autograd.  Its attention is routed as the
 reference routes it: with ``cfg.flash_attention`` (the default) every
 shape that the 128-blocks tile goes through the flash-attention kernels
@@ -18,29 +19,36 @@ through the plain chunked ``causal_attention``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, random, resolve_device
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 
-_FAMILIES = ("dense", "audio")
+_FAMILIES = ("dense", "audio", "moe")
 
 # the dtypes the paged kernel takes, for params and for the cache
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# init_params' window on the host: its int64 temporaries (128 KB) are
+# reused by the allocator, where 2**24-element ones are fresh pages each
+# op (on one thread, about twice as fast)
+HOST_WINDOW = 1 << 14
 
 
 def _require_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port serves {_FAMILIES}; moe/hybrid/ssm/vlm come with the "
-            f"slice that ports the rest of the model zoo")
+            f"port runs {_FAMILIES}; ssm, hybrid and vlm are ROADMAP "
+            f"queue 1.9")
 
 
 # ============================================================ param spec
@@ -56,7 +64,13 @@ def param_spec(cfg: ModelConfig) -> dict:
         blk.update(bq=(Lyr, Q), bk=(Lyr, KV), bv=(Lyr, KV))
     if cfg.qk_norm:
         blk.update(q_norm=(Lyr, hd), k_norm=(Lyr, hd))
-    blk.update(w_gate=(Lyr, D, F_), w_up=(Lyr, D, F_), w_down=(Lyr, F_, D))
+    if cfg.family == "moe":
+        E = cfg.n_experts
+        blk.update(router=(Lyr, D, E), w_gate=(Lyr, E, D, F_),
+                   w_up=(Lyr, E, D, F_), w_down=(Lyr, E, F_, D))
+    else:
+        blk.update(w_gate=(Lyr, D, F_), w_up=(Lyr, D, F_),
+                   w_down=(Lyr, F_, D))
     spec = {"embed": (V, D), "ln_f": (D,), "blocks": blk}
     if not cfg.tie_embeddings:
         spec["lm_head"] = (D, V)
@@ -64,41 +78,70 @@ def param_spec(cfg: ModelConfig) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> dict:
-    """Random params at the config's width, made on ``device``.
-
-    Norm scales are ones, biases zeros, and every matrix N(0, 1) scaled by
-    fan_in**-0.5 (fan_in = the second-to-last dim), as the reference.
-    Leaf i draws from its own generator seeded with (seed, i), the
-    counterpart of ``fold_in(key, i)``: a leaf's values do not depend on
-    the shapes of the others.  The draws are torch's, not JAX's."""
+                device: DeviceLike = None, *,
+                key: Optional[torch.Tensor] = None) -> dict:
+    """The reference's ``init_params(PRNGKey(seed), cfg)`` (or
+    ``init_params(key, cfg)`` when a threefry ``key`` is given), made on
+    ``device``: norm scales ones, biases zeros, and every matrix
+    ``normal(fold_in(key, i), shape, f32) * f32(fan_in ** -0.5)`` cast to
+    the config's dtype, leaf i in ``param_spec`` order, fan_in the
+    second-to-last dim.  The threefry draws are jax's bits; ``normal``'s
+    erfinv agrees with XLA's to a few ulps.  Each leaf is drawn a window
+    at a time into its final dtype, so no leaf-sized int64 or f32
+    temporary is held: ``random.CHUNK`` elements on a card; on the host
+    :data:`HOST_WINDOW`, on one thread (:func:`_one_thread`)."""
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
+    key = random.PRNGKey(seed) if key is None else key
+    window = random.CHUNK if device.type == "cuda" else HOST_WINDOW
 
     def one(idx, name, shape):
         if name.startswith(("ln", "q_norm", "k_norm")):
             return torch.ones(shape, dtype=dtype, device=device)
         if name.startswith("b"):
             return torch.zeros(shape, dtype=dtype, device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed * 1_000_003 + idx)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device)
-        return (w * fan_in ** -0.5).to(dtype)
+        scale = float(np.float32(fan_in ** -0.5))
+        leaf_key = random.fold_in(key, idx)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        flat = out.view(-1)
+        for lo in range(0, flat.numel(), window):
+            hi = min(flat.numel(), lo + window)
+            flat[lo:hi] = random.normal(leaf_key, shape, device=device,
+                                        window=(lo, hi)) * scale
+        return out
 
     params: dict = {}
     idx = 0
-    for name, shape in param_spec(cfg).items():
-        if name == "blocks":
-            params["blocks"] = {}
-            for bn, bshape in shape.items():
-                params["blocks"][bn] = one(idx, bn, bshape)
+    with _one_thread(device):
+        for name, shape in param_spec(cfg).items():
+            if name == "blocks":
+                params["blocks"] = {}
+                for bn, bshape in shape.items():
+                    params["blocks"][bn] = one(idx, bn, bshape)
+                    idx += 1
+            else:
+                params[name] = one(idx, name, shape)
                 idx += 1
-        else:
-            params[name] = one(idx, name, shape)
-            idx += 1
     return params
+
+
+@contextlib.contextmanager
+def _one_thread(device: torch.device):
+    """torch's host ops on one thread inside, on the host.  A threefry
+    draw is ~250 elementwise ops a window, and split over the intra-op
+    thread pool each one waits at the pool's barrier: where several such
+    processes share the cores (a test runner's workers) the waits
+    dominate, by two orders of magnitude."""
+    if device.type != "cpu":
+        yield
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _layer(params: dict, i: int) -> dict:
@@ -163,13 +206,23 @@ def _gated_mlp(h, w_gate, w_up, w_down):
 
 
 def _ffn(cfg: ModelConfig, lp: dict, x):
+    """The block's FFN with its residual: the gated MLP, or for moe the
+    routed experts (``models/transformer.py:400-406``).  Returns (x,
+    aux), aux holding moe's ``load_balance`` and ``dropped_frac``."""
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if cfg.family == "moe":
+        y, aux = moe_lib.moe_ffn(h, lp["router"], lp["w_gate"], lp["w_up"],
+                                 lp["w_down"], top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor,
+                                 group=cfg.moe_group_size)
+        return x + y, aux
+    return x + _gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"]), {}
 
 
 def _block(cfg: ModelConfig, lp: dict, x, positions, window, train: bool):
     x, kv = _attn(cfg, lp, x, positions, window, train)
-    return _ffn(cfg, lp, x), {"kv": kv}
+    x, aux = _ffn(cfg, lp, x)
+    return x, {"kv": kv}, aux
 
 
 # ================================================================ forward
@@ -225,10 +278,12 @@ def _forward(params, cfg, tokens, window, keep_cache: bool,
         x = inputs_embeds
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    ks, vs = [], []
+    ks, vs, lb = [], [], []
     for lp in _layers(params):
-        x, cache = _block(cfg, lp, x, positions, window,
-                          train=not keep_cache)
+        x, cache, aux = _block(cfg, lp, x, positions, window,
+                               train=not keep_cache)
+        lb.append(aux.get("load_balance",
+                          torch.zeros((), device=x.device)))
         if keep_cache:
             ks.append(cache["kv"]["k"])
             vs.append(cache["kv"]["v"])
@@ -236,7 +291,8 @@ def _forward(params, cfg, tokens, window, keep_cache: bool,
     logits = x @ _head(params, cfg)
     caches = ({"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
               if keep_cache else None)
-    return logits, caches, {"load_balance": torch.zeros((), device=x.device)}
+    # the reference's scan stacks each layer's load_balance and means it
+    return logits, caches, {"load_balance": torch.stack(lb).mean()}
 
 
 def _select_logit(pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
@@ -252,9 +308,12 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
     S, D)]).  Next-token CE with f32 logits unless the config keeps them
     in the compute dtype."""
     tokens = batch["tokens"]
-    logits, _, _ = forward(params, cfg, tokens, "train", window,
-                           inputs_embeds=batch.get("inputs_embeds"))
-    return _ce(cfg, logits, tokens, batch.get("loss_mask"))
+    logits, _, aux = forward(params, cfg, tokens, "train", window,
+                             inputs_embeds=batch.get("inputs_embeds"))
+    nll = _ce(cfg, logits, tokens, batch.get("loss_mask"))
+    if cfg.family == "moe":
+        nll = nll + 0.01 * aux["load_balance"]
+    return nll
 
 
 def _ce(cfg: ModelConfig, logits, tokens, loss_mask):
@@ -361,6 +420,6 @@ def paged_decode_step(params: dict, cfg: ModelConfig, pools: dict,
         lp = _layer(params, i)
         x = _attn_paged(cfg, lp, x, positions, pools["k"][i], pools["v"][i],
                         block_tables, context_lens, window, use_kernel)
-        x = _ffn(cfg, lp, x)
+        x, _ = _ffn(cfg, lp, x)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ _head(params, cfg), pools

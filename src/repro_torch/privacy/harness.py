@@ -13,8 +13,8 @@ Everything is keyed on an :class:`AuditSpec`.  The draws are the
 reference's threefry stream (``repro_torch.random``): the canaries and
 the MLP's Gaussian inputs and weights equal the reference's, the
 Gaussians to a few ulps (``random.normal``).  A transformer's params come
-from the port's ``init_params``: a caller that needs the reference's
-passes them as ``params0`` (``convert.params_from_jax``).  Every entry
+from ``init_params`` on the reference's key (its threefry draws, within
+``normal``'s ulps); a caller may pass its own as ``params0``.  Every entry
 point runs on the CUDA card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -344,7 +344,7 @@ def lm_canary_problem(cfg, spec: AuditSpec, seq: int = 16, params0=None,
     """Token-sequence canaries for a transformer: random sequences, the
     member half trains as client 0's corpus (low-data memorization
     regime), the non-member half is held out.  ``params0`` defaults to
-    the port's ``init_params(cfg, seed=spec.seed)``."""
+    the reference's ``init_params(PRNGKey(spec.seed))``."""
     from repro_torch.models import transformer as tr
     device = resolve_device(device)
     key = random.PRNGKey(spec.seed)
@@ -384,8 +384,9 @@ def dlg_lm(cfg, A_values, wire: str = "f32", seed: int = 0, seq: int = 8,
     """DLG against a transformer: reconstruct the continuous input
     embeddings of one training sequence from the observed (masked,
     wire-formatted) parameter gradient via ``forward(inputs_embeds=...)``.
-    ``params0`` defaults to the port's ``init_params(cfg, seed=seed)``.
-    Returns {A: scale-invariant MSE vs the true embeddings}."""
+    ``params0`` defaults to the reference's ``init_params(fold_in(
+    PRNGKey(seed), 1))``.  Returns {A: scale-invariant MSE vs the true
+    embeddings}."""
     runs, emb_true = dlg_lm_runs(cfg, A_values, wire, seed, seq, steps, lr,
                                  params0, device)
     return {A: privacy.reconstruction_mse(rec["reconstruction"][0],
@@ -402,7 +403,8 @@ def dlg_lm_runs(cfg, A_values, wire: str = "f32", seed: int = 0,
     device = resolve_device(device)
     key = random.PRNGKey(seed)
     if params0 is None:
-        params0 = tr.init_params(cfg, seed=seed, device=device)
+        params0 = tr.init_params(cfg, device=device,
+                                 key=random.fold_in(key, 1))
     x_flat, unravel = ravel_params(params0)
     tokens = random.randint(random.fold_in(key, 2), (1, seq), 0, cfg.vocab,
                             device=device)

@@ -19,7 +19,8 @@ False: the layout of the jax 0.4 that CI pins):
   (padded with one 0 when n is odd) are cut into halves and hashed in
   pairs, element i with element i + ceil(n / 2); element i keeps the
   first output word if it lies in the first half, the second otherwise.
-  ``split`` uses the same layout over 2 * num counters.
+  ``split`` uses the same layout over 2 * num counters.  A draw of
+  2**32 - 1 or more counters goes block by block (:func:`_bits_window`).
 
 Large draws.  ``bits``, ``uniform``, ``bernoulli``, ``randint`` and
 ``normal`` take a ``window``:
@@ -33,7 +34,10 @@ that is what the reference runs: ``uniform``'s ``floats * (max - min) +
 min`` is one fused multiply-add, and ``choice`` takes XLA's blocked
 cumulative sum (:func:`cumsum`).  ``gumbel`` and ``normal`` go through
 ``log`` and ``erfinv``, whose last bits differ between XLA and torch:
-they agree with jax to a few ulps, not bit for bit.
+they agree with jax to a few ulps, not bit for bit.  So do ``gamma``,
+``loggamma`` and ``dirichlet``, which add ``log``, ``log1p``, ``pow`` and
+``exp``; their results below f32's smallest normal are flushed to zero,
+as XLA's CPU code flushes subnormals.
 """
 from __future__ import annotations
 
@@ -124,13 +128,9 @@ def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
 
 # ------------------------------------------------------------------ bits
 def _iota_hash(k1, k2, n: int, lo: int, hi: int, device) -> torch.Tensor:
-    """Elements [lo, hi) of ``threefry_2x32(key, iota(n))``, the original
-    layout: counter i pairs with i + ceil(n / 2), and an odd n pads the
-    second half with one 0."""
-    if n >= MASK:
-        raise NotImplementedError(
-            "the original threefry layout over 2**32 - 1 or more counters "
-            "splits the key into blocks; not ported yet (ROADMAP queue 1.2)")
+    """Elements [lo, hi) of ``threefry_2x32(key, iota(n))``, n < 2**32:
+    counter i pairs with i + ceil(n / 2), and an odd n pads the second
+    half with one 0."""
     half = (n + 1) // 2
     i = torch.arange(lo, hi, dtype=torch.int64, device=device)
     first = i < half
@@ -141,13 +141,40 @@ def _iota_hash(k1, k2, n: int, lo: int, hi: int, device) -> torch.Tensor:
     return torch.where(first, y1, y2)
 
 
+def _block_key(k1, k2, nkeys: int, b: int, device):
+    """Key b of the original layout's ``split(key, nkeys)``: elements 2b
+    and 2b + 1 of ``threefry_2x32(key, iota(2 * nkeys))``."""
+    w = _iota_hash(k1, k2, 2 * nkeys, 2 * b, 2 * b + 2, device)
+    if w.dim() == 1:
+        return int(w[0]), int(w[1])
+    return w[:, :1], w[:, 1:]
+
+
 def _bits_window(k1, k2, n: int, lo: int, hi: int, device) -> torch.Tensor:
-    """Flat elements [lo, hi) of a 32-bit draw of n elements."""
+    """Flat elements [lo, hi) of a 32-bit draw of n elements.
+
+    The original layout hashes at most 2**32 - 1 counters at once: from
+    that count on (``prng._threefry_random_bits_original``) the key is
+    split into nblocks + 1 keys, block b < nblocks is
+    ``threefry_2x32(key b, iota(2**32 - 1))`` and the last block hashes
+    the remaining n mod (2**32 - 1) counters (none when n is a multiple)."""
     if partitionable:
         i = torch.arange(lo, hi, dtype=torch.int64, device=device)
         y1, y2 = threefry2x32(k1, k2, i >> 32, i & MASK)
         return y1 ^ y2
-    return _iota_hash(k1, k2, n, lo, hi, device)
+    if n < MASK:
+        return _iota_hash(k1, k2, n, lo, hi, device)
+    nblocks, rem = divmod(n, MASK)
+    parts = []
+    for b in range(lo // MASK, (hi - 1) // MASK + 1 if hi > lo else 0):
+        start = b * MASK
+        bk1, bk2 = _block_key(k1, k2, nblocks + 1, b, device)
+        size = MASK if b < nblocks else rem
+        parts.append(_iota_hash(bk1, bk2, size, max(lo, start) - start,
+                                min(hi, start + MASK) - start, device))
+    if not parts:
+        return _iota_hash(k1, k2, 1, 0, 0, device)
+    return torch.cat(parts, -1)
 
 
 def _shape(shape: Shape) -> Tuple[int, ...]:
@@ -388,3 +415,130 @@ def choice(key: torch.Tensor, a: int, shape: Shape = (), *,
     cum = cumsum(p.float().to(device))
     r = cum[-1] * (1.0 - uniform(key, shape, device=device))
     return torch.searchsorted(cum, r.reshape(-1)).reshape(r.shape)
+
+
+# ------------------------------------------------------- gamma, Dirichlet
+_SQUEEZE = float(np.float32(0.0331))
+_THIRD = float(np.float32(1.0 / 3.0))
+
+
+def exponential(key: torch.Tensor, shape: Shape = (), *, device=None,
+                window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``jax.random.exponential`` in f32: ``-log1p(-u)``, u uniform in
+    [0, 1)."""
+    return -torch.log1p(-uniform(key, shape, device=device, window=window))
+
+
+def _rejected(X, V, U, d):
+    """``_gamma_one``'s loop condition: True while the draw is still
+    rejected (the squeeze test and the log test both fail).  XLA fuses
+    ``1 - 0.0331 * X**2`` into one multiply-add; in ``X / 2 + d * (...)``
+    the half is exact, so fused or not it rounds the same."""
+    one = torch.ones_like(X)
+    squeeze = U >= fma_f32(-_SQUEEZE, X * X, one)
+    return squeeze & (torch.log(U) >= fma_f32(
+        X, torch.full_like(X, 0.5), d * ((1.0 - V) + torch.log(V))))
+
+
+def _gamma_one(keys: torch.Tensor, alpha: torch.Tensor, log_space: bool
+               ) -> torch.Tensor:
+    """``jax._src.random._gamma_one`` (Marsaglia-Tsang) for a batch: keys
+    (n, 2), alpha (n,) f32, on one device.  Each element runs its own
+    rejection loop on its own key; the loops run together, each pass over
+    the elements still rejected, until every one is accepted."""
+    one = torch.ones_like(alpha)
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - _THIRD
+    c = _THIRD / torch.sqrt(d)
+    ks = split(keys)
+    key, subkey = ks[:, 0].contiguous(), ks[:, 1]
+    X, V, U = torch.zeros_like(a), one.clone(), torch.full_like(a, 2.0)
+    todo = torch.arange(a.numel(), device=a.device)
+    while todo.numel():
+        k3 = split(key[todo], 3)
+        key[todo] = k3[:, 0]
+        x, v = _gamma_normal(k3[:, 1].contiguous(), c[todo])
+        X[todo], V[todo] = x * x, (v * v) * v
+        U[todo] = uniform(k3[:, 2].contiguous(), ())
+        todo = todo[_rejected(X[todo], V[todo], U[todo], d[todo])]
+    if log_space:
+        logs = -exponential(subkey.contiguous(), ())
+        lb = torch.where(boost | (logs == 0), torch.zeros_like(logs),
+                         logs * (1.0 / alpha))
+        return (torch.log(d) + torch.log(V)) + lb
+    samples = 1.0 - uniform(subkey.contiguous(), ())
+    b = torch.where(boost, one, _ftz(_powf(samples, 1.0 / alpha)))
+    return _ftz((d * V) * b)
+
+
+def _gamma_normal(keys: torch.Tensor, c: torch.Tensor):
+    """The inner loop of ``_gamma_one``: redraw ``x = normal`` from the
+    key's split until ``v = 1 + x * c`` (one multiply-add) is positive."""
+    x = torch.zeros_like(c)
+    v = torch.full_like(c, -1.0)
+    todo = torch.arange(c.numel(), device=c.device)
+    while todo.numel():
+        s = split(keys[todo])
+        keys[todo] = s[:, 0]
+        xx = normal(s[:, 1].contiguous(), ())
+        vv = fma_f32(xx, c[todo], torch.ones_like(xx))
+        x[todo], v[todo] = xx, vv
+        todo = todo[vv <= 0]
+    return x, v
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal f32 values flushed to (signed) zero, as XLA's CPU code
+    runs with flush-to-zero on."""
+    return torch.where(x.abs() < _TINY, x * 0.0, x)
+
+
+def _powf(base: torch.Tensor, exp: torch.Tensor) -> torch.Tensor:
+    """f32 ``pow`` elementwise, taken in double and rounded to f32."""
+    return torch.pow(base.double(), exp.double()).float()
+
+
+def _gamma(key, a, shape, device, log_space: bool) -> torch.Tensor:
+    device = key.device if device is None else torch.device(device)
+    a = torch.as_tensor(a, dtype=torch.float32, device=device)
+    shape = tuple(a.shape) if shape is None else _shape(shape)
+    alpha = a.broadcast_to(shape).reshape(-1)
+    n = alpha.numel()
+    keys = split(key, n).reshape(n, 2).to(device)
+    return _gamma_one(keys, alpha, log_space).reshape(shape)
+
+
+def gamma(key: torch.Tensor, a, shape: Optional[Shape] = None, *,
+          device=None) -> torch.Tensor:
+    """``jax.random.gamma(key, a, shape)`` in f32: element i (row-major
+    over ``shape``, a broadcast to it) runs ``_gamma_one`` on key i of
+    ``split(key, prod(shape))``."""
+    return _gamma(key, a, shape, device, log_space=False)
+
+
+def loggamma(key: torch.Tensor, a, shape: Optional[Shape] = None, *,
+             device=None) -> torch.Tensor:
+    """``jax.random.loggamma``: the log of :func:`gamma`'s draw, computed
+    in log space (the same keys and loop)."""
+    return _gamma(key, a, shape, device, log_space=True)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis of an f32 tensor:
+    ``exp(x - max) / sum``."""
+    e = _ftz(torch.exp(x - x.amax(-1, keepdim=True)))
+    return _ftz(e / e.sum(-1, keepdim=True))
+
+
+def dirichlet(key: torch.Tensor, alpha, shape: Optional[Shape] = None, *,
+              device=None) -> torch.Tensor:
+    """``jax.random.dirichlet(key, alpha, shape)`` in f32: ``loggamma``
+    over ``shape + alpha.shape[-1:]``, then ``softmax`` over the last
+    axis."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32)
+    if alpha.dim() < 1:
+        raise ValueError("dirichlet requires alpha.ndim >= 1")
+    shape = tuple(alpha.shape[:-1]) if shape is None else _shape(shape)
+    return _softmax(loggamma(key, alpha, shape + tuple(alpha.shape[-1:]),
+                            device=device))

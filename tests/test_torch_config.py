@@ -76,7 +76,8 @@ def test_hash_and_uniform_bit_exact():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "eris-gptneo-1.3b",
-                                  "musicgen-medium", "qwen3-32b"])
+                                  "musicgen-medium", "qwen3-32b",
+                                  "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"])
 def test_param_spec_and_init_match_reference_layout(arch):
     cfg = configs.get_config(arch).smoke()
     ref_spec = ref_tr.param_spec(ref_configs.get_config(arch).smoke())
@@ -96,9 +97,13 @@ def test_param_spec_and_init_match_reference_layout(arch):
 
 
 def test_unported_families_name_their_slice():
-    for arch in ("olmoe-1b-7b", "xlstm-350m", "hymba-1.5b"):
-        with pytest.raises(NotImplementedError, match="slice"):
+    """ssm, hybrid and vlm raise naming ROADMAP queue 1.9 (moe runs
+    since the slice that ported ``models/moe.py``)."""
+    for arch in ("xlstm-350m", "hymba-1.5b", "internvl2-26b"):
+        with pytest.raises(NotImplementedError, match="queue 1.9"):
             tr.param_spec(configs.get_config(arch).smoke())
+    assert "router" in tr.param_spec(
+        configs.get_config("olmoe-1b-7b").smoke())["blocks"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

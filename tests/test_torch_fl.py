@@ -271,17 +271,23 @@ def test_dsc_aggregate_equals_reference():
 
 def test_unported_paths_name_their_queue(monkeypatch):
     """The round's configurations all run since the round matrix came
-    (``tests/test_torch_rounds.py`` steps the six that raised here); what
-    the simulator's inputs still lack raises naming its queue: the
-    Dirichlet population (jax's gamma sampler) and the original threefry
-    layout's draws over 2**32 - 1 or more counters (the LDP noise of
-    three full-width clients), both ROADMAP queue 1.2."""
+    (``tests/test_torch_rounds.py`` steps the six that raised here), and
+    the simulator's inputs that raised here, naming ROADMAP queue 1.2,
+    run since the key stream's remainder came: the Dirichlet split
+    (jax's gamma sampler; ``tests/test_torch_data.py`` holds it to the
+    reference) and the original threefry layout's draws over 2**32 - 1
+    or more counters (the LDP noise of three full-width clients;
+    ``tests/test_torch_gamma.py`` holds its blocks to jax)."""
     from repro_torch import data
-    with pytest.raises(NotImplementedError, match="queue 1.2"):
-        data.federated_classification(random.PRNGKey(0), K, 8, alpha=0.5)
+    x, y = data.federated_classification(random.PRNGKey(0), K, 8, alpha=0.5)
+    assert x.shape == (K, 8, 16) and y.shape == (K, 8)
     monkeypatch.setattr(random, "partitionable", False)
-    with pytest.raises(NotImplementedError, match="queue 1.2"):
-        random.normal(random.PRNGKey(0), (3, 1_816_565_760), window=(0, 8))
+    shape, edge = (3, 1_816_565_760), 2**32 - 1
+    noise = random.normal(random.PRNGKey(0), shape, window=(edge - 4,
+                                                            edge + 4))
+    assert torch.isfinite(noise).all() and noise.shape == (8,)
+    assert torch.equal(noise[4:], random.normal(
+        random.PRNGKey(0), shape, window=(edge, edge + 4)))
     p0 = {k: torch.from_numpy(v) for k, v in _mlp_params().items()}
     for kw in (dict(agg_dropout=0.1), dict(method="fedbuff"),
                dict(method="soteriafl")):
@@ -358,10 +364,10 @@ def test_flrun_round_keys_and_kernel_seeds_equal_reference(flag, monkeypatch):
 
 
 # ---------------------------------------------------- model, flattening
-def _smoke_pair(dtype="float32", flash=False):
-    ref_cfg = dataclasses.replace(ref_get_config("eris-gptneo-1.3b").smoke(),
+def _smoke_pair(dtype="float32", flash=False, arch="eris-gptneo-1.3b"):
+    ref_cfg = dataclasses.replace(ref_get_config(arch).smoke(),
                                   flash_attention=flash, dtype=dtype)
-    cfg = dataclasses.replace(get_config("eris-gptneo-1.3b").smoke(),
+    cfg = dataclasses.replace(get_config(arch).smoke(),
                               flash_attention=flash, dtype=dtype)
     p = ref_tr.init_params(jax.random.PRNGKey(0), ref_cfg)
     return ref_cfg, cfg, p, params_from_jax(jax.tree.map(np.asarray, p),
@@ -382,14 +388,25 @@ def test_ravel_params_order_equals_ravel_pytree(dtype):
     assert torch.equal(back["embed"], pt["embed"])
 
 
-@pytest.mark.parametrize("flash", [False, True])
-def test_loss_and_every_grad_match_reference(flash):
-    """eris-gptneo-1.3b's smoke variant in f32, flash attention off or on
+# the zoo's dense and audio members: eris-gptneo-1.3b flash off and on,
+# the others flash off but starcoder2-3b (flash is held in its own tests,
+# and the Pallas kernels' interpret mode is slow)
+ZOO_GRAD_CASES = [("eris-gptneo-1.3b", False), ("eris-gptneo-1.3b", True),
+                  ("qwen3-32b", False), ("musicgen-medium", False),
+                  ("starcoder2-3b", True), ("starcoder2-15b", False)]
+
+
+@pytest.mark.parametrize(
+    "arch,flash", ZOO_GRAD_CASES,
+    ids=[str(f) if a == "eris-gptneo-1.3b" else f"{a}-{f}"
+         for a, f in ZOO_GRAD_CASES])
+def test_loss_and_every_grad_match_reference(arch, flash):
+    """A zoo member's smoke variant in f32, flash attention off or on
     on both sides (on: the reference's Pallas kernels in interpret mode,
     the port's Function through its plain versions): the loss and the
     gradient of every leaf within 1e-5 relative norm, with and without a
     loss mask."""
-    ref_cfg, cfg, p, pt = _smoke_pair(flash=flash)
+    ref_cfg, cfg, p, pt = _smoke_pair(flash=flash, arch=arch)
     rng = np.random.default_rng(6)
     toks = rng.integers(0, cfg.vocab, size=(2, 16)).astype(np.int32)
     mask = (rng.random((2, 16)) < 0.7).astype(np.float32)

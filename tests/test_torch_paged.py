@@ -369,6 +369,8 @@ def _cfg(arch):
 @pytest.mark.parametrize("arch,window", [
     ("qwen2-0.5b", None), ("qwen2-0.5b", 8),
     ("eris-gptneo-1.3b", None), ("eris-gptneo-1.3b", 8),
+    ("qwen3-32b", None), ("musicgen-medium", None),
+    ("starcoder2-3b", 8), ("starcoder2-15b", None),
 ])
 def test_paged_decode_step_matches_reference(arch, window):
     """Two batched decode steps through random pools: rows at ragged

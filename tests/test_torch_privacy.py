@@ -331,6 +331,33 @@ def test_harness_problems_draw_the_references_inputs():
                                   np.asarray(b_want["tokens"]))
 
 
+def test_harness_default_transformer_params_are_the_references():
+    """Without ``params0`` the transformer problems start from the
+    reference's params: ``lm_canary_problem`` from ``init_params(PRNGKey(
+    seed))``, DLG from ``init_params(fold_in(PRNGKey(seed), 1))`` (its
+    true embeddings are rows of that init's table), within ``normal``'s
+    ulps (4, and the scale's rounding: 1e-6 absolute here)."""
+    spec = harness.AuditSpec(A=2, rounds=2, seed=5)
+    cfg, ref_cfg = harness.tiny_lm_config(), ref_harness.tiny_lm_config()
+    got = harness.lm_canary_problem(cfg, spec, device=CPU)[0]
+    want = ref_harness.lm_canary_problem(ref_cfg,
+                                         ref_harness.AuditSpec(seed=5))[0]
+    np.testing.assert_allclose(
+        ravel_params(got)[0].numpy(),
+        np.asarray(jax.flatten_util.ravel_pytree(want)[0]), rtol=0,
+        atol=1e-6)
+    _, emb_true = harness.dlg_lm_runs(cfg, [1], seed=3, seq=8, steps=1,
+                                      device=CPU)
+    from repro.models import transformer as ref_tr
+    key = jax.random.PRNGKey(3)
+    ref_p = ref_tr.init_params(jax.random.fold_in(key, 1), ref_cfg)
+    toks = jax.random.randint(jax.random.fold_in(key, 2), (1, 8), 0,
+                              ref_cfg.vocab)
+    np.testing.assert_allclose(emb_true.numpy(),
+                               np.asarray(ref_p["embed"][toks[0]]), rtol=0,
+                               atol=1e-6)
+
+
 def test_deshift_views_equals_the_reference():
     """The de-shift's shift update is XLA's one FMA: equal at gamma 0.3,
     in place or not."""

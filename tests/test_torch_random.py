@@ -255,24 +255,41 @@ def test_randint_and_normal_windows_straddle_2_32(layout):
     noise of four full-width clients), against jax's ``threefry_2x32`` on
     the same counters (jax cannot draw 7.3e9 elements here) folded by
     randint's formula, and for normal the bits through jax's own
-    uniform and ``erf_inv``; two half windows equal the whole.  The
-    original layout over 2**32 - 1 or more counters raises, naming its
-    queue."""
+    uniform and ``erf_inv``; two half windows equal the whole.  In the
+    original layout the window also crosses the first block edge
+    (2**32 - 1 counters): each block's key is jax's ``threefry_split``
+    of the key into n // (2**32 - 1) + 1, and each block hashes its own
+    ``iota``."""
     shape, L = (4, FULL_N), 819_200
     lo, hi = 2**32 - 2000, 2**32 + 2099
     key, jkey = random.fold_in(random.PRNGKey(3), 7), \
         jax.random.fold_in(jax.random.PRNGKey(3), 7)
-    if not layout:
-        with pytest.raises(NotImplementedError, match="queue 1.2"):
-            random.randint(key, shape, -L, L, window=(lo, hi))
-        return
     i = np.arange(lo, hi, dtype=np.uint64)
-    counters = jnp.asarray(np.concatenate([i >> 32, i & 0xFFFFFFFF]).astype(
-        np.uint32))
+    M = 2**32 - 1
 
     def jbits(k):
-        y = np.asarray(jax_prng.threefry_2x32(k, counters)).astype(np.uint64)
-        return y[:hi - lo] ^ y[hi - lo:]
+        if layout:
+            counters = jnp.asarray(np.concatenate(
+                [i >> 32, i & 0xFFFFFFFF]).astype(np.uint32))
+            y = np.asarray(jax_prng.threefry_2x32(k, counters)).astype(
+                np.uint64)
+            return y[:hi - lo] ^ y[hi - lo:]
+        n = 4 * FULL_N
+        keys = jax_prng.threefry_split(k, (n // M + 1,))
+        out = np.empty(hi - lo, np.uint64)
+        for b in np.unique(i // M):
+            sel = i // M == b
+            j = (i[sel] - b * M).astype(np.int64)
+            size = M if b < n // M else n % M
+            half = (size + 1) // 2
+            first = j < half
+            a = np.where(first, j, j - half)
+            pair = np.where(a + half < size, a + half, 0)
+            y = np.asarray(jax_prng.threefry_2x32(keys[int(b)], jnp.asarray(
+                np.concatenate([a, pair]).astype(np.uint32)))).astype(
+                    np.uint64)
+            out[sel] = np.where(first, y[:len(a)], y[len(a):])
+        return out
 
     k1, k2 = jax.random.split(jkey)
     span = 2 * L
@@ -362,5 +379,8 @@ def test_classification_equals_reference(layout):
     assert x.shape == (3, 20, 16)
     _eq(y, ry)
     np.testing.assert_allclose(x.numpy(), np.asarray(rx), rtol=0, atol=4e-6)
-    with pytest.raises(NotImplementedError, match="queue 1.2"):
-        data.federated_classification(key, 3, 20, alpha=0.5)
+    # the Dirichlet split (tests/test_torch_data.py holds it in full)
+    x, y = data.federated_classification(key, 3, 20, alpha=0.5)
+    rx, ry = ref_data.federated_classification(jkey, 3, 20, alpha=0.5)
+    _eq(y, ry)
+    np.testing.assert_allclose(x.numpy(), np.asarray(rx), rtol=0, atol=4e-6)

@@ -58,7 +58,8 @@ def params():
 
 
 # ------------------------------------------------- against the reference
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "eris-gptneo-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "eris-gptneo-1.3b",
+                                  "olmoe-1b-7b"])
 def test_greedy_streams_equal_reference_engine(arch):
     """Same params (carried by params_from_jax), same prompts: the port's
     engine emits the reference engine's greedy token streams, through
@@ -81,7 +82,8 @@ SAMPLED = ((1.0, 0, 1.0), (0.7, 8, 1.0), (1.3, 0, 0.8), (0.9, 20, 0.9),
            (0.0, 0, 1.0), (2.0, 0, 1.0))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "eris-gptneo-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "eris-gptneo-1.3b",
+                                  "olmoe-1b-7b"])
 def test_sampled_streams_equal_reference_engine(arch):
     """Same params, same prompts and seeds: six requests sampled with
     temperature, top-k and top-p (and one greedy) through the continuous
