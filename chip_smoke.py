@@ -6,9 +6,11 @@ at full width, training through the flash-attention kernels, and runs
 the reference's default round (threefry DSC), the distributed FSA train
 step over NCCL with its scenario and async knobs, the round matrix (the
 baselines, defenses, failures and async methods), the privacy audit
-of the step's captured wire, and the non-IID feeds, the reference's
-init draws and the MoE family (olmoe-1b-7b served, a gradient and ERIS
-rounds), on one NVIDIA card.
+of the step's captured wire, the non-IID feeds, the reference's init
+draws and the MoE family (olmoe-1b-7b served, a gradient and ERIS
+rounds), and the recurrent and vision families (xlstm-350m and
+hymba-1.5b trained, beam-searched and in ERIS rounds, internvl2-26b at
+reduced depth), on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -56,16 +58,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    kernels its steps 2-3 run), (4, 16, 16, 64, 128), (2, 14, 2, 256, 64),
    (1, 16, 16, 2048, 128) bf16, and in bf16 and f32 a ragged (1, 4, 4,
    100, 128), (1, 14, 2, 512, 64) and contiguous (2, 4, 4, 128, 128), and
-   d = 16 and 32 in f32, causal, full, and causal with windows 100 and
+   d = 16 and 32 in f32, phase 15's hymba-1.5b (4, 25, 5, 64, 64) and (1,
+   25, 5, 2048, 64) and internvl2-26b (4, 48, 8, 512, 128) and (1, 48, 8,
+   512, 128) in bf16, causal, full, and causal with windows 100 and
    200 (four k-tiles), mostly on (B, S, H, d) tensors seen as (B, H, S,
    d), as the model hands them over: o, lse, dq, dk and dv; every bf16
    forward, dq and dk/dv on the tensor cores, every f32 forward, dq and
    dk/dv on the f32 tensor-core kernels (3xTF32).
    Then each kernel, its plain version and scaled_dot_product_attention
    (forward; forward + backward less the forward) are timed at the two
-   rounds' shapes and at S = 2048 for both models, causal, bf16, and at
-   phase 11's f32 shape and S = 2048 in f32, beside the kernel's bound
-   and its first (SIMT) version's time.
+   rounds' shapes and at S = 2048 for both models, at phase 15's
+   gradient shapes (1, 25, 5, 2048, 64) and (1, 48, 8, 512, 128), causal,
+   bf16, and at phase 11's f32 shape and S = 2048 in f32, beside the
+   kernel's bound and its first (SIMT) version's time.
 7. the ERIS round -- ``FLRun`` on eris-gptneo-1.3b at full width (bf16
    params from ``--seed``, flash_attention on, K = 4, A = 8, lr 0.1,
    4 x 64 tokens a client from ``lm_token_batches``), two rounds in each
@@ -222,7 +227,36 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     4, A = 8; x finite, K ``quantize`` and ``dequantize`` launches a
     round, n_layers x K of each flash kernel, the split and the peak
     (under 80 GB).  Prints each part's seconds.
-15. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+15. the recurrent and vision families, bf16 params from ``--seed``
+    (the reference's init draws), flash on.  (a) xlstm-350m at full
+    width (24 layers, d_model 1024, 4 mLSTM heads of 256; 354,927,808
+    params): one gradient on 1 x 2048 tokens (ms, peak above the params,
+    finite, no flash launch), ``beam_search`` with 4 beams and 16 new
+    tokens on a 64-token prompt (timed) and with 1 beam, equal to greedy
+    ``decode_step`` tokens from the same prefill, then two ERIS rounds on
+    the int8 wire as phase 12 runs them (K = 4, A = 8, 4 x 64 tokens a
+    client: x finite, K ``quantize`` and ``dequantize`` launches a round,
+    the split, the peak).  (b) hymba-1.5b at full width (32 layers,
+    d_model 1600, 25 query heads over 5 kv heads of 64, N 16;
+    1,474,769,600 params): the 1 x 2048 gradient flash on (n_layers
+    launches of each flash kernel, on the bf16 tensor cores) and off, the
+    losses within 1e-2 relative, ms and peaks; the selective scan's share
+    of the gradient (one layer's ``ssm_scan`` forward and backward,
+    profiled, times n_layers, over a profiled gradient's busy time);
+    ``beam_search`` as in (a) on the hybrid caches; two int8 rounds
+    (n_layers x K launches of each flash kernel, peak under 80 GB).  (c)
+    internvl2-26b (19,867,551,744 params: it cannot train on one card) at
+    8 of its 48 layers: a gradient on one image of 256 patch embeddings
+    and 256 text tokens (S = 512, 8 launches of each flash kernel at d
+    128, GQA 6), flash on vs off within 1e-2; ``beam_search`` refused for
+    want of an image, as the reference fails; two int8 rounds at 2
+    layers (n = 1,923,753,984), each client's batch with its own image
+    embeddings.  (d) each family's smoke variant in f32 card vs host from
+    the same params and batch (4 x 64 positions): the loss and every
+    gradient leaf, the prefill logits and caches within 1e-4, and
+    ``beam_search``'s tokens equal and score within 1e-4 (vlm: refused on
+    both).  Prints each part's seconds.
+16. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -279,8 +313,10 @@ from repro_torch.kernels import ref as wire_ref  # noqa: E402
 from repro_torch.launch import fl_train  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.serve import SamplingParams, ServeEngine, pages_for  # noqa: E402
+from repro_torch.serve import sampling  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 # H100 SXM float32 outside the tensor cores: the scalar work of the wire
@@ -1006,7 +1042,9 @@ def wire_timing(dev, seed) -> dict:
 # over four and eight k-tiles, a ragged S at d = 128, contiguous (B, H, S,
 # d) inputs beside the model's (B, S, H, d) views, and d = 16 and 32, the
 # last five in bf16 and in f32; then both models' context in f32, the f32
-# kernels' longest sums (dk/dv at GQA 7 sums 7 heads of 32 q-tiles); each
+# kernels' longest sums (dk/dv at GQA 7 sums 7 heads of 32 q-tiles); then
+# phase 15's: hymba-1.5b's round and 2048-token gradient (GQA 5 at d = 64)
+# and internvl2-26b's round and gradient (GQA 6 at d = 128, S = 512); each
 # under every mask
 FLASH_SHAPES = ((2, 4, 2, 128, 64, torch.float32, True),
                 (8, 16, 16, 64, 128, torch.float32, True),
@@ -1024,7 +1062,11 @@ FLASH_SHAPES = ((2, 4, 2, 128, 64, torch.float32, True),
                 (1, 2, 1, 256, 16, torch.float32, True),
                 (1, 2, 1, 128, 32, torch.float32, True),
                 (1, 14, 2, 2048, 64, torch.float32, True),
-                (1, 16, 16, 2048, 128, torch.float32, True))
+                (1, 16, 16, 2048, 128, torch.float32, True),
+                (4, 25, 5, 64, 64, torch.bfloat16, True),
+                (1, 25, 5, 2048, 64, torch.bfloat16, True),
+                (4, 48, 8, 512, 128, torch.bfloat16, True),
+                (1, 48, 8, 512, 128, torch.bfloat16, True))
 # the flash kernels and their plain versions both compute in f32 and cast
 # once, so a bf16 output may differ by one bf16 step (2**-7 of its size)
 # and the f32 sums' order
@@ -1032,11 +1074,14 @@ FLASH_BF16_STEP = 2.0 ** -7
 # causal, full, and causal with windows of 100 and 200 (four k-tiles)
 FLASH_MASKS = ((True, None), (False, None), (True, 100), (True, 200))
 # timed causal in bf16: the two rounds' shapes (4 clients' batch of 4 x 64
-# tokens is one call per layer) and both models at the GPT-Neo context
+# tokens is one call per layer), both models at the GPT-Neo context, and
+# phase 15's gradients: hymba-1.5b at 2048 and internvl2-26b at 512
 FLASH_TIMED = (("gptneo-round", (4, 16, 16, 64, 128)),
                ("qwen2-round", (4, 14, 2, 64, 64)),
                ("gptneo-s2048", (1, 16, 16, 2048, 128)),
-               ("qwen2-s2048", (1, 14, 2, 2048, 64)))
+               ("qwen2-s2048", (1, 14, 2, 2048, 64)),
+               ("hymba-s2048", (1, 25, 5, 2048, 64)),
+               ("internvl-s512", (1, 48, 8, 512, 128)))
 # timed causal in f32: phase 11's step from its second step on, 8 x 64
 # tokens on one rank, and both models' context, where the products and not
 # the bytes bound the f32 kernels
@@ -1512,9 +1557,10 @@ def profile_round(run, toks, round_ms: float) -> None:
 
 
 def _print_device_kernels(prof, what: str, span_ms: float,
-                          top: int = 12) -> None:
+                          top: int = 12) -> float:
     """The profile's device kernels by time, and the device's busy share
-    of the unprofiled span ``span_ms`` of the same work."""
+    of the unprofiled span ``span_ms`` of the same work; returns the busy
+    ms."""
     kernels = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1528,6 +1574,7 @@ def _print_device_kernels(prof, what: str, span_ms: float,
     for kname, (us, count) in sorted(kernels.items(),
                                      key=lambda kv: -kv[1][0])[:top]:
         print(f"    device {us / 1e3:9.2f} ms {count:6d}x  {kname[:80]}")
+    return busy_ms
 
 
 # (arch, configurations); flash on and off compare at the round's shape in
@@ -1568,7 +1615,8 @@ CONTEXT_GRAD_REL_TOL = 5e-2
 def _client_grad(cfg, params, toks):
     """One client's gradient (bf16 leaves), its loss, its device ms and
     the peak memory it added above what was held before it.  The cache
-    allocator keeps its blocks, as between a round's clients."""
+    allocator keeps its blocks, as between a round's clients.  ``toks``
+    is the tokens, or a whole batch dict (vlm's carries its image)."""
     gc.collect()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -1577,12 +1625,16 @@ def _client_grad(cfg, params, toks):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    loss = tr.loss_fn(tree_unflatten(params, leaves), cfg, {"tokens": toks})
+    loss = tr.loss_fn(tree_unflatten(params, leaves), cfg, _batch_of(toks))
     grads = torch.autograd.grad(loss, leaves)
     end.record()
     torch.cuda.synchronize()
     return (grads, float(loss.detach()), start.elapsed_time(end),
             (torch.cuda.max_memory_allocated() - held) / 1e9)
+
+
+def _batch_of(toks) -> dict:
+    return toks if isinstance(toks, dict) else {"tokens": toks}
 
 
 def _profiled_grad(cfg, params, toks):
@@ -1592,7 +1644,7 @@ def _profiled_grad(cfg, params, toks):
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         loss = tr.loss_fn(tree_unflatten(params, leaves), cfg,
-                          {"tokens": toks})
+                          _batch_of(toks))
         torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
     return prof
@@ -2525,17 +2577,25 @@ def _replay_shatter(run, grads: list, store: dict, n) -> str:
             f"{sorted(set(unwrapped.tolist()))})")
 
 
-def _matrix_config(dev, seed, cfg, name, fields, rounds, totals) -> dict:
+def _matrix_config(dev, seed, cfg, name, fields, rounds, totals,
+                   batches=None, flash_layers=None) -> dict:
     """``rounds`` rounds of one configuration at full width; adds its
-    launches to ``totals`` and holds its gate (module docstring)."""
+    launches to ``totals`` and holds its gate (module docstring).  The
+    clients' batches are the example's tokens unless ``batches`` (a dict
+    with a leading client axis) is given; the flash kernels launch once a
+    client in each of ``flash_layers`` layers (default all)."""
     _expect_free_card(f"before {name}")
     torch.cuda.reset_peak_memory_stats()
     fcfg = fl.FLConfig(K=K_CLIENTS, A=A_AGGS, lr=LR, seed=seed, **fields)
-    toks = fl_train.client_tokens(seed, fcfg.population or K_CLIENTS, BATCH,
-                                  SEQ, cfg.vocab, dev)
+    if batches is None:
+        toks = fl_train.client_tokens(seed, fcfg.population or K_CLIENTS,
+                                      BATCH, SEQ, cfg.vocab, dev)
+        loss = lambda p, b: tr.loss_fn(p, cfg, {"tokens": b})  # noqa: E731
+    else:
+        toks = batches
+        loss = lambda p, b: tr.loss_fn(p, cfg, b)  # noqa: E731
     params = tr.init_params(cfg, seed=seed, device=dev)
-    run = fl.FLRun(fcfg, params, lambda p, b: tr.loss_fn(
-        p, cfg, {"tokens": b}), device=dev)
+    run = fl.FLRun(fcfg, params, loss, device=dev)
     del params
     n = run.n
     capture = {"window": (0, n)}
@@ -2578,7 +2638,8 @@ def _matrix_config(dev, seed, cfg, name, fields, rounds, totals) -> dict:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {k: fn.launches for k, fn in ROUND.items()}
-        flash = cfg.n_layers * K_CLIENTS
+        flash = (cfg.n_layers if flash_layers is None
+                 else flash_layers) * K_CLIENTS
         _check_tensor_cores(f"{name} round {t + 1}", flash, True)
         for k, count in launches.items():       # the main path ended
             totals[k] += count
@@ -3302,6 +3363,406 @@ def moe_phase(dev, seed) -> tuple:
     return paged, totals
 
 
+# --------------------------------------------------------------- phase 15
+# the recurrent families at full width, bf16 params from --seed, flash on
+FAMILY_ARCHS = ("xlstm-350m", "hymba-1.5b")
+VLM_ARCH = "internvl2-26b"
+FAMILY_CONTEXT = 2048
+# the loss on 1 x 2048 tokens, flash vs the plain chunked attention (as
+# phase 14(d)): 32 layers of random bf16 weights, the plain path's softmax
+# weights rounded to bf16 before the PV product
+FAMILY_LOSS_REL_TOL = 1e-2
+BEAM_PROMPT, BEAM_NEW, BEAM_WIDTH = 64, 16, 4
+# internvl2-26b has 19,867,551,744 params (39.7 GB in bf16; its gradient
+# as much again): its gradient runs at 8 of its 48 layers (4,264,249,344
+# params) on one image of 256 patch embeddings and 256 text tokens, S =
+# 512; its rounds at 2 (n = 1,923,753,984), 4 x 256 text tokens a client
+# beside each client's own images
+VLM_GRAD_LAYERS, VLM_ROUND_LAYERS, VLM_TEXT = 8, 2, 256
+# card vs host at the smoke size in f32; image and text fill one flash
+# tile of 64 positions
+FAMILY_SMOKE_TOL = 1e-4
+FAMILY_SMOKE_POSITIONS, FAMILY_SMOKE_BATCH, FAMILY_SMOKE_NEW = 64, 4, 8
+
+
+def _family_batch(where, seed, cfg, lead, text) -> dict:
+    """Tokens (lead..., text) from the threefry stream and, for vlm, the
+    image's patch embeddings (lead..., n_frontend_tokens, d_frontend),
+    normals from a generator seeded by ``seed``, on ``where``."""
+    n = math.prod(lead)
+    toks = lm_token_batches(random.fold_in(random.PRNGKey(seed), 5), 1, n,
+                            text, cfg.vocab, device=where)[0]
+    batch = {"tokens": toks.reshape(*lead, text)}
+    if cfg.frontend == "vlm":
+        gen = torch.Generator(device=where).manual_seed(seed + 15)
+        batch["frontend_embeds"] = torch.randn(
+            *lead, cfg.n_frontend_tokens, cfg.d_frontend, generator=gen,
+            device=where)
+    return batch
+
+
+def _positions(cfg, batch) -> int:
+    return batch["tokens"].shape[-1] + (
+        cfg.n_frontend_tokens if cfg.frontend == "vlm" else 0)
+
+
+def _device_profile(fn):
+    """torch.profiler over ``fn()``, device activity only: a hymba-1.5b
+    gradient launches ~260,000 kernels, and with the host's ops recorded
+    too the profile takes minutes to read."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def _family_grad(cfg, params, batch, attn_layers: int, totals,
+                 profile: bool) -> dict:
+    """One gradient, flash on and, where the family attends, off: ms and
+    peak above the params, the loss gap within FAMILY_LOSS_REL_TOL;
+    ``attn_layers`` launches of each flash kernel on the bf16 tensor cores
+    (none for ssm), added to ``totals``.  A first gradient on 64 tokens,
+    flash off, loads the family's kernels (the recurrent mixers' are new
+    to the process) before the timed ones.  With ``profile``, one more
+    flash gradient under the profiler: its device kernels and idle
+    share."""
+    S = _positions(cfg, batch)
+    check(tr.uses_flash_kernel(cfg, S), f"{cfg.name}: S = {S} does not "
+          f"take flash")
+    off = dataclasses.replace(cfg, flash_attention=False)
+    _client_grad(off, params, dict(batch, tokens=batch["tokens"][:, :64]))
+    res = {}
+    for c in ((cfg, off) if attn_layers else (cfg,)):
+        _set_round_launches(0)
+        grads, loss, ms, peak = _client_grad(c, params, batch)
+        finite = all(bool(g.isfinite().all()) for g in grads)
+        del grads
+        check(finite and math.isfinite(loss),
+              f"{cfg.name} gradient (flash {c.flash_attention}) not finite")
+        if c.flash_attention:
+            _check_tensor_cores(f"{cfg.name} gradient", attn_layers, True)
+            for k, fn in FLASH.items():
+                check(fn.launches == attn_layers, f"{cfg.name} gradient: {k} "
+                      f"launched {fn.launches} times, want {attn_layers}")
+                totals[k] += fn.launches
+        res[c.flash_attention] = dict(loss=loss, ms=ms, peak_gb=peak)
+    on = res[True]
+    out = dict(positions=S, loss_flash=on["loss"], flash_ms=on["ms"],
+               flash_peak_gb=on["peak_gb"])
+    line = (f"  {cfg.name} ({cfg.n_layers} layers) gradient on 1 x {S} "
+            f"positions: flash {on['ms']:.1f} ms, {on['peak_gb']:.2f} GB "
+            f"above the params, loss {on['loss']:.5f}")
+    if attn_layers:
+        pl = res[False]
+        gap = abs(on["loss"] - pl["loss"]) / abs(pl["loss"])
+        out.update(loss_plain=pl["loss"], plain_ms=pl["ms"],
+                   plain_peak_gb=pl["peak_gb"], loss_rel_gap=gap)
+        line += (f"; plain {pl['ms']:.1f} ms, {pl['peak_gb']:.2f} GB, loss "
+                 f"{pl['loss']:.5f} (relative gap {gap:.2e}, tol "
+                 f"{FAMILY_LOSS_REL_TOL:g})")
+        check(gap <= FAMILY_LOSS_REL_TOL, f"{cfg.name} loss flash vs "
+              f"plain: relative gap {gap:.3e}")
+    print(line, flush=True)
+    if profile:
+        out["busy_ms"] = _print_device_kernels(
+            _device_profile(lambda: _client_grad(cfg, params, batch)),
+            f"one more {cfg.name} gradient", on["ms"], top=8)
+    return out
+
+
+def _scan_share(dev, seed, cfg, params, batch, grad_ms) -> dict:
+    """The selective scan's share of hymba's gradient: one ``ssm_scan``
+    forward and backward at a layer's shape (bf16 inputs, as the layer
+    gives them, chunks of ``scan_chunk`` under checkpoint), its event ms
+    times n_layers over the gradient's event ms; its device kernels and
+    idle share from a profile."""
+    T, Di, N = _positions(cfg, batch), cfg.d_model, cfg.ssm_state
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+
+    def leaf(*shape, softplus=False):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        return (F.softplus(x) if softplus else x).to(
+            torch.bfloat16).requires_grad_()
+
+    u, dt = leaf(1, T, Di), leaf(1, T, Di, softplus=True)
+    Bm, Cm = leaf(1, T, N), leaf(1, T, N)
+    A_log = params["blocks"]["m_A"][0].detach().requires_grad_()
+    D = params["blocks"]["m_D"][0].detach().requires_grad_()
+    gy = torch.randn(1, T, Di, generator=gen, device=dev).to(torch.bfloat16)
+    inputs = [u, dt, Bm, Cm, A_log, D]
+
+    def fwd_bwd():
+        y, _ = ssm_lib.ssm_scan(u, dt, Bm, Cm, A_log, D,
+                                chunk=cfg.scan_chunk,
+                                scan_f32=cfg.ssm_scan_f32)
+        return torch.autograd.grad(y, inputs, gy)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fwd_bwd()
+    end.record()
+    torch.cuda.synchronize()
+    scan_ms = start.elapsed_time(end)
+    busy = _print_device_kernels(_device_profile(fwd_bwd),
+                                 "one ssm_scan forward and backward",
+                                 scan_ms, top=4)
+    out = dict(scan_ms=scan_ms, scan_busy_ms=busy,
+               ms_share=cfg.n_layers * scan_ms / grad_ms)
+    print(f"  {cfg.name}: one layer's ssm_scan forward and backward at (1, "
+          f"{T}, {Di}, {N}) {scan_ms:.2f} ms ({busy:.2f} ms busy); x "
+          f"{cfg.n_layers} layers: {100 * out['ms_share']:.1f}% of the "
+          f"gradient's {grad_ms:.1f} ms", flush=True)
+    return out
+
+
+def _greedy(params, cfg, prompt, new: int) -> torch.Tensor:
+    """``new`` greedy tokens by ``decode_step`` from the prompt's prefill
+    cache (one copy, in the params' dtype, as ``_family_beam`` keeps
+    it)."""
+    total = prompt.shape[0] + new
+    logits, cache = sampling.prefill_cache(
+        params, cfg, prompt, 1, total, cache_dtype=tr.DTYPES[cfg.dtype])
+    tok = logits[0, -1].argmax()
+    out = [tok]
+    for pos in range(prompt.shape[0], total - 1):
+        logits, cache = tr.decode_step(params, cfg, cache, tok.view(1, 1),
+                                       pos)
+        tok = logits[0, 0].argmax()
+        out.append(tok)
+    return torch.stack(out).to(torch.int32)
+
+
+def _family_beam(dev, seed, cfg, params) -> dict:
+    """``beam_search`` with BEAM_WIDTH beams and BEAM_NEW new tokens on a
+    BEAM_PROMPT-token prompt, timed; its 1-beam result equal to greedy
+    ``decode_step`` tokens.  The K/V cache is bf16, as the params: an f32
+    one would promote the residual stream, which the reference's layer
+    scan refuses and so does the port."""
+    prompt = lm_token_batches(random.fold_in(random.PRNGKey(seed), 6), 1, 1,
+                              BEAM_PROMPT, cfg.vocab, device=dev)[0][0]
+    out = {}
+    for beams in (BEAM_WIDTH, 1):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        toks, score = sampling.beam_search(
+            params, cfg, prompt, n_beams=beams, max_new_tokens=BEAM_NEW,
+            cache_dtype=tr.DTYPES[cfg.dtype])
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        check(toks.shape == (BEAM_NEW,) and bool((toks >= 0).all())
+              and bool((toks < cfg.vocab).all())
+              and math.isfinite(float(score)),
+              f"{cfg.name} beam_search({beams}): {toks.tolist()}, {score}")
+        out[beams] = dict(seconds=secs, score=float(score),
+                          tokens=toks.tolist())
+    greedy = _greedy(params, cfg, prompt, BEAM_NEW)
+    check(greedy.tolist() == out[1]["tokens"], f"{cfg.name}: 1-beam tokens "
+          f"{out[1]['tokens']} != greedy {greedy.tolist()}")
+    wide = out[BEAM_WIDTH]
+    print(f"  {cfg.name} beam_search on {BEAM_PROMPT} prompt tokens, "
+          f"{BEAM_NEW} new: {BEAM_WIDTH} beams {wide['seconds']:.2f} s "
+          f"(score {wide['score']:.4f}), 1 beam "
+          f"{out[1]['seconds']:.2f} s == greedy decode_step tokens",
+          flush=True)
+    return {f"beams_{k}": v for k, v in out.items()}
+
+
+def _recurrent_part(dev, seed, arch, totals) -> dict:
+    """(a) xlstm-350m, (b) hymba-1.5b at full width: init, the 1 x 2048
+    gradient (hymba: flash on and off, the scan's share), beam_search,
+    two int8 rounds."""
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16" and cfg.flash_attention,
+          f"{arch}: {cfg.dtype}, flash {cfg.flash_attention}")
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers
+    _expect_free_card(f"before {arch}")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params = tr.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    count = sum(t.numel() for t in _leaves(params))
+    print(f"  {arch}: {count} params ({cfg.dtype}) made in "
+          f"{time.monotonic() - t0:.2f} s", flush=True)
+    res = {"params": count}
+    secs = {"init": time.monotonic() - t0}
+    t0 = time.monotonic()
+    batch = _family_batch(dev, seed, cfg, (1,), FAMILY_CONTEXT)
+    # hymba's ~260,000 kernels a gradient are profiled through its scan
+    # alone
+    hybrid = cfg.family == "hybrid"
+    res["gradient"] = _family_grad(cfg, params, batch, attn, totals,
+                                   profile=not hybrid)
+    secs["gradient"] = time.monotonic() - t0
+    if hybrid:
+        t0 = time.monotonic()
+        res["scan"] = _scan_share(dev, seed, cfg, params, batch,
+                                  res["gradient"]["flash_ms"])
+        secs["scan"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    res["beam"] = _family_beam(dev, seed, cfg, params)
+    secs["beam"] = time.monotonic() - t0
+    del params, batch
+    t0 = time.monotonic()
+    res["round"] = _matrix_config(
+        dev, seed, cfg, f"{arch} eris int8", dict(method="eris",
+                                                  int8_wire=True), 2,
+        totals, flash_layers=attn)
+    secs["round"] = time.monotonic() - t0
+    res["seconds"] = secs
+    print(f"  {arch} seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in secs.items()))
+    return res
+
+
+def _vlm_part(dev, seed, totals) -> dict:
+    """(c) internvl2-26b at full width and reduced depth: a gradient at
+    VLM_GRAD_LAYERS layers flash on and off, ``beam_search`` refused for
+    want of an image, two int8 rounds at VLM_ROUND_LAYERS, each client
+    with its own images."""
+    full = get_config(VLM_ARCH)
+    check(full.dtype == "bfloat16" and full.flash_attention,
+          f"{VLM_ARCH}: {full.dtype}, flash {full.flash_attention}")
+    cfg = dataclasses.replace(full, n_layers=VLM_GRAD_LAYERS)
+    _expect_free_card(f"before {VLM_ARCH}")
+    params = tr.init_params(cfg, seed=seed, device=dev)
+    res = {"params": sum(t.numel() for t in _leaves(params))}
+    batch = _family_batch(dev, seed, cfg, (1,), VLM_TEXT)
+    res["gradient"] = _family_grad(cfg, params, batch, cfg.n_layers, totals,
+                                   profile=True)
+    try:
+        sampling.beam_search(params, cfg, batch["tokens"][0])
+    except ValueError as e:
+        refused = str(e)
+    else:
+        refused = None
+    check(refused is not None and "frontend_embeds" in refused,
+          f"{VLM_ARCH}: beam_search on a text prompt did not refuse")
+    print(f"  {VLM_ARCH}: beam_search refused: {refused}", flush=True)
+    del params, batch
+    cut = dataclasses.replace(full, n_layers=VLM_ROUND_LAYERS)
+    batches = _family_batch(dev, seed, cut, (K_CLIENTS, BATCH), VLM_TEXT)
+    res["round"] = _matrix_config(
+        dev, seed, cut, f"{VLM_ARCH} {VLM_ROUND_LAYERS} layers eris int8",
+        dict(method="eris", int8_wire=True), 2, totals, batches=batches)
+    return res
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _named_grads(cfg, params, batch) -> tuple:
+    """The loss and every leaf's gradient by its path in the tree."""
+    names = [name for name, _ in _named_leaves(params)]
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss = tr.loss_fn(tree_unflatten(params, leaves), cfg, batch)
+    return float(loss.detach()), dict(zip(
+        names, torch.autograd.grad(loss, leaves)))
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) in ``tree_leaves`` order: keys sorted, depth first."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _named_leaves(tree[k], prefix + k + "/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def _family_smoke(dev, seed) -> dict:
+    """(d) each family's smoke variant in f32, card vs host from the same
+    params and batch: the loss and every gradient leaf, the prefill
+    logits and caches, and ``beam_search``'s tokens and score (vlm: both
+    refuse).  xlstm's ``b_i`` gradient is zero but for rounding (a
+    constant shift of a head's input gate changes nothing), so it is held
+    against ``w_i``'s scale."""
+    worst = {}
+    for arch in FAMILY_ARCHS + (VLM_ARCH,):
+        cfg = get_config(arch).smoke()
+        host = tr.init_params(cfg, seed=seed, device="cpu")
+        card = tree_map(lambda t: t.to(dev), host)
+        text = FAMILY_SMOKE_POSITIONS - (cfg.n_frontend_tokens
+                                         if cfg.frontend == "vlm" else 0)
+        hb = _family_batch("cpu", seed, cfg, (FAMILY_SMOKE_BATCH,), text)
+        cb = {k: v.to(dev) for k, v in hb.items()}
+        errs = {}
+        (lc, gcard), (lh, ghost) = (_named_grads(cfg, card, cb),
+                                    _named_grads(cfg, host, hb))
+        errs["loss"] = abs(lc - lh) / abs(lh)
+        for name, g in ghost.items():
+            if name == "blocks/b_i":
+                errs[name] = float((gcard[name].cpu() - g).norm()
+                                   / ghost["blocks/w_i"].norm())
+            else:
+                errs[name] = _rel_err(gcard[name], g)
+        outs = []
+        for params, b in ((card, cb), (host, hb)):
+            outs.append(tr.forward(params, cfg, b["tokens"], "prefill",
+                                   frontend_embeds=b.get("frontend_embeds")))
+        errs["prefill logits"] = _rel_err(outs[0][0], outs[1][0])
+        hc = dict(_named_leaves(outs[1][1]))
+        for name, c in _named_leaves(outs[0][1]):
+            errs[f"cache {name}"] = _rel_err(c, hc[name])
+        if cfg.frontend == "vlm":
+            for params, b in ((card, cb), (host, hb)):
+                try:
+                    sampling.beam_search(params, cfg, b["tokens"][0])
+                except ValueError:
+                    continue
+                check(False, f"{arch} smoke: beam_search did not refuse")
+        else:
+            bc = sampling.beam_search(card, cfg, cb["tokens"][0],
+                                      n_beams=BEAM_WIDTH,
+                                      max_new_tokens=FAMILY_SMOKE_NEW)
+            bh = sampling.beam_search(host, cfg, hb["tokens"][0],
+                                      n_beams=BEAM_WIDTH,
+                                      max_new_tokens=FAMILY_SMOKE_NEW)
+            check(bc[0].tolist() == bh[0].tolist(), f"{arch} smoke: beam "
+                  f"tokens card {bc[0].tolist()} != host {bh[0].tolist()}")
+            errs["beam score"] = abs(float(bc[1]) - float(bh[1])) / abs(
+                float(bh[1]))
+        name, err = max(errs.items(), key=lambda kv: kv[1])
+        check(err <= FAMILY_SMOKE_TOL, f"{arch} smoke card vs host: {name} "
+              f"relative error {err:.3e}")
+        worst[arch] = dict(worst=name, rel=err, checked=len(errs))
+        print(f"  {arch} smoke f32 card vs host: loss, {len(ghost)} gradient "
+              f"leaves, prefill logits and caches"
+              f"{'' if cfg.frontend == 'vlm' else ', beam tokens and score'}"
+              f" within {err:.2e} (largest: {name}; tol "
+              f"{FAMILY_SMOKE_TOL:g})", flush=True)
+    return worst
+
+
+def family_phase(dev, seed) -> dict:
+    """Phase 15: the recurrent and vision families.  Returns the round
+    kernels' launches over (a)-(c): the gradients' flash launches and the
+    rounds'."""
+    parts, results = {}, {}
+    totals = {name: 0 for name in ROUND}
+    for label, arch in zip(("a", "b"), FAMILY_ARCHS):
+        t0 = time.monotonic()
+        results[arch] = _recurrent_part(dev, seed, arch, totals)
+        parts[f"{label} {arch}"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    results[VLM_ARCH] = _vlm_part(dev, seed, totals)
+    parts[f"c {VLM_ARCH}"] = time.monotonic() - t0
+    _expect_free_card("after the families' rounds")
+    t0 = time.monotonic()
+    results["smoke"] = _family_smoke(dev, seed)
+    parts["d smoke card vs host"] = time.monotonic() - t0
+    _set_round_launches(0)
+    results["seconds"] = parts
+    print("families " + json.dumps(results))
+    print("  phase 15 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3388,7 +3849,13 @@ def main() -> None:
     for name in round_launches:
         round_launches[name] += moe_launches[name]
 
-    phase("15 result")
+    phase("15 the recurrent and vision families: xlstm-350m and "
+          "hymba-1.5b at full width, internvl2-26b at reduced depth")
+    family_launches = family_phase(dev, args.seed)
+    for name in round_launches:
+        round_launches[name] += family_launches[name]
+
+    phase("16 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3422,6 +3889,7 @@ def main() -> None:
             key: flash_timing_[label][name][key] for key in
             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for label in ("qwen2-round", "gptneo-s2048", "qwen2-s2048",
+                          "hymba-s2048", "internvl-s512",
                           "gptneo-train-f32", "gptneo-s2048-f32",
                           "qwen2-s2048-f32")}
         rows.append({

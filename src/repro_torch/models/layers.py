@@ -1,5 +1,6 @@
-"""Single-device layers of the serving path: RMS norm, rotary embedding
-and query-chunked causal GQA attention (``repro/models/layers.py``).
+"""Single-device layers: RMS norm, rotary embedding, query-chunked
+causal GQA attention and single-token attention on the dense ring cache
+(``repro/models/layers.py``).
 
 Plain torch throughout: the reference leaves these to XLA, the port to
 PyTorch's eager kernels.  ``causal_attention`` deliberately does not
@@ -82,3 +83,32 @@ def causal_attention(q, k, v, *, q_offset: int = 0,
         qpos = q_offset + c0 + torch.arange(qi.shape[1], device=q.device)
         outs.append(_attend_block(qi, k, v, qpos, kpos, window, scores_f32))
     return torch.cat(outs, 1).reshape(B, Sq, H, hd)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *,
+                     window: Optional[int] = None):
+    """Single-token attention against a (possibly ring-buffered) K/V
+    cache (``layers.py:444-470``).
+
+    q: (B, 1, H, hd); k_cache, v_cache: (B, S, KV, hd); pos: the new
+    token's absolute position.  With a window the cache is a ring of S =
+    window slots, absolute position j at slot j % S; slot s then holds
+    the largest position p <= pos with p % S == s, valid once written (p
+    >= 0).  Without one, slots <= pos are valid.  A cache of another
+    dtype than q computes in the promoted dtype, as jnp's einsum."""
+    B, S, KV, hd = k_cache.shape
+    H = q.shape[2]
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    qg = q.reshape(B, 1, KV, H // KV, hd).to(dt)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k_cache.to(dt))
+    scores = scores.float() * hd ** -0.5
+    slot = torch.arange(S, device=q.device)
+    if window is None:
+        valid = slot <= pos
+    else:
+        valid = pos - (pos - slot) % S >= 0
+    scores = scores.masked_fill(~valid, -1e30)
+    w = torch.softmax(scores, -1).to(q.dtype)
+    dv = torch.promote_types(w.dtype, v_cache.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(dv), v_cache.to(dv))
+    return out.reshape(B, 1, H, hd)

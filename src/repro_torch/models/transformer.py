@@ -1,21 +1,27 @@
 """Decoder: parameter spec / init / train and prefill forward / the LM
-loss / paged decode (the dense subset of ``repro/models/transformer.py``).
+loss / the dense ring-cache decode / paged decode
+(``repro/models/transformer.py``, its replicated path).
 
 Parameters keep the reference's layout: every per-layer weight is
 stacked along a leading L axis, so converting a JAX checkpoint is a
 leaf-for-leaf copy (``repro_torch.convert``).  The reference scans the
 layer axis with ``lax.scan``; here a Python loop walks it.
 
-Families: the dense decoder (and ``audio``, whose language model is the
-same dense stack) and ``moe``, whose blocks swap the FFN for the routed
-experts of ``models/moe.py``.  hybrid, ssm and vlm are ROADMAP queue
-1.9.  Training (``mode="train"``, ``loss_fn``)
-runs through PyTorch autograd.  Its attention is routed as the
-reference routes it: with ``cfg.flash_attention`` (the default) every
-shape that the 128-blocks tile goes through the flash-attention kernels
-(``kernels/flash_attention``, a ``torch.autograd.Function`` whose
-backward is the dq and dk/dv kernels); any other shape, and prefill,
-through the plain chunked ``causal_attention``.
+Families, as the reference's ``_block``: the dense decoder (and
+``audio`` and ``vlm``, whose language models are the same dense stack;
+vlm prepends projected image-patch embeddings), ``moe`` (the FFN swapped
+for the routed experts of ``models/moe.py``), ``ssm`` (the mLSTM mixer
+and a gated projection, ``models/ssm.py``) and ``hybrid`` (attention and
+a selective-SSM head in parallel, averaged).  Training (``mode="train"``,
+``loss_fn``) runs through PyTorch autograd.  Its attention is routed as
+the reference routes it: with ``cfg.flash_attention`` (the default)
+every shape that the 128-blocks tile goes through the flash-attention
+kernels (``kernels/flash_attention``, a ``torch.autograd.Function``
+whose backward is the dq and dk/dv kernels); any other shape, and
+prefill, through the plain chunked ``causal_attention``.  Decode runs
+one token against the dense ring cache (``init_cache``,
+``decode_step``) or, for the paged families, against the block pools
+(``paged_decode_step``).
 """
 from __future__ import annotations
 
@@ -31,9 +37,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-
-_FAMILIES = ("dense", "audio", "moe")
 
 # the dtypes the paged kernel takes, for params and for the cache
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -43,37 +48,45 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 HOST_WINDOW = 1 << 14
 
 
-def _require_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port runs {_FAMILIES}; ssm, hybrid and vlm are ROADMAP "
-            f"queue 1.9")
-
-
 # ============================================================ param spec
 def param_spec(cfg: ModelConfig) -> dict:
-    """Shapes of every parameter, as the reference's ``param_spec``."""
-    _require_family(cfg)
+    """Shapes of every parameter, as the reference's ``param_spec``: the
+    order of the leaves is the order of their ``fold_in`` indices."""
     D, V, Lyr = cfg.d_model, cfg.vocab, cfg.n_layers
-    F_, Q, KV, hd = cfg.d_ff, cfg.q_dim, cfg.kv_dim, cfg.hd
-    blk: dict[str, tuple] = {"ln1": (Lyr, D), "ln2": (Lyr, D),
-                             "wq": (Lyr, D, Q), "wk": (Lyr, D, KV),
-                             "wv": (Lyr, D, KV), "wo": (Lyr, Q, D)}
-    if cfg.qkv_bias:
-        blk.update(bq=(Lyr, Q), bk=(Lyr, KV), bv=(Lyr, KV))
-    if cfg.qk_norm:
-        blk.update(q_norm=(Lyr, hd), k_norm=(Lyr, hd))
+    F_, Q, KV, hd, H = cfg.d_ff, cfg.q_dim, cfg.kv_dim, cfg.hd, cfg.n_heads
+    blk: dict[str, tuple] = {"ln1": (Lyr, D), "ln2": (Lyr, D)}
+    if cfg.family != "ssm":
+        blk.update(wq=(Lyr, D, Q), wk=(Lyr, D, KV), wv=(Lyr, D, KV),
+                   wo=(Lyr, Q, D))
+        if cfg.qkv_bias:
+            blk.update(bq=(Lyr, Q), bk=(Lyr, KV), bv=(Lyr, KV))
+        if cfg.qk_norm:
+            blk.update(q_norm=(Lyr, hd), k_norm=(Lyr, hd))
     if cfg.family == "moe":
         E = cfg.n_experts
         blk.update(router=(Lyr, D, E), w_gate=(Lyr, E, D, F_),
                    w_up=(Lyr, E, D, F_), w_down=(Lyr, E, F_, D))
-    else:
+    elif cfg.family == "ssm":
+        blk.update(xq=(Lyr, D, Q), xk=(Lyr, D, Q), xv=(Lyr, D, Q),
+                   xo=(Lyr, Q, D), w_i=(Lyr, D, H), w_f=(Lyr, D, H),
+                   b_i=(Lyr, H), b_f=(Lyr, H),
+                   p_up=(Lyr, D, 2 * D), p_gate=(Lyr, D, 2 * D),
+                   p_down=(Lyr, 2 * D, D))
+    elif cfg.family == "hybrid":
+        Di, N = D, cfg.ssm_state
+        blk.update(m_in=(Lyr, D, 2 * Di), m_dt=(Lyr, D, Di),
+                   m_bc=(Lyr, D, 2 * N), m_A=(Lyr, Di, N),
+                   m_D=(Lyr, Di), m_out=(Lyr, Di, D), m_ln=(Lyr, Di),
+                   w_gate=(Lyr, D, F_), w_up=(Lyr, D, F_),
+                   w_down=(Lyr, F_, D))
+    else:                                   # dense / audio / vlm
         blk.update(w_gate=(Lyr, D, F_), w_up=(Lyr, D, F_),
                    w_down=(Lyr, F_, D))
     spec = {"embed": (V, D), "ln_f": (D,), "blocks": blk}
     if not cfg.tie_embeddings:
         spec["lm_head"] = (D, V)
+    if cfg.frontend == "vlm":
+        spec["proj_in"] = (cfg.d_frontend, D)
     return spec
 
 
@@ -82,24 +95,37 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 key: Optional[torch.Tensor] = None) -> dict:
     """The reference's ``init_params(PRNGKey(seed), cfg)`` (or
     ``init_params(key, cfg)`` when a threefry ``key`` is given), made on
-    ``device``: norm scales ones, biases zeros, and every matrix
+    ``device``: norm scales ones; biases and hybrid's skip ``m_D``
+    zeros; hybrid's ``m_A`` log(1..N) in every row, with no draw; every
+    matrix
     ``normal(fold_in(key, i), shape, f32) * f32(fan_in ** -0.5)`` cast to
     the config's dtype, leaf i in ``param_spec`` order, fan_in the
     second-to-last dim.  The threefry draws are jax's bits; ``normal``'s
     erfinv agrees with XLA's to a few ulps.  Each leaf is drawn a window
     at a time into its final dtype, so no leaf-sized int64 or f32
     temporary is held: ``random.CHUNK`` elements on a card; on the host
-    :data:`HOST_WINDOW`, on one thread (:func:`_one_thread`)."""
+    :data:`HOST_WINDOW`, on one thread (:func:`_one_thread`).
+
+    As the reference's, the ssm forget bias ``b_f`` is 0: its
+    ``name.startswith("b")`` catches ``b_f`` before the branch that
+    would set it to 2.0."""
     device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     key = random.PRNGKey(seed) if key is None else key
     window = random.CHUNK if device.type == "cuda" else HOST_WINDOW
 
     def one(idx, name, shape):
-        if name.startswith(("ln", "q_norm", "k_norm")):
+        if name.startswith(("ln", "q_norm", "k_norm", "m_ln")):
             return torch.ones(shape, dtype=dtype, device=device)
-        if name.startswith("b"):
+        if name.startswith("b") or name == "m_D":
             return torch.zeros(shape, dtype=dtype, device=device)
+        if name == "m_A":
+            # the S4D-real init log(1..N), on the host: numpy's f32 log
+            # gives XLA's bits for these (torch's, correctly rounded,
+            # differs at log 7 by an ulp)
+            rows = torch.from_numpy(np.log(np.arange(1, shape[-1] + 1,
+                                                     dtype=np.float32)))
+            return rows.expand(shape).to(dtype).to(device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = float(np.float32(fan_in ** -0.5))
         leaf_key = random.fold_in(key, idx)
@@ -180,25 +206,42 @@ def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions):
             L.rope(k, positions, cfg.rope_theta), v)
 
 
-def _attn(cfg: ModelConfig, lp: dict, x, positions, window, train: bool):
-    """Prefill and training attention (``models/transformer.py:175-241``):
-    a training shape that ``uses_flash_kernel`` goes through the flash
+def _attn(cfg: ModelConfig, lp: dict, x, positions, window, mode: str,
+          cache: Optional[dict] = None, pos: Optional[int] = None):
+    """Attention with its residual (``models/transformer.py:175-241``).
+    A training shape that ``uses_flash_kernel`` goes through the flash
     kernels on (B, H, S, hd) views of the projections, read in place;
-    everything else through the plain chunked ``causal_attention``.
-    Returns (x_out, {"k", "v"}) -- the per-layer cache."""
+    prefill and any other training shape through the plain chunked
+    ``causal_attention``.  ``mode="decode"`` writes the new K/V into
+    ``cache`` (one layer's (B, size, KV, hd) ring, IN PLACE) at slot
+    ``pos % size`` under a window, else ``pos``, and attends over it.
+    Returns (x_out, {"k", "v"}): the layer's prefill K/V, or its cache."""
     B, S = x.shape[:2]
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, positions)
-    if train and uses_flash_kernel(cfg, S, window):
+    if mode == "decode":
+        size = cache["k"].shape[1]
+        slot = pos % size if window is not None else pos
+        if slot >= size:
+            raise ValueError(f"decode_step at position {pos} past a cache "
+                             f"of {size} positions (no window)")
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        out = L.decode_attention(q, cache["k"], cache["v"], pos,
+                                 window=window)
+        kv = cache
+    elif mode == "train" and uses_flash_kernel(cfg, S, window):
         out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=True,
                                  window=window).transpose(1, 2)
+        kv = None
     else:
         out = L.causal_attention(
             q, k, v, window=window, chunk=cfg.attn_chunk,
             scores_f32=cfg.attn_scores_f32 and not cfg.bf16_residency)
+        kv = {"k": k, "v": v} if mode == "prefill" else None
     y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"]
-    return x + y, {"k": k, "v": v}
+    return x + y, kv
 
 
 def _gated_mlp(h, w_gate, w_up, w_down):
@@ -219,19 +262,111 @@ def _ffn(cfg: ModelConfig, lp: dict, x):
     return x + _gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"]), {}
 
 
-def _block(cfg: ModelConfig, lp: dict, x, positions, window, train: bool):
-    x, kv = _attn(cfg, lp, x, positions, window, train)
+def _mamba(cfg: ModelConfig, lp: dict, x, mode: str, state=None):
+    """The selective-SSM head of a hybrid block (``:276-315``), on the
+    un-normed residual x.  Returns (its output, the new state: the
+    scan's h_final in prefill, the step's h in decode, else None)."""
+    z, u = (x @ lp["m_in"]).chunk(2, -1)
+    dt = F.softplus(x @ lp["m_dt"])
+    Bm, Cm = (x @ lp["m_bc"]).chunk(2, -1)
+    u = F.silu(u)
+    if mode == "decode":
+        h_new, y = ssm_lib.ssm_decode_step(
+            state, u[:, 0], dt[:, 0], Bm[:, 0], Cm[:, 0], lp["m_A"],
+            lp["m_D"])
+        y = y[:, None]
+    else:
+        y, h_new = ssm_lib.ssm_scan(u, dt, Bm, Cm, lp["m_A"], lp["m_D"],
+                                    chunk=cfg.scan_chunk,
+                                    scan_f32=cfg.ssm_scan_f32)
+        h_new = h_new if mode == "prefill" else None
+    y = L.rms_norm(y, lp["m_ln"], cfg.norm_eps) * F.silu(z)
+    return y @ lp["m_out"], h_new
+
+
+def init_mlstm_state(cfg: ModelConfig, B: int, device: DeviceLike = None):
+    """The mLSTM's empty state (``:366``): C, n zeros and m = -1e30, f32."""
+    device = resolve_device(device)
+    H, hd = cfg.n_heads, cfg.hd
+    return {"C": torch.zeros(B, H, hd, hd, device=device),
+            "n": torch.zeros(B, H, hd, device=device),
+            "m": torch.full((B, H), -1e30, device=device)}
+
+
+def _mlstm(cfg: ModelConfig, lp: dict, x, mode: str, state=None):
+    """The mLSTM mixer with its residual (``:318-363``).  Prefill builds
+    the recurrent state by replaying ``mlstm_decode_step`` over the
+    prompt, as the reference does.  Returns (x_out, the new state or
+    None in training)."""
+    B, S = x.shape[:2]
+    H = cfg.n_heads
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = ((h @ lp[n]).reshape(B, S, H, cfg.hd)
+               for n in ("xq", "xk", "xv"))
+    i_pre = h @ lp["w_i"] + lp["b_i"]
+    f_pre = h @ lp["w_f"] + lp["b_f"]
+    new_state = None
+    if mode == "decode":
+        new_state, out = ssm_lib.mlstm_decode_step(
+            state, q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0])
+        out = out[:, None]
+    else:
+        out = ssm_lib.mlstm_parallel(q, k, v, i_pre, f_pre,
+                                     chunk=cfg.attn_chunk,
+                                     scores_f32=cfg.attn_scores_f32)
+        if mode == "prefill":
+            new_state = init_mlstm_state(cfg, B, x.device)
+            for t in range(S):
+                new_state, _ = ssm_lib.mlstm_decode_step(
+                    new_state, q[:, t], k[:, t], v[:, t], i_pre[:, t],
+                    f_pre[:, t])
+    y = out.reshape(B, S, H * cfg.hd) @ lp["xo"]
+    return x + y, new_state
+
+
+def _block(cfg: ModelConfig, lp: dict, x, positions, window, mode: str,
+           cache: Optional[dict] = None, pos: Optional[int] = None):
+    """One layer (``:370-406``).  Returns (x, the layer's cache in
+    prefill and decode, aux)."""
+    if cfg.family == "ssm":
+        x, mix = _mlstm(cfg, lp, x, mode, cache["mix"] if cache else None)
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _gated_mlp(h, lp["p_gate"], lp["p_up"], lp["p_down"])
+        return x, {"mix": mix}, {}
+    if cfg.family == "hybrid":
+        attn_out, kv = _attn(cfg, lp, x, positions, window, mode,
+                             cache["kv"] if cache else None, pos)
+        m_out, m_state = _mamba(cfg, lp, x, mode,
+                                cache["ssm"] if cache else None)
+        x = 0.5 * (attn_out + (x + m_out))  # parallel heads, averaged
+        x, _ = _ffn(cfg, lp, x)
+        return x, {"kv": kv, "ssm": m_state}, {}
+    x, kv = _attn(cfg, lp, x, positions, window, mode,
+                  cache["kv"] if cache else None, pos)
     x, aux = _ffn(cfg, lp, x)
     return x, {"kv": kv}, aux
 
 
 # ================================================================ forward
-def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    """Token embedding.  Its gradient is a scatter-add of the rows; the
+def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 frontend_embeds: Optional[torch.Tensor] = None):
+    """Token embedding; vlm prepends its projected image-patch embeddings
+    (``frontend_embeds`` (B, n_frontend_tokens, d_frontend) @
+    ``proj_in``), and without them raises, where the reference's assert
+    fails.  The lookup's gradient is a scatter-add of the rows; the
     reference's one-hot matmul backward (``dense_embed_grad``) gives the
     same values up to the order of summation."""
-    _require_family(cfg)
-    return params["embed"][tokens.long()]
+    x = params["embed"][tokens.long()]
+    if cfg.frontend == "vlm":
+        if frontend_embeds is None:
+            raise ValueError(
+                f"{cfg.name} (vlm) embeds an image before its text: pass "
+                f"frontend_embeds (B, {cfg.n_frontend_tokens}, "
+                f"{cfg.d_frontend}), the image's patch embeddings (the "
+                f"reference fails at this call too, and serves no vlm)")
+        img = frontend_embeds.to(x.dtype) @ params["proj_in"]
+        x = torch.cat([img, x], 1)
+    return x
 
 
 def uses_flash_kernel(cfg: ModelConfig, seq_len: int,
@@ -244,55 +379,63 @@ def uses_flash_kernel(cfg: ModelConfig, seq_len: int,
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             mode: str = "prefill", window: Optional[int] = None,
-            inputs_embeds: Optional[torch.Tensor] = None):
+            inputs_embeds: Optional[torch.Tensor] = None,
+            frontend_embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward.  Returns (logits, caches, aux).
 
-    ``mode="prefill"`` runs without autograd and returns the per-layer
-    K/V stacked as (L, B, S, KV, hd) under ``caches["kv"]``;
+    ``mode="prefill"`` runs without autograd and returns the reference's
+    stacked per-layer caches: ``{"kv": {"k", "v"}}`` (L, B, S, KV, hd)
+    for the attention families, ``{"mix": {"C", "n", "m"}}`` (L, B, ...)
+    for ssm, ``{"kv", "ssm": h_final (L, B, d_model, N)}`` for hybrid;
     ``mode="train"`` records the graph for the backward and returns no
     caches; its attention goes through the flash kernels where the
-    reference's does (:func:`uses_flash_kernel`).
+    reference's does (:func:`uses_flash_kernel`).  One token against a
+    cache is :func:`decode_step`.
 
-    ``inputs_embeds`` (B, S, D) replaces the token-embedding lookup: the
-    continuous input that the DLG gradient inversion optimizes
-    (``repro_torch.privacy``); ``tokens`` still gives the positions and
-    the targets."""
+    ``frontend_embeds`` (B, n_frontend_tokens, d_frontend) are vlm's
+    image-patch embeddings, prepended to the text; the positions and the
+    flash gate take the joint length.  ``inputs_embeds`` (B, S, D)
+    replaces the embedding (the image prefix included): the continuous
+    input that the DLG gradient inversion optimizes
+    (``repro_torch.privacy``); ``tokens`` still gives the targets."""
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"forward(mode={mode!r}): want prefill or train; "
+                         f"one token against a cache is decode_step")
     if mode == "prefill":
         with torch.no_grad():
-            return _forward(params, cfg, tokens, window, keep_cache=True,
-                            inputs_embeds=inputs_embeds)
-    if mode != "train":
-        raise NotImplementedError(
-            f"forward(mode={mode!r}): prefill and train are ported; the "
-            f"dense ring-cache decode is ROADMAP queue 1.11")
-    return _forward(params, cfg, tokens, window, keep_cache=False,
-                    inputs_embeds=inputs_embeds)
+            return _forward(params, cfg, tokens, window, mode,
+                            inputs_embeds, frontend_embeds)
+    return _forward(params, cfg, tokens, window, mode, inputs_embeds,
+                    frontend_embeds)
 
 
-def _forward(params, cfg, tokens, window, keep_cache: bool,
-             inputs_embeds=None):
+def _forward(params, cfg, tokens, window, mode: str, inputs_embeds,
+             frontend_embeds):
     if inputs_embeds is None:
-        x = embed_inputs(params, cfg, tokens)
+        x = embed_inputs(params, cfg, tokens, frontend_embeds)
     else:
-        _require_family(cfg)
         x = inputs_embeds
-    B, S = tokens.shape
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    ks, vs, lb = [], [], []
+    caches, lb = [], []
     for lp in _layers(params):
-        x, cache, aux = _block(cfg, lp, x, positions, window,
-                               train=not keep_cache)
+        x, cache, aux = _block(cfg, lp, x, positions, window, mode)
         lb.append(aux.get("load_balance",
                           torch.zeros((), device=x.device)))
-        if keep_cache:
-            ks.append(cache["kv"]["k"])
-            vs.append(cache["kv"]["v"])
+        if mode == "prefill":
+            caches.append(cache)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
-    caches = ({"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-              if keep_cache else None)
     # the reference's scan stacks each layer's load_balance and means it
-    return logits, caches, {"load_balance": torch.stack(lb).mean()}
+    return (logits, _stack(caches) if mode == "prefill" else None,
+            {"load_balance": torch.stack(lb).mean()})
+
+
+def _stack(trees: list):
+    """Per-layer cache trees stacked leaf by leaf on a leading L axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _select_logit(pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
@@ -305,11 +448,13 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
             window: Optional[int] = None) -> torch.Tensor:
     """Causal LM loss (the reference's replicated path, ``tp=None``).
     batch: dict(tokens (B, S) [, loss_mask (B, S)] [, inputs_embeds (B,
-    S, D)]).  Next-token CE with f32 logits unless the config keeps them
-    in the compute dtype."""
+    S, D)] [, frontend_embeds (B, n_frontend_tokens, d_frontend)]).
+    Next-token CE with f32 logits unless the config keeps them in the
+    compute dtype; vlm predicts its text tokens only."""
     tokens = batch["tokens"]
     logits, _, aux = forward(params, cfg, tokens, "train", window,
-                             inputs_embeds=batch.get("inputs_embeds"))
+                             inputs_embeds=batch.get("inputs_embeds"),
+                             frontend_embeds=batch.get("frontend_embeds"))
     nll = _ce(cfg, logits, tokens, batch.get("loss_mask"))
     if cfg.family == "moe":
         nll = nll + 0.01 * aux["load_balance"]
@@ -341,6 +486,77 @@ def _ce(cfg: ModelConfig, logits, tokens, loss_mask):
     return nll.mean()
 
 
+# ================================================================= decode
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               window: Optional[int] = None, dtype=torch.bfloat16,
+               device: DeviceLike = None) -> dict:
+    """Per-layer stacked dense decode caches (``:762-776``): the mLSTM
+    state for ssm; else K/V rings (L, batch, size, KV, hd) of ``dtype``,
+    size = min(window, cache_len) under a window, and for hybrid the SSM
+    state (L, batch, d_model, N) f32."""
+    device = resolve_device(device)
+    Lyr = cfg.n_layers
+    if cfg.family == "ssm":
+        st = init_mlstm_state(cfg, batch, device)
+        return {"mix": {k: v.expand(Lyr, *v.shape).clone()
+                        for k, v in st.items()}}
+    size = min(window, cache_len) if window else cache_len
+    shape = (Lyr, batch, size, cfg.n_kv_heads, cfg.hd)
+    kv = {"k": torch.zeros(shape, dtype=dtype, device=device),
+          "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family == "hybrid":
+        ssm = torch.zeros(Lyr, batch, cfg.d_model, cfg.ssm_state,
+                          device=device)
+        return {"kv": kv, "ssm": ssm}
+    return {"kv": kv}
+
+
+@torch.no_grad()
+def decode_step(params: dict, cfg: ModelConfig, cache: dict,
+                token: torch.Tensor, pos: int,
+                window: Optional[int] = None):
+    """One new token per sequence against the dense cache (``:779-800``).
+
+    token: (B, 1) int; pos: the new token's absolute position (a Python
+    int, shared by the batch).  The caller's cache is left as it was:
+    the K/V rings are copied once and written in place, the recurrent
+    states made anew.  Returns (logits (B, 1, V), new cache).
+
+    A K/V cache whose dtype would promote the residual stream (an f32
+    cache under bf16 params) raises, where the reference's layer scan
+    fails on its carry's changed dtype: keep the cache in the params'
+    dtype or below."""
+    x = params["embed"][token.long()]
+    if "kv" in cache and torch.promote_types(
+            x.dtype, cache["kv"]["k"].dtype) != x.dtype:
+        raise ValueError(
+            f"decode_step: a {cache['kv']['k'].dtype} K/V cache would turn "
+            f"the {x.dtype} residual stream {cache['kv']['k'].dtype} (the "
+            f"reference's layer scan fails on it); make the cache in "
+            f"{x.dtype}")
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, device=x.device)
+    kv = ({n: t.clone() for n, t in cache["kv"].items()}
+          if "kv" in cache else None)
+    states = []
+    for i, lp in enumerate(_layers(params)):
+        layer = {}
+        if kv is not None:
+            layer["kv"] = {n: t[i] for n, t in kv.items()}
+        if "mix" in cache:
+            layer["mix"] = {n: t[i] for n, t in cache["mix"].items()}
+        if "ssm" in cache:
+            layer["ssm"] = cache["ssm"][i]
+        x, new, _ = _block(cfg, lp, x, positions, window, "decode", layer,
+                           pos)
+        states.append({k: v for k, v in new.items() if k != "kv"})
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    new_cache = _stack(states)
+    if kv is not None:
+        new_cache["kv"] = kv
+    return x @ _head(params, cfg), new_cache
+
+
 # ========================================================== paged decode
 # The serving engine's cache is a global pool of fixed-size blocks
 # (serve/cache.py); each request owns a block table.  Every row of the
@@ -349,8 +565,11 @@ def _ce(cfg: ModelConfig, logits, tokens, loss_mask):
 # kernels/paged_attention, or its plain torch version).
 
 def paged_families() -> tuple:
-    """Families the paged decode path serves in the port."""
-    return _FAMILIES
+    """Families the paged decode path serves (pure K/V caches; the
+    recurrent ssm and hybrid states are per request, served by
+    :func:`decode_step`).  vlm is listed, as the reference lists it, but
+    its prefill needs an image that neither engine passes."""
+    return ("dense", "moe", "audio", "vlm")
 
 
 def init_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,

@@ -124,7 +124,8 @@ class ServeEngine:
         if cfg.family not in tr.paged_families():
             raise ValueError(
                 f"ServeEngine serves families {tr.paged_families()}; "
-                f"{cfg.family!r} is not ported to the paged path")
+                f"{cfg.family!r} needs a dense per-request state (use "
+                f"transformer.decode_step or sampling.beam_search)")
         self.cfg = cfg
         self.settings = settings
         self.device = resolve_device(device)

@@ -1,5 +1,5 @@
-"""Token selection: temperature / top-k / top-p sampling and greedy
-(``repro/serve/sampling.py``; ``beam_search`` is not ported yet).
+"""Token selection: temperature / top-k / top-p sampling, greedy, and
+beam search (``repro/serve/sampling.py``).
 
 ``sample`` is row-wise: temperature/top_k/top_p come in as per-row
 tensors, so one decode step serves every request's sampling settings at
@@ -11,14 +11,23 @@ only on its own seed and history, never on its batch or slot: batched
 output is token-identical to solo output, and to the reference's for the
 same seed (the Gumbel noise agrees with jax's to a few ulps,
 ``repro_torch.random.gumbel``).
+
+``beam_search`` is the offline decode on the dense ring cache
+(``transformer.decode_step``), the one way the reference serves the
+recurrent families: fixed-width beams, the cache reordered by parent
+beam each step, an optional EOS with length-penalised scores.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from repro_torch import random
+from repro_torch.convert import tree_map
+from repro_torch.models import transformer as tr
+from repro_torch.models.moe import sorted_top_k
 
 NEG_INF = -1e30
 _MASK = 0xFFFFFFFF
@@ -71,3 +80,90 @@ def sample(keys: torch.Tensor, logits: torch.Tensor,
         -1, order, sorted_logits.masked_fill(~keep, NEG_INF))
     drawn = random.categorical(keys, filtered)
     return torch.where(temperature <= 0, greedy, drawn).to(torch.int32)
+
+
+# ============================================================ beam decode
+def prefill_cache(params: dict, cfg, prompt: torch.Tensor, n_beams: int,
+                  cache_len: int, window: Optional[int] = None,
+                  cache_dtype: torch.dtype = torch.float32):
+    """The prompt's prefill, its cache in the dense decode layout for
+    ``n_beams`` copies of it: ssm's states repeated whole; the K/V rings
+    of ``init_cache(cfg, n_beams, cache_len, window)`` with absolute
+    position j at slot j % size (under a window only the last ``size``
+    positions, older ones are never valid), and hybrid's SSM state beside
+    them.  prompt: (S,) on the params' device.  Returns (the prefill's
+    logits (1, S, V), the cache)."""
+    S = prompt.shape[0]
+    logits, caches, _ = tr.forward(params, cfg, prompt[None], "prefill",
+                                   window)
+
+    def beams(c):
+        return c.repeat_interleave(n_beams, 1)
+
+    if cfg.family == "ssm":
+        return logits, tree_map(beams, caches)
+    cache = tr.init_cache(cfg, n_beams, cache_len, window=window,
+                          dtype=cache_dtype, device=prompt.device)
+    size = cache["kv"]["k"].shape[2]
+    lo = max(0, S - size)
+    slots = torch.arange(lo, S, device=prompt.device) % size
+    for n in ("k", "v"):
+        cache["kv"][n][:, :, slots] = beams(
+            caches["kv"][n][:, :, lo:]).to(cache_dtype)
+    if cfg.family == "hybrid":
+        cache["ssm"] = beams(caches["ssm"]).to(cache["ssm"].dtype)
+    return logits, cache
+
+
+def beam_search(params: dict, cfg, prompt, *, n_beams: int = 4,
+                max_new_tokens: int = 16, window: Optional[int] = None,
+                eos_id: Optional[int] = None, length_penalty: float = 1.0,
+                cache_dtype: torch.dtype = torch.float32):
+    """Fixed-width beam decode of one prompt on the dense decode cache
+    (``sampling.py:85-160``), on the params' device.
+
+    prompt: (S,) ints.  The prefill's cache goes into the decode layout,
+    one copy a beam (:func:`prefill_cache`).  Each step extends every
+    beam by every token, keeps the ``n_beams`` best sums of log-probs
+    (``lax.top_k``'s order: ties to the lower index) and reorders the
+    cache by parent beam; a finished beam (it drew ``eos_id``) extends
+    only by EOS at no cost.  Returns
+    (tokens (max_new_tokens,) int32, score) of the best beam: its summed
+    log-prob over max_new_tokens ** length_penalty."""
+    device = params["embed"].device
+    prompt = torch.as_tensor(prompt, dtype=torch.int32, device=device)
+    S = prompt.shape[0]
+    total = S + max_new_tokens
+    logits, cache = prefill_cache(params, cfg, prompt, n_beams, total,
+                                  window=window, cache_dtype=cache_dtype)
+    logp0 = torch.log_softmax(logits[0, S - 1].float(), -1)
+    scores, first = sorted_top_k(logp0, n_beams)
+    V = logp0.shape[0]
+    toks = first.to(torch.int32)
+    seqs = torch.zeros(n_beams, max_new_tokens, dtype=torch.int32,
+                       device=device)
+    seqs[:, 0] = toks
+    alive = torch.ones(n_beams, dtype=torch.bool, device=device)
+    if eos_id is not None:
+        alive &= toks != eos_id
+        frozen = torch.full((n_beams, V), NEG_INF, device=device)
+        frozen[:, eos_id] = 0.0
+    for pos in range(S, total - 1):
+        logits, cache = tr.decode_step(params, cfg, cache, toks[:, None],
+                                       pos, window=window)
+        logp = torch.log_softmax(logits[:, 0].float(), -1)
+        if eos_id is not None:
+            logp = torch.where(alive[:, None], logp, frozen)
+        cand = scores[:, None] + logp                       # (beams, V)
+        scores, top_i = sorted_top_k(cand.reshape(-1), n_beams)
+        parent = top_i // V
+        toks = (top_i % V).to(torch.int32)
+        cache = tree_map(lambda c: c[:, parent], cache)
+        seqs = seqs[parent]
+        seqs[:, pos - S + 1] = toks
+        alive = alive[parent]
+        if eos_id is not None:
+            alive &= toks != eos_id
+    norm = scores / (max_new_tokens ** length_penalty)
+    best = int(torch.argmax(norm))
+    return seqs[best], norm[best]

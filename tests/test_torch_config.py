@@ -96,14 +96,20 @@ def test_param_spec_and_init_match_reference_layout(arch):
     assert torch.equal(again["embed"], params["embed"])
 
 
-def test_unported_families_name_their_slice():
-    """ssm, hybrid and vlm raise naming ROADMAP queue 1.9 (moe runs
-    since the slice that ported ``models/moe.py``)."""
-    for arch in ("xlstm-350m", "hymba-1.5b", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="queue 1.9"):
-            tr.param_spec(configs.get_config(arch).smoke())
-    assert "router" in tr.param_spec(
-        configs.get_config("olmoe-1b-7b").smoke())["blocks"]
+@pytest.mark.parametrize("arch", ref_configs.ARCHS)
+def test_every_zoo_param_spec_and_paged_families_equal_the_reference(arch):
+    """Every zoo config's ``param_spec`` at full width and at its smoke
+    size equals the reference's, leaf order included (a leaf's place is
+    its ``fold_in`` index), and the paged families are the reference's
+    tuple."""
+    for cfg, ref in ((configs.get_config(arch), ref_configs.get_config(arch)),
+                     (configs.get_config(arch).smoke(),
+                      ref_configs.get_config(arch).smoke())):
+        spec, want = tr.param_spec(cfg), ref_tr.param_spec(ref)
+        assert spec == want
+        assert list(spec) == list(want)
+        assert list(spec["blocks"]) == list(want["blocks"])
+    assert tr.paged_families() == ref_tr.paged_families()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -938,3 +938,34 @@ def test_cuda_tap_views_round_trip_the_int8_wire(cuda, nccl_rank):
     diff = (views[0] - views[1]).abs()
     assert float(diff.max()) <= float(views[1].abs().max()) / 127 * 1.001
     assert float((views[0] - views[1]).norm() / views[1].norm()) <= 1e-3
+
+
+# ------------------------------------------------------ recurrent families
+@pytest.mark.cuda
+def test_hymba_smoke_gradient_on_the_card_equals_the_host(cuda):
+    """hymba-1.5b's smoke variant in f32 (attention and the selective
+    scan in parallel): the loss and every gradient leaf on the card,
+    through the flash kernels (one launch of each a layer), within 1e-4
+    relative norm of the host's plain path."""
+    cfg = get_config("hymba-1.5b").smoke()
+    host = tr.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, size=(4, 64)).astype(np.int32))
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        params = {k: ({n: t.to(device) for n, t in v.items()}
+                      if isinstance(v, dict) else v.to(device))
+                  for k, v in host.items()}
+        leaves = [params["embed"]] + list(params["blocks"].values())
+        for t in leaves:
+            t.requires_grad_()
+        _set_flash_launches(0)
+        loss = tr.loss_fn(params, cfg, {"tokens": toks.to(device)})
+        grads = torch.autograd.grad(loss, leaves)
+        if device.type == "cuda":
+            assert [fn.launches for fn in FLASH] == [cfg.n_layers] * 3
+        out.append((float(loss), [g.cpu() for g in grads]))
+    (lc, gc), (lh, gh) = out
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    for a, b in zip(gc, gh):
+        assert float((a - b).norm() / b.norm()) < 1e-4
