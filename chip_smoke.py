@@ -10,7 +10,8 @@ of the step's captured wire, the non-IID feeds, the reference's init
 draws and the MoE family (olmoe-1b-7b served, a gradient and ERIS
 rounds), and the recurrent and vision families (xlstm-350m and
 hymba-1.5b trained, beam-searched and in ERIS rounds, internvl2-26b at
-reduced depth), on one NVIDIA card.
+reduced depth), and the model axis (tensor, context and expert
+parallelism: ranks sharing the card over gloo), on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -256,7 +257,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     gradient leaf, the prefill logits and caches within 1e-4, and
     ``beam_search``'s tokens equal and score within 1e-4 (vlm: refused on
     both).  Prints each part's seconds.
-16. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+16. the model axis -- ranks are ``torch.multiprocessing`` processes, all
+    on cuda:0, over process groups whose backend the phase chooses,
+    gloo (NCCL refuses two ranks on one device): every collective of a
+    CUDA tensor goes through host buffers (``dist/collectives.py``) and
+    the phase says so on a line of its own; the compute stays on the
+    card.  (a) two ranks: eris-gptneo-1.3b at full width and depth in
+    f32, one 1 x 512 ``loss_fn`` value and gradient at tp = 2 (heads and
+    FFN sharded, the vocab of 50257 replicated; flash at 8 of the 16
+    heads, on the f32 tensor cores) against the same model replicated
+    on the card, computed first by each rank and freed before the TP
+    ranks run: the loss within 1e-5 relative, each merged leaf's max
+    error within 1e-3 of its max |g| (the reference's gates,
+    ``tests/test_tp.py``); olmoe-1b-7b at full width cut to 4 layers, 1
+    x 128, expert parallel (the replicated run's top-k experts pinned, so
+    the two differ in arithmetic only), and hymba-1.5b at 4 layers, 1 x
+    256 (ring attention over its 25 heads, the channel-sharded mamba
+    head), with the same gates; then three steps of the distributed
+    step at (data 1, model 2), phase 11's DSC fused int8 settings, adam
+    lr 1e-5: losses finite and falling, one ``dsc_quantize`` and one
+    ``dequantize`` a leaf a step, n_layers launches of each flash kernel
+    a step.  (b) four ranks: qwen2-0.5b at full width at tp = 4 (ring
+    attention for its 2 kv heads, the vocab-parallel CE, the FFN
+    sharded), 1 x 512, the same gates; then its smoke step at (data 2,
+    model 2) on the int8 wire, two sgd steps on the card and on the host
+    from the same params and keys, within 1e-4.  Each case prints its
+    loss error, worst leaf, ms, launches and each rank's peak; the flash
+    launches of (a)'s TP gradients and steps join the kernels line.
+17. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -3763,6 +3791,330 @@ def family_phase(dev, seed) -> dict:
     return totals
 
 
+# --------------------------------------------------------------- phase 16
+# The model axis (tensor, sequence, context and expert parallelism) on
+# the one card: ranks are processes on cuda:0 over process groups whose
+# backend the phase chooses, gloo (NCCL refuses two ranks on one device);
+# every collective of a CUDA tensor then goes through host buffers
+# (dist/collectives.py), so its times are host staging, not NVLink.  The
+# compute (matmuls, the flash and wire kernels) stays on the card.
+# (a) 2 ranks: (arch, layers (None = all), tokens, tp) gradient parity,
+# TP against the same model replicated on the card, f32; then the step.
+TP_PARITY_A = (("eris-gptneo-1.3b", None, 512, 2),
+               ("olmoe-1b-7b", 4, 128, 2),
+               ("hymba-1.5b", 4, 256, 2))
+# (b) 4 ranks
+TP_PARITY_B = (("qwen2-0.5b", None, 512, 4),)
+# the reference's own gates (tests/test_tp.py): the loss's relative error,
+# each merged leaf's max |error| over max(max |g|, 1e-4)
+TP_LOSS_TOL, TP_GRAD_TOL = 1e-5, 1e-3
+TP_STEP_LR, TP_STEPS = 1e-5, 3
+TP_STEP_CONFIG = TRAIN_CONFIGS[1]          # (b) dsc int8 fused
+
+
+def _tp_env(rank: int, world: int, port: int) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class TopKPin:
+    """Records every ``sorted_top_k`` call's experts (layer order) of a
+    replicated run; with ``pin`` (that list) and this rank's model index,
+    each call of an expert-parallel run returns the replicated run's
+    experts for this rank's token groups (their gates gathered from its
+    own probabilities, so the router keeps its gradient) and counts the
+    (token, choice) pairs where its own would differ."""
+
+    def __init__(self, pin=None, index: int = 0):
+        self.pin, self.index = pin, index
+
+    def __enter__(self):
+        self.idxs, self.flips = [], 0
+        self._saved = moe_lib.sorted_top_k
+        top_k = self._saved
+
+        def spy(x, k):
+            vals, idx = top_k(x, k)
+            if self.pin is not None:
+                rep = self.pin[len(self.idxs)]
+                gl = x.shape[0]
+                lo = self.index * gl
+                rows = max(0, min(gl, rep.shape[0] - lo))
+                own = idx
+                idx = idx.clone()
+                idx[:rows] = rep[lo:lo + rows]
+                self.flips += int((own[:rows] != idx[:rows]).sum())
+                vals = x.gather(-1, idx)
+            self.idxs.append(idx.detach().clone())
+            return vals, idx
+
+        moe_lib.sorted_top_k = spy
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.sorted_top_k = self._saved
+
+
+def _tp_parity(dev, seed, rank, arch, layers, tokens, tp, group) -> dict:
+    """One gradient of ``arch`` at full width (``layers`` of it), f32,
+    replicated and at tp on this rank's model group: the loss's relative
+    error and each merged leaf's, with the TP gradient's ms, launches and
+    peak."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as cl
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import shard_plan as sp
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    plan = sp.build_plan(cfg, tp)
+    check(plan.active, f"{arch} at tp {tp}: no plan")
+    idx = rank % tp
+    specs = tree_leaves(sh.tp_specs(cfg, tp))
+    toks = lm_token_batches(random.fold_in(random.PRNGKey(seed), 16), 1, 1,
+                            tokens, cfg.vocab, device=dev)[0]
+    params = tr.init_params(cfg, seed=seed, device=dev)
+    template = sh.shape_tree(cfg, lambda s: None)
+    # the replicated gradient on the card; this rank keeps its shards
+    with TopKPin() as rec:
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        loss = tr.loss_fn(tree_unflatten(template, leaves), cfg,
+                          {"tokens": toks})
+        grads = torch.autograd.grad(loss, leaves)
+    rep_loss = float(loss.detach())
+    ref = [sh.tp_shard(g, s, tp, idx).clone() for g, s in zip(grads, specs)]
+    local = [sh.tp_shard(p, s, tp, idx).clone()
+             for p, s in zip(tree_leaves(params), specs)]
+    del grads, leaves, loss, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier(group)
+    # the TP gradient: the path whose launches count
+    rt = sp.TPRuntime(group, tp, idx, plan)
+    _set_round_launches(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = _event_pair()
+    with TopKPin(rec.idxs, idx) as pin:
+        start.record()
+        leaves = [t.requires_grad_() for t in local]
+        loss = tr.loss_fn(tree_unflatten(template, leaves), cfg,
+                          {"tokens": toks}, tp=rt)
+        grads = sh.tp_grad_sync(list(torch.autograd.grad(loss, leaves)),
+                                specs, rt)
+        end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: FLASH[k].launches for k in FLASH}
+    f32_tc = [fn.f32_tensor_core_launches for fn in TENSOR_CORE]
+    flash = tr.uses_flash_kernel(cfg, tokens) and plan.attn
+    want = cfg.n_layers if flash else 0
+    check(all(n == want for n in launches.values()) and
+          f32_tc == [want] * 3,
+          f"{arch} tp {tp}: flash launches {launches} (f32 tensor cores "
+          f"{f32_tc}), want {want} each")
+    loss_err = abs(float(loss.detach()) - rep_loss) / abs(rep_loss)
+    worst, worst_leaf = 0.0, None
+    names = [".".join(p) for p, _ in sh.spec_items(cfg)]
+    for g, r, s, name in zip(grads, ref, specs, names):
+        pair = torch.stack([(g - r).abs().max(), r.abs().max()])
+        if s.dim >= 0:           # the leaf's max over its shards
+            pair = cl.all_reduce(pair, group, dist.ReduceOp.MAX)
+        err = float(pair[0]) / max(float(pair[1]), 1e-4)
+        if err > worst:
+            worst, worst_leaf = err, name
+    head = (f"  rank {rank}: {arch}" + (f" at {layers} layers" if layers
+                                        else "") +
+            f", 1 x {tokens} tokens, tp {tp} {plan}")
+    print(f"{head}\n  rank {rank}:   loss {rep_loss:.6f} replicated, "
+          f"relative error {loss_err:.3e} (tol {TP_LOSS_TOL:g})\n"
+          f"  rank {rank}:   worst leaf {worst_leaf} {worst:.3e} of its max "
+          f"|g| (tol {TP_GRAD_TOL:g}); route flips pinned {pin.flips}\n"
+          f"  rank {rank}:   TP gradient {ms:.1f} ms, flash launches "
+          f"{launches}, peak {peak:.2f} GB (this rank)", flush=True)
+    check(loss_err <= TP_LOSS_TOL and worst <= TP_GRAD_TOL,
+          f"{arch} tp {tp}: loss {loss_err:.3e}, worst leaf {worst_leaf} "
+          f"{worst:.3e}")
+    return dict(loss_err=loss_err, worst_leaf=worst_leaf, grad_err=worst,
+                ms=ms, peak_gb=peak, launches=launches, flips=pin.flips)
+
+
+def _tp_step(dev, seed, rank) -> dict:
+    """Three steps of eris-gptneo-1.3b at full width at (data 1, model 2),
+    phase 11's DSC fused int8 settings, adam lr 1e-5: the loss finite and
+    falling, the wire kernels once a leaf a step, the flash kernels
+    n_layers a step at the TP-local head counts."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.optim import adam
+    cfg = get_config("eris-gptneo-1.3b")
+    mesh = mesh_lib.make_host_mesh(data=1, model=2, device=dev)
+    name, fields, wire = TP_STEP_CONFIG
+    settings = train.TrainSettings(**fields)
+    opt = adam(TP_STEP_LR)
+    step = train.make_train_step(cfg, mesh, opt, settings, device=dev)
+    params = train.store_params(tr.init_params(cfg, seed=seed, device=dev),
+                                cfg, mesh, settings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = opt.init(params)
+    dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=dev)
+    toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
+                            cfg.vocab, device=dev)[0]
+    n_leaves = len(tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _set_round_launches(0)
+    losses, ms = [], []
+    for i in range(TP_STEPS):
+        start, end = _event_pair()
+        start.record()
+        params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                         {"tokens": toks}, random.PRNGKey(i))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    launches = {k: fn.launches for k, fn in ROUND.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  rank {rank}: step {name} at (data 1, model 2), adam lr "
+          f"{TP_STEP_LR}: losses {losses}, ms {[round(x, 1) for x in ms]}, "
+          f"launches {launches}, peak {peak:.2f} GB (this rank)",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses) and
+          all(b < a for a, b in zip(losses, losses[1:])),
+          f"TP step losses {losses}: not finite and falling")
+    for k in wire:
+        check(launches[k] == n_leaves * TP_STEPS,
+              f"TP step: {k} launched {launches[k]}, want {n_leaves} a "
+              f"step")
+    for k in FLASH:
+        check(launches[k] == cfg.n_layers * TP_STEPS,
+              f"TP step: {k} launched {launches[k]}, want "
+              f"{cfg.n_layers} a step")
+    del params, state, dsc_ref
+    return dict(losses=losses, ms=ms, peak_gb=peak, launches=launches)
+
+
+def _tp_smoke(dev, seed, rank) -> dict:
+    """The smoke variant in f32 at (data 2, model 2) on the int8 wire, two
+    sgd steps on the card and on the host (the same gloo groups) from the
+    same params and keys: params and losses within TRAIN_SMOKE_TOL."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as cl
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
+    mesh = mesh_lib.make_host_mesh(data=2, model=2, device=dev)
+    settings = train.TrainSettings(grad_dtype="float32", int8_wire=True)
+    toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
+                            cfg.vocab)[0]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        opt = sgd(TRAIN_SMOKE_LR)
+        step = train.make_train_step(cfg, mesh, opt, settings, device=d)
+        params = tree_map(lambda t: t.to(d), train.store_params(
+            tr.init_params(cfg, seed=seed, device="cpu"), cfg, mesh,
+            settings))
+        state = opt.init(params)
+        dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=d)
+        losses = []
+        for i in range(2):
+            params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                             {"tokens": toks.to(d)},
+                                             random.PRNGKey(i))
+            losses.append(float(m["loss"]))
+        out.append((torch.cat([t.reshape(-1).float().cpu()
+                               for t in tree_leaves(params)]), losses))
+    (cx, closs), (hx, hloss) = out
+    # the norms over every rank's pieces
+    sums = cl.all_reduce(torch.stack([(cx - hx).square().sum(),
+                                      hx.square().sum()]).double(),
+                         dist.group.WORLD)
+    rel = float(sums[0].sqrt() / sums[1].sqrt())
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(closs, hloss))
+    if rank == 0:
+        print(f"  smoke int8 at (data 2, model 2): 2 sgd steps, params card "
+              f"vs host {rel:.3e}, losses {lrel:.3e} (tol "
+              f"{TRAIN_SMOKE_TOL})", flush=True)
+    check(rel <= TRAIN_SMOKE_TOL and lrel <= TRAIN_SMOKE_TOL,
+          f"TP smoke int8: params card vs host {rel:.3e}, losses "
+          f"{lrel:.3e}")
+    return dict(params_rel=rel, loss_rel=lrel)
+
+
+def _tp_rank(rank: int, world: int, port: int, part: str, seed: int,
+             out_dir: str) -> None:
+    """One rank of the phase, in its own process on cuda:0."""
+    _tp_env(rank, world, port)
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    dev = mesh_lib.init_process_group("cuda", backend="gloo")
+    t0 = time.monotonic()
+    res = {"backend": str(dist.get_backend()), "cases": {}}
+    try:
+        world_group = dist.group.WORLD
+        cases = TP_PARITY_A if part == "a" else TP_PARITY_B
+        for arch, layers, tokens, tp in cases:
+            res["cases"][arch] = _tp_parity(dev, seed, rank, arch, layers,
+                                            tokens, tp, world_group)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if part == "a":
+            res["step"] = _tp_step(dev, seed, rank)
+        else:
+            res["smoke"] = _tp_smoke(dev, seed, rank)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.monotonic() - t0
+    pathlib.Path(out_dir, f"{part}{rank}.json").write_text(json.dumps(res))
+
+
+def model_axis_phase(dev, seed) -> dict:
+    """Phase 16: (a) two ranks, (b) four, each a ``torch.multiprocessing``
+    launch of processes on cuda:0 over gloo groups.  Returns the main
+    path's launches (the TP gradients and steps of (a), summed over
+    ranks)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.launch import mesh as mesh_lib
+    _expect_free_card("before the model axis")
+    print("  the model groups run over gloo on one card: every rank is a "
+          "process on cuda:0 and the caller chose backend='gloo' (NCCL "
+          "refuses two ranks on one device), so every collective of a CUDA "
+          "tensor is staged through host buffers; its times are host "
+          "staging, not NVLink", flush=True)
+    totals = {name: 0 for name in ROUND}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        for part, world in (("a", 2), ("b", 4)):
+            t0 = time.monotonic()
+            mp.spawn(_tp_rank, args=(world, mesh_lib.free_port(), part,
+                                     seed, out), nprocs=world, join=True)
+            ranks = [json.loads(pathlib.Path(out, f"{part}{r}.json")
+                                .read_text()) for r in range(world)]
+            check(all(r["backend"] == "gloo" for r in ranks),
+                  f"model axis ({part}): backends "
+                  f"{[r['backend'] for r in ranks]}")
+            print(f"  ({part}) {world} ranks in {time.monotonic() - t0:.1f} "
+                  f"s (each rank's own: "
+                  f"{[round(r['seconds'], 1) for r in ranks]})", flush=True)
+            print("model_axis " + json.dumps({part: ranks}), flush=True)
+            for r in ranks:
+                for case in r["cases"].values():
+                    for k, n in case["launches"].items():
+                        totals[k] += n
+                for k, n in r.get("step", {}).get("launches", {}).items():
+                    totals[k] += n
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3855,7 +4207,13 @@ def main() -> None:
     for name in round_launches:
         round_launches[name] += family_launches[name]
 
-    phase("16 result")
+    phase("16 the model axis: eris-gptneo-1.3b at tp = 2, olmoe-1b-7b, "
+          "hymba-1.5b and qwen2-0.5b, ranks on one card over gloo")
+    tp_launches = model_axis_phase(dev, args.seed)
+    for name in round_launches:
+        round_launches[name] += tp_launches[name]
+
+    phase("17 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -1,5 +1,5 @@
 """Sharding policy of the distributed FSA step (``repro/dist/sharding.py``,
-Section 3.2.1 on a process group), for the data axis.
+Section 3.2.1 on a process group), on the data and model axes.
 
 Every rank of the mesh's ``"data"`` axis is one FSA *aggregator*: it
 owns a disjoint segment of each parameter (the "store" layout), receives
@@ -13,12 +13,19 @@ correct, never sharded).  The set of (leaf, slice) pairs aggregator a
 owns IS the mask m_(a) of ``core/masks`` at tensor granularity, disjoint
 and complete by construction, so Theorem B.1 applies unchanged.
 
+The model axis (tensor parallelism, ``models/shard_plan``) shards each
+leaf at its :class:`TPSpec` dim; the scatter dim is then taken of the
+TP-LOCAL shape, and the store layout composes both: rank (a, j) of the
+(data, model) mesh holds aggregator a's segment of model position j's
+shard (:func:`composite_store_shard`).  Theorem B.1 applies per model
+position.
+
 The reference expresses the layout as ``PartitionSpec``s of a jax
-``Mesh``; here a rank holds its pieces as plain tensors, cut by
-:func:`store_shard`.  Helpers that take a ``mesh`` accept the port's
-``DeviceMesh`` (``launch/mesh.make_host_mesh``) or the client count
-itself.  The model axis (tensor parallelism) and the pipe axis are ROADMAP
-queue 1.10: their helpers raise.
+``Mesh``; here a rank holds its pieces as plain tensors.  Helpers that
+take a ``mesh`` accept the port's ``DeviceMesh``
+(``launch/mesh.make_host_mesh``) or the client count itself (a mesh
+without a model axis).  The pipe axis is ROADMAP queue 1.10: its helpers
+raise.
 """
 from __future__ import annotations
 
@@ -28,12 +35,16 @@ from typing import Any, Iterator, Tuple, Union
 
 import torch
 
+from repro_torch.convert import tree_leaves, tree_map, tree_unflatten
+from repro_torch.dist import collectives as cl
+from repro_torch.models.shard_plan import TPSpec, tp_specs  # noqa: F401
+
 QBLOCK = 256        # coords per int8-wire scale (kernels/quantize.QBLOCK)
 FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
 
-_QUEUE_1_10 = ("the model and pipe axes (tensor and pipeline parallelism) "
-               "are not ported yet: ROADMAP queue 1.10")
+_QUEUE_1_10 = ("the pipe axis (pipeline parallelism) is not ported yet: "
+               "ROADMAP queue 1.10")
 
 
 # ------------------------------------------------------------------ axes
@@ -45,21 +56,59 @@ def client_count(mesh: Union[int, Any]) -> int:
     return int(mesh.size(mesh.mesh_dim_names.index("data")))
 
 
-# ------------------------------------------------- model and pipe axes
-def tp_local_shape(*args, **kwargs):
-    raise NotImplementedError(f"tp_local_shape: {_QUEUE_1_10}")
+def model_size(mesh: Union[int, Any]) -> int:
+    """The size of the mesh's ``"model"`` axis (1 without one, and for a
+    bare client count)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    return int(mesh.size(names.index("model"))) if "model" in names else 1
 
 
-def tp_split_leaf(*args, **kwargs):
-    raise NotImplementedError(f"tp_split_leaf: {_QUEUE_1_10}")
+# ----------------------------------------------------------- model axis
+def tp_local_shape(shape: Tuple[int, ...], spec: TPSpec,
+                   tp: int) -> Tuple[int, ...]:
+    """The per-model-position shape of a leaf under ``spec``."""
+    if spec.dim < 0 or tp <= 1:
+        return tuple(shape)
+    shape = list(shape)
+    shape[spec.dim] //= tp
+    return tuple(shape)
 
 
-def tp_merge_leaf(*args, **kwargs):
-    raise NotImplementedError(f"tp_merge_leaf: {_QUEUE_1_10}")
+def tp_shard(x: torch.Tensor, spec: TPSpec, tp: int,
+             index: int) -> torch.Tensor:
+    """Model position ``index``'s piece of a leaf: the ``index``-th of
+    ``tp`` contiguous chunks along ``spec.dim`` (the whole leaf where it
+    replicates).  A view of ``x``."""
+    if spec.dim < 0 or tp <= 1:
+        return x
+    size = x.shape[spec.dim] // tp
+    return x.narrow(spec.dim, index * size, size)
 
 
-def tp_grad_sync(*args, **kwargs):
-    raise NotImplementedError(f"tp_grad_sync: {_QUEUE_1_10}")
+def tp_split_leaf(x: torch.Tensor, spec: TPSpec, tp: int) -> torch.Tensor:
+    """Every model position's shard of one leaf, stacked ``(tp,
+    *local_shape)`` (shard i = position i's contiguous chunk); replicated
+    leaves stack ``tp`` copies."""
+    return torch.stack([tp_shard(x, spec, tp, i) for i in range(max(tp, 1))])
+
+
+def tp_merge_leaf(shards: torch.Tensor, spec: TPSpec) -> torch.Tensor:
+    """Inverse of :func:`tp_split_leaf` (replicated leaves: shard 0)."""
+    if spec.dim < 0:
+        return shards[0]
+    return torch.cat(list(shards), spec.dim)
+
+
+def tp_grad_sync(grads, specs, tp):
+    """After the gradient on the model axis ``tp`` (a ``TPRuntime``):
+    ``partial`` leaves (replicated values consumed on local shards) carry
+    partial sums, all-reduced over the model group, in leaf order;
+    sharded leaves' gradients are local and replicated ones complete, so
+    both pass through.  ``grads`` and ``specs`` are trees of the same
+    structure (dicts, or lists in flatten order)."""
+    return tree_map(
+        lambda g, s: (cl.all_reduce(g, tp.group) if s.kind == "partial"
+                      else g), grads, specs)
 
 
 def pipe_dims(*args, **kwargs):
@@ -110,11 +159,37 @@ def scatter_dim_for(shape: Tuple[int, ...], n_client: int) -> int:
     return -1
 
 
+def local_shapes(cfg, mesh) -> list:
+    """Each leaf's TP-local shape on the mesh's model axis, in flatten
+    order."""
+    tp = model_size(mesh)
+    return [tp_local_shape(shape, s, tp) for (_, shape), s in
+            zip(spec_items(cfg), tree_leaves(tp_specs(cfg, tp)))]
+
+
+def local_shape_tree(cfg, mesh, fn) -> dict:
+    """``fn(TP-local shape)`` at every leaf of the parameter tree."""
+    return tree_unflatten(shape_tree(cfg, lambda shape: None),
+                          [fn(shape) for shape in local_shapes(cfg, mesh)])
+
+
 def fsa_scatter_dims(cfg, mesh) -> dict:
     """Per-leaf scatter dim for the FSA reduce-scatter and the shard-local
-    optimizer (a tree of ints matching the param tree)."""
+    optimizer (a tree of ints matching the param tree), of the TP-LOCAL
+    shape: on each rank every leaf is already its model position's
+    shard, and the client segmentation divides that."""
     n_client = client_count(mesh)
-    return shape_tree(cfg, lambda shape: scatter_dim_for(shape, n_client))
+    return local_shape_tree(cfg, mesh,
+                            lambda shape: scatter_dim_for(shape, n_client))
+
+
+def composite_store_shard(x: torch.Tensor, spec: TPSpec, tp: int,
+                          midx: int, fsa_dim: int, n_client: int,
+                          aidx: int) -> torch.Tensor:
+    """Rank (aidx, midx)'s piece of a full leaf in the store layout:
+    model position midx's TP shard, then aggregator aidx's segment of it
+    along its scatter dim.  A view of ``x``."""
+    return store_shard(tp_shard(x, spec, tp, midx), fsa_dim, n_client, aidx)
 
 
 def store_shard(x: torch.Tensor, dim: int, n_client: int,
@@ -174,20 +249,24 @@ def wire_layout_for(shape: Tuple[int, ...], n_client: int) -> WireLayout:
 
 
 def int8_wire_layouts(cfg, mesh) -> dict:
-    """Tree of :class:`WireLayout` matching the parameter tree."""
+    """Tree of :class:`WireLayout` matching the parameter tree (the wire
+    geometry of the TP-local leaf each rank exchanges)."""
     n_client = client_count(mesh)
-    return shape_tree(cfg, lambda shape: wire_layout_for(shape, n_client))
+    return local_shape_tree(cfg, mesh,
+                            lambda shape: wire_layout_for(shape, n_client))
 
 
 def mesh_wire_bytes(cfg, mesh, *, int8: bool, grad_bytes: int = 2) -> int:
     """Bytes ONE client (rank) puts on the data axis per round under the
     FSA exchange: the sum over leaves of every transmitted segment
     (n_client - 1 remote segments + its own, counted once each, matching
-    the collective's logical payload).  ``int8=False`` accounts the
+    the collective's logical payload).  With a model axis each rank
+    exchanges only its TP-local shard, so this is per rank; the model
+    axis's own traffic is not counted here.  ``int8=False`` accounts the
     ``grad_dtype`` path.  Computed from shapes, not measured."""
     n_client = client_count(mesh)
     total = 0
-    for _, shape in spec_items(cfg):
+    for shape in local_shapes(cfg, mesh):
         lay = wire_layout_for(shape, n_client)
         if int8 and lay.dim >= 0:
             total += n_client * lay.wire_bytes
@@ -198,9 +277,11 @@ def mesh_wire_bytes(cfg, mesh, *, int8: bool, grad_bytes: int = 2) -> int:
 
 def param_bytes_per_device(cfg, mesh) -> int:
     """Resident parameter bytes per device in the compute layout: every
-    leaf whole (client-replicated), in the config's dtype."""
+    leaf at its TP-local shape (client-replicated), in the config's
+    dtype."""
     itemsize = FLOAT_DTYPES[cfg.dtype].itemsize
-    return sum(math.prod(shape) * itemsize for _, shape in spec_items(cfg))
+    return sum(math.prod(shape) * itemsize
+               for shape in local_shapes(cfg, mesh))
 
 
 def split_shards(x: torch.Tensor, dim: int, n_client: int) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Meshes of the distributed step (``repro/launch/mesh.py``) over
 ``torch.distributed``.
 
-One process per position of the ``"data"`` axis: rank a is aggregator a.
-:func:`init_process_group` joins the default group (under ``torchrun``)
-or makes a one-rank group on a loopback port (under plain ``python``);
-:func:`make_host_mesh` lays the ``"data"`` axis over it.  The model and
-pipe axes are ROADMAP queue 1.10.
+One process per mesh position.  :func:`init_process_group` joins the
+default group (under ``torchrun``) or makes a one-rank group on a
+loopback port (under plain ``python``); :func:`make_host_mesh` lays the
+``"data"`` axis, and a ``"model"`` axis minor-most, over it: rank a *
+model + j is aggregator a's model position j.  The pipe axis is ROADMAP
+queue 1.10.
 
 Defined as functions, so importing this module touches no process group.
 """
@@ -32,14 +33,19 @@ def free_port() -> int:
         return int(s.getsockname()[1])
 
 
-def init_process_group(device: DeviceLike = None) -> torch.device:
+def init_process_group(device: DeviceLike = None,
+                       backend: str | None = None) -> torch.device:
     """Join the default process group and return this rank's device.
 
     Under ``torchrun`` (``RANK``/``WORLD_SIZE`` in the environment) the
     group is the launcher's; otherwise a one-rank group on a free loopback
     port.  ``device`` is the CUDA card unless the caller asks for the CPU;
-    on the card each rank takes card ``LOCAL_RANK`` and the backend is
-    ``cpu:gloo,cuda:nccl``, on the CPU ``cpu:gloo``."""
+    on the card each rank takes card ``LOCAL_RANK`` modulo the cards
+    there are.  ``backend`` is the caller's choice, by default
+    ``cpu:gloo,cuda:nccl`` on the card and ``cpu:gloo`` on the CPU.
+    ``"gloo"`` on the card is how several ranks share one card (NCCL
+    refuses two ranks on one device): every collective of a CUDA tensor
+    then goes through host buffers (``dist.collectives``)."""
     device = resolve_device(device)
     if device.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", "0"))
@@ -48,7 +54,7 @@ def init_process_group(device: DeviceLike = None) -> torch.device:
     if dist.is_initialized():
         return device
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
-    backend = BACKENDS[device.type]
+    backend = backend or BACKENDS[device.type]
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend, init_method="env://",
                                 timeout=timeout)
@@ -60,20 +66,20 @@ def init_process_group(device: DeviceLike = None) -> torch.device:
 
 
 def make_production_mesh(*, multi_pod: bool = False, pipe: int = 1):
-    """The reference's 256/512-device production mesh has a 16-wide model
-    axis: ROADMAP queue 1.10."""
+    """The reference's 256/512-device TPU production mesh (its pipe axis
+    carved out of the data axis): ROADMAP queue 1.10."""
     raise NotImplementedError(
-        "make_production_mesh: its model axis is 16 wide, and the model "
-        "and pipe axes are not ported yet: ROADMAP queue 1.10")
+        "make_production_mesh: the 256/512-device production mesh and "
+        "its pipe axis are not ported yet: ROADMAP queue 1.10")
 
 
 def make_host_mesh(data: int | None = None, model: int = 1, pipe: int = 1,
                    device: DeviceLike = None):
-    """A ``DeviceMesh`` with one ``"data"`` axis over the initialised
-    process group's ranks (the reference's host mesh, whose model and pipe
-    axes are 1 here).  Validates the factorization up front, with the
-    reference's messages; ``model > 1`` or ``pipe > 1`` raises naming
-    ROADMAP queue 1.10."""
+    """A ``DeviceMesh`` over the initialised process group's ranks: one
+    ``"data"`` axis, or with ``model > 1`` the 2-D ``("data", "model")``
+    mesh, model minor-most (the model group is consecutive ranks).
+    Validates the factorization up front, with the reference's messages;
+    ``pipe > 1`` raises naming ROADMAP queue 1.10."""
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
         raise RuntimeError(
@@ -97,9 +103,13 @@ def make_host_mesh(data: int | None = None, model: int = 1, pipe: int = 1,
             f"mesh ({data} data x {pipe} pipe x {model} model) needs "
             f"{data * inner} devices but {n} are available; leave "
             f"data=None to infer data = n // (model*pipe) = {n // inner}")
-    if model > 1 or pipe > 1:
+    if pipe > 1:
         raise NotImplementedError(
-            f"make_host_mesh(model={model}, pipe={pipe}): the model and "
-            f"pipe axes are not ported yet: ROADMAP queue 1.10")
+            f"make_host_mesh(pipe={pipe}): the pipe axis is not ported "
+            f"yet: ROADMAP queue 1.10")
     device_type = resolve_device(device).type
-    return init_device_mesh(device_type, (data,), mesh_dim_names=("data",))
+    if model == 1:
+        return init_device_mesh(device_type, (data,),
+                                mesh_dim_names=("data",))
+    return init_device_mesh(device_type, (data, model),
+                            mesh_dim_names=("data", "model"))

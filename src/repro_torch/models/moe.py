@@ -17,8 +17,14 @@ order, token-major.  The reference builds ``disp`` and ``comb`` by
 einsums over one-hot slots, each sum holding at most one nonzero term;
 here the same values are scattered into place.
 
-The expert-parallel dispatch (``tp.plan.moe``: experts sharded over the
-model axis, tokens moved by ``all_to_all``) is ROADMAP queue 1.10.
+Under an expert-parallel plan (``tp.plan.moe``) the expert dim of
+w_gate/w_up/w_down is sharded over the model axis and tokens reach their
+experts by an explicit ``all_to_all`` dispatch and combine: the token
+groups shard over the axis inside the region (entered with ``tp_push``,
+left with a zero-padded ``tp_pull``), each rank routes its own groups
+with the replicated router (partial gradients), and the dispatched (g,
+E, c, D) slots cross the axis so that every expert computes where its
+weights live.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import layers as L
 
 
 def sorted_top_k(x: torch.Tensor, k: int):
@@ -103,25 +111,50 @@ def _expert_ffn(xe, w_gate, w_up, w_down):
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
             capacity_factor: float = 1.25, group: int = 256, tp=None):
-    """x: (B, S, D); router_w: (D, E); w_gate/w_up: (E, D, F); w_down:
-    (E, F, D).  Returns ((B, S, D), aux)."""
-    if tp is not None:
-        raise NotImplementedError(
-            "the expert-parallel MoE dispatch (tp.plan.moe) is not ported "
-            "yet: ROADMAP queue 1.10")
+    """x: (B, S, D); router_w: (D, E), always the full expert count;
+    w_gate/w_up: (E, D, F); w_down: (E, F, D), this rank's expert shard
+    (E/tp, ...) under an expert-parallel ``tp`` plan.  Returns ((B, S,
+    D), aux).
+
+    Under the plan the tokens are padded to a multiple of ``group * tp``
+    (so the groups split evenly over the ranks), each rank routes its
+    ``n_groups / tp`` groups with ``total_valid`` the global token count
+    (the aux terms are partial sums that the exit all-reduces), and the
+    slots cross by ``all_to_all``: split on the expert axis and
+    concatenated on the group axis going out, the reverse coming back."""
     B, S, D = x.shape
+    ep = tp is not None and tp.plan.moe
+    tp_size = tp.size if ep else 1
     T = B * S
     group = min(group, T)
-    Tp = -(-T // group) * group
+    tile = group * tp_size
+    Tp = -(-T // tile) * tile
     xt = x.reshape(T, D)
     if Tp != T:
         xt = F.pad(xt, (0, 0, 0, Tp - T))
     n_groups = Tp // group
     xg = xt.reshape(n_groups, group, D)
     valid = (torch.arange(Tp, device=x.device) < T).reshape(n_groups, group)
-    disp, comb, aux = route_tokens(xg, router_w, valid, top_k=top_k,
-                                   capacity_factor=capacity_factor)
-    xe = torch.einsum("gtec,gtd->gecd", disp, xg)           # (g, E, c, D)
-    ye = _expert_ffn(xe, w_gate, w_up, w_down)
-    y = torch.einsum("gtec,gecd->gtd", comb, ye)
+    if ep:
+        gl = n_groups // tp_size
+        start = tp.index * gl
+        xg = L.tp_push(xg, tp)[start:start + gl]
+        disp, comb, aux = route_tokens(
+            xg, router_w, valid[start:start + gl], top_k=top_k,
+            capacity_factor=capacity_factor, total_valid=float(T))
+        xe = torch.einsum("gtec,gtd->gecd", disp, xg)       # (gl, E, c, D)
+        # dispatch: this rank's slots for expert e go to e's owner
+        xe = L.all_to_all(xe, tp, 1, 0)                     # (gl tp, E/tp..)
+        ye = _expert_ffn(xe, w_gate, w_up, w_down)
+        ye = L.all_to_all(ye, tp, 0, 1)                     # (gl, E, c, D)
+        y_loc = torch.einsum("gtec,gecd->gtd", comb, ye)
+        y = F.pad(y_loc, (0, 0, 0, 0, start, n_groups - start - gl))
+        y = L.tp_pull(y, tp)
+        aux = {k: L.tp_pull(v, tp) for k, v in aux.items()}
+    else:
+        disp, comb, aux = route_tokens(xg, router_w, valid, top_k=top_k,
+                                       capacity_factor=capacity_factor)
+        xe = torch.einsum("gtec,gtd->gecd", disp, xg)       # (g, E, c, D)
+        ye = _expert_ffn(xe, w_gate, w_up, w_down)
+        y = torch.einsum("gtec,gecd->gtd", comb, ye)
     return y.reshape(Tp, D)[:T].reshape(B, S, D), aux

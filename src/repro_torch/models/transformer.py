@@ -22,6 +22,16 @@ prefill, through the plain chunked ``causal_attention``.  Decode runs
 one token against the dense ring cache (``init_cache``,
 ``decode_step``) or, for the paged families, against the block pools
 (``paged_decode_step``).
+
+The model axis (``tp``, a :class:`TPRuntime`): ``forward`` and
+``loss_fn`` run on this rank's parameter shards under the family's
+:class:`TPPlan` (``models/shard_plan``), with the reference's regions
+placed where its ``tp`` branches place them: head-sharded attention (the
+flash kernels at the TP-local head counts), the ring (context) attention
+where heads do not divide, the sharded FFN, the channel-sharded mamba
+head and the head-sharded mLSTM, the vocab-parallel embedding and the CE
+on vocab-sharded logits, the expert-parallel MoE, and sequence
+parallelism.  The collectives are ``models/layers``' conjugates.
 """
 from __future__ import annotations
 
@@ -39,6 +49,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.shard_plan import (TPPlan, TPRuntime,  # noqa: F401
+                                           tp_plan)
 
 # the dtypes the paged kernel takes, for params and for the cache
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -188,17 +200,24 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _ring(cfg: ModelConfig, tp) -> int:
+    """The model-axis size when the ring collectives are on (0 takes the
+    plain all-reduce conjugates)."""
+    return tp.size if (tp is not None and cfg.overlap_collectives) else 0
+
+
 # ================================================================= blocks
-def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions):
+def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions,
+         n_heads: Optional[int] = None, n_kv: Optional[int] = None):
     B, S = h.shape[:2]
     q = h @ lp["wq"]
     k = h @ lp["wk"]
     v = h @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    q = q.reshape(B, S, n_heads or cfg.n_heads, cfg.hd)
+    k = k.reshape(B, S, n_kv or cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(B, S, n_kv or cfg.n_kv_heads, cfg.hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -206,19 +225,61 @@ def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor, positions):
             L.rope(k, positions, cfg.rope_theta), v)
 
 
+def _attn_ctx(cfg: ModelConfig, lp: dict, x, positions, window, tp,
+              seq: bool):
+    """The context-parallel (ring) attention region (``:139-172``): the
+    sequence, not the heads, shards over the model axis.  Weights are
+    replicated (their gradients partial); each rank projects q/k/v for
+    its S/n chunk and the K/V chunks rotate around the ring.  Under a seq
+    plan the residual stream already is the chunk; otherwise ``ctx_enter``
+    and ``ctx_exit`` slice and reassemble it."""
+    B = x.shape[0]
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if not seq:
+        h = L.ctx_enter(h, tp)
+    C = h.shape[1]
+    cpos = positions[:, tp.index * C:(tp.index + 1) * C]
+    q, k, v = _qkv(cfg, lp, h, cpos)
+    out = L.ring_attention(q, k, v, tp, window=window)
+    y = out.reshape(B, C, cfg.n_heads * cfg.hd) @ lp["wo"]
+    if not seq:
+        y = L.ctx_exit(y, tp)
+    return x + y, None
+
+
 def _attn(cfg: ModelConfig, lp: dict, x, positions, window, mode: str,
-          cache: Optional[dict] = None, pos: Optional[int] = None):
-    """Attention with its residual (``models/transformer.py:175-241``).
+          cache: Optional[dict] = None, pos: Optional[int] = None,
+          tp: Optional[TPRuntime] = None):
+    """Attention with its residual (``models/transformer.py:175-253``).
     A training shape that ``uses_flash_kernel`` goes through the flash
     kernels on (B, H, S, hd) views of the projections, read in place;
     prefill and any other training shape through the plain chunked
     ``causal_attention``.  ``mode="decode"`` writes the new K/V into
     ``cache`` (one layer's (B, size, KV, hd) ring, IN PLACE) at slot
     ``pos % size`` under a window, else ``pos``, and attends over it.
-    Returns (x_out, {"k", "v"}): the layer's prefill K/V, or its cache."""
-    B, S = x.shape[:2]
+    Returns (x_out, {"k", "v"}): the layer's prefill K/V, or its cache.
+
+    With ``tp``: the ring region where the plan says ``ctx`` and the
+    sequence divides; else the heads shard (``plan.attn``: the flash
+    kernels at the TP-local head counts), entered with ``tp_enter`` or,
+    under ``seq``, the sequence gather; a replicated region under ``seq``
+    keeps this rank's slice of its output."""
+    tp_attn = tp is not None and tp.plan.attn
+    seq = tp is not None and tp.plan.seq
+    if (tp is not None and tp.plan.ctx > 1 and mode == "train"
+            and window != 0
+            and (x.shape[1] * (tp.size if seq else 1)) % tp.size == 0):
+        return _attn_ctx(cfg, lp, x, positions, window, tp, seq)
+    n_heads = cfg.n_heads // (tp.size if tp_attn else 1)
+    n_kv = cfg.n_kv_heads // (tp.size if tp_attn else 1)
+    B = x.shape[0]
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, lp, h, positions)
+    if seq:
+        h = L.tp_seq_gather(h, tp, 1)
+    elif tp_attn:
+        h = L.tp_enter(h, tp, _ring(cfg, tp))
+    S = h.shape[1]
+    q, k, v = _qkv(cfg, lp, h, positions, n_heads, n_kv)
     if mode == "decode":
         size = cache["k"].shape[1]
         slot = pos % size if window is not None else pos
@@ -240,7 +301,17 @@ def _attn(cfg: ModelConfig, lp: dict, x, positions, window, mode: str,
             q, k, v, window=window, chunk=cfg.attn_chunk,
             scores_f32=cfg.attn_scores_f32 and not cfg.bf16_residency)
         kv = {"k": k, "v": v} if mode == "prefill" else None
-    y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"]
+    y = out.reshape(B, S, n_heads * cfg.hd) @ lp["wo"]
+    if seq and tp_attn:
+        y = L.tp_seq_scatter(y, tp, 1)         # partials -> seq shards
+    elif seq:
+        # the replicated region under a seq plan: every rank computed the
+        # whole output; keep this rank's slice (the entry gather's
+        # reduce-scatter assembles the slices' cotangents)
+        s_loc = S // tp.size
+        y = y[:, tp.index * s_loc:(tp.index + 1) * s_loc]
+    elif tp_attn:
+        y = L.tp_exit(y, tp, _ring(cfg, tp))
     return x + y, kv
 
 
@@ -248,27 +319,54 @@ def _gated_mlp(h, w_gate, w_up, w_down):
     return (F.silu(h @ w_gate) * (h @ w_up)) @ w_down
 
 
-def _ffn(cfg: ModelConfig, lp: dict, x):
-    """The block's FFN with its residual: the gated MLP, or for moe the
-    routed experts (``models/transformer.py:400-406``).  Returns (x,
-    aux), aux holding moe's ``load_balance`` and ``dropped_frac``."""
+def _ffn(cfg: ModelConfig, lp: dict, x, tp: Optional[TPRuntime] = None):
+    """The block's FFN with its residual: the gated MLP (``:260-273``:
+    column/row sharded under ``plan.ffn``, through the sequence
+    conjugates under ``seq``), or for moe the routed experts (``:400-406``,
+    expert-parallel under ``plan.moe``).  Returns (x, aux), aux holding
+    moe's ``load_balance`` and ``dropped_frac``."""
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         y, aux = moe_lib.moe_ffn(h, lp["router"], lp["w_gate"], lp["w_up"],
                                  lp["w_down"], top_k=cfg.top_k,
                                  capacity_factor=cfg.capacity_factor,
-                                 group=cfg.moe_group_size)
+                                 group=cfg.moe_group_size, tp=tp)
         return x + y, aux
-    return x + _gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"]), {}
+    tp_ffn = tp is not None and tp.plan.ffn
+    seq = tp is not None and tp.plan.seq       # seq plans imply tp_ffn
+    if seq:
+        h = L.tp_seq_gather(h, tp, 1)
+    elif tp_ffn:
+        h = L.tp_enter(h, tp, _ring(cfg, tp))
+    y = _gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if seq:
+        y = L.tp_seq_scatter(y, tp, 1)
+    elif tp_ffn:
+        y = L.tp_exit(y, tp, _ring(cfg, tp))
+    return x + y, {}
 
 
-def _mamba(cfg: ModelConfig, lp: dict, x, mode: str, state=None):
+def _mamba(cfg: ModelConfig, lp: dict, x, mode: str, state=None,
+           tp: Optional[TPRuntime] = None):
     """The selective-SSM head of a hybrid block (``:276-315``), on the
     un-normed residual x.  Returns (its output, the new state: the
-    scan's h_final in prefill, the step's h in decode, else None)."""
+    scan's h_final in prefill, the step's h in decode, else None).
+
+    Under ``plan.mixer`` the channels shard: m_dt/m_A/m_D/m_ln/m_out hold
+    this rank's channels and the scan runs local; m_in and m_bc stay
+    replicated (partial gradients), z and u cut to the local channels;
+    m_ln's mean of squares is a both-ways psum."""
+    D = x.shape[-1]
+    tp_mix = tp is not None and tp.plan.mixer
+    if tp_mix:
+        x = L.tp_push(x, tp)
     z, u = (x @ lp["m_in"]).chunk(2, -1)
     dt = F.softplus(x @ lp["m_dt"])
     Bm, Cm = (x @ lp["m_bc"]).chunk(2, -1)
+    if tp_mix:
+        d_loc = dt.shape[-1]                   # m_dt is column-sharded
+        z = z[..., tp.index * d_loc:(tp.index + 1) * d_loc]
+        u = u[..., tp.index * d_loc:(tp.index + 1) * d_loc]
     u = F.silu(u)
     if mode == "decode":
         h_new, y = ssm_lib.ssm_decode_step(
@@ -280,8 +378,12 @@ def _mamba(cfg: ModelConfig, lp: dict, x, mode: str, state=None):
                                     chunk=cfg.scan_chunk,
                                     scan_f32=cfg.ssm_scan_f32)
         h_new = h_new if mode == "prefill" else None
-    y = L.rms_norm(y, lp["m_ln"], cfg.norm_eps) * F.silu(z)
-    return y @ lp["m_out"], h_new
+    if tp_mix:
+        y = L.rms_norm_sharded(y, lp["m_ln"], cfg.norm_eps, tp, D)
+    else:
+        y = L.rms_norm(y, lp["m_ln"], cfg.norm_eps)
+    out = (y * F.silu(z)) @ lp["m_out"]
+    return (L.tp_pull(out, tp) if tp_mix else out), h_new
 
 
 def init_mlstm_state(cfg: ModelConfig, B: int, device: DeviceLike = None):
@@ -293,14 +395,20 @@ def init_mlstm_state(cfg: ModelConfig, B: int, device: DeviceLike = None):
             "m": torch.full((B, H), -1e30, device=device)}
 
 
-def _mlstm(cfg: ModelConfig, lp: dict, x, mode: str, state=None):
+def _mlstm(cfg: ModelConfig, lp: dict, x, mode: str, state=None,
+           tp: Optional[TPRuntime] = None):
     """The mLSTM mixer with its residual (``:318-363``).  Prefill builds
     the recurrent state by replaying ``mlstm_decode_step`` over the
     prompt, as the reference does.  Returns (x_out, the new state or
-    None in training)."""
+    None in training).  Under ``plan.mixer`` the heads shard (xq/xk/xv
+    and the gates column-parallel, xo row-parallel) and the recurrence
+    runs local."""
     B, S = x.shape[:2]
-    H = cfg.n_heads
+    tp_mix = tp is not None and tp.plan.mixer
+    H = cfg.n_heads // (tp.size if tp_mix else 1)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if tp_mix:
+        h = L.tp_push(h, tp)
     q, k, v = ((h @ lp[n]).reshape(B, S, H, cfg.hd)
                for n in ("xq", "xk", "xv"))
     i_pre = h @ lp["w_i"] + lp["b_i"]
@@ -321,42 +429,68 @@ def _mlstm(cfg: ModelConfig, lp: dict, x, mode: str, state=None):
                     new_state, q[:, t], k[:, t], v[:, t], i_pre[:, t],
                     f_pre[:, t])
     y = out.reshape(B, S, H * cfg.hd) @ lp["xo"]
+    if tp_mix:
+        y = L.tp_pull(y, tp)
     return x + y, new_state
 
 
 def _block(cfg: ModelConfig, lp: dict, x, positions, window, mode: str,
-           cache: Optional[dict] = None, pos: Optional[int] = None):
-    """One layer (``:370-406``).  Returns (x, the layer's cache in
+           cache: Optional[dict] = None, pos: Optional[int] = None,
+           tp: Optional[TPRuntime] = None):
+    """One layer (``:373-411``).  Returns (x, the layer's cache in
     prefill and decode, aux)."""
     if cfg.family == "ssm":
-        x, mix = _mlstm(cfg, lp, x, mode, cache["mix"] if cache else None)
+        x, mix = _mlstm(cfg, lp, x, mode, cache["mix"] if cache else None,
+                        tp)
+        tp_ffn = tp is not None and tp.plan.ffn
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _gated_mlp(h, lp["p_gate"], lp["p_up"], lp["p_down"])
-        return x, {"mix": mix}, {}
+        if tp_ffn:                      # the gated in-block projection pair
+            h = L.tp_push(h, tp)
+        y = _gated_mlp(h, lp["p_gate"], lp["p_up"], lp["p_down"])
+        if tp_ffn:
+            y = L.tp_pull(y, tp)
+        return x + y, {"mix": mix}, {}
     if cfg.family == "hybrid":
         attn_out, kv = _attn(cfg, lp, x, positions, window, mode,
-                             cache["kv"] if cache else None, pos)
+                             cache["kv"] if cache else None, pos, tp)
         m_out, m_state = _mamba(cfg, lp, x, mode,
-                                cache["ssm"] if cache else None)
+                                cache["ssm"] if cache else None, tp)
         x = 0.5 * (attn_out + (x + m_out))  # parallel heads, averaged
-        x, _ = _ffn(cfg, lp, x)
+        x, _ = _ffn(cfg, lp, x, tp)
         return x, {"kv": kv, "ssm": m_state}, {}
     x, kv = _attn(cfg, lp, x, positions, window, mode,
-                  cache["kv"] if cache else None, pos)
-    x, aux = _ffn(cfg, lp, x)
+                  cache["kv"] if cache else None, pos, tp)
+    x, aux = _ffn(cfg, lp, x, tp)
     return x, {"kv": kv}, aux
 
 
 # ================================================================ forward
 def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                 frontend_embeds: Optional[torch.Tensor] = None):
+                 frontend_embeds: Optional[torch.Tensor] = None,
+                 tp: Optional[TPRuntime] = None):
     """Token embedding; vlm prepends its projected image-patch embeddings
     (``frontend_embeds`` (B, n_frontend_tokens, d_frontend) @
     ``proj_in``), and without them raises, where the reference's assert
     fails.  The lookup's gradient is a scatter-add of the rows; the
     reference's one-hot matmul backward (``dense_embed_grad``) gives the
-    same values up to the order of summation."""
-    x = params["embed"][tokens.long()]
+    same values up to the order of summation.
+
+    Under a vocab-parallel plan each rank holds rows [index V/tp,
+    (index + 1) V/tp): a token out of its range looks up zero, and the
+    exit (or under ``seq`` the reduce-scatter into sequence shards)
+    assembles the embedding."""
+    if tp is not None and tp.plan.vocab:
+        v_loc = cfg.vocab // tp.size
+        idx = tokens.long() - tp.index * v_loc
+        ok = (idx >= 0) & (idx < v_loc)
+        x = torch.where(ok[..., None],
+                        params["embed"][idx.clamp(0, v_loc - 1)], 0)
+        if tp.plan.seq:
+            x = L.tp_seq_scatter(x, tp, 1)
+        else:
+            x = L.tp_exit(x, tp, _ring(cfg, tp))
+    else:
+        x = params["embed"][tokens.long()]
     if cfg.frontend == "vlm":
         if frontend_embeds is None:
             raise ValueError(
@@ -380,7 +514,8 @@ def uses_flash_kernel(cfg: ModelConfig, seq_len: int,
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             mode: str = "prefill", window: Optional[int] = None,
             inputs_embeds: Optional[torch.Tensor] = None,
-            frontend_embeds: Optional[torch.Tensor] = None):
+            frontend_embeds: Optional[torch.Tensor] = None,
+            tp: Optional[TPRuntime] = None):
     """Full-sequence forward.  Returns (logits, caches, aux).
 
     ``mode="prefill"`` runs without autograd and returns the reference's
@@ -397,34 +532,63 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     flash gate take the joint length.  ``inputs_embeds`` (B, S, D)
     replaces the embedding (the image prefix included): the continuous
     input that the DLG gradient inversion optimizes
-    (``repro_torch.privacy``); ``tokens`` still gives the targets."""
+    (``repro_torch.privacy``); ``tokens`` still gives the targets.
+
+    With ``tp`` the params are this rank's shards under ``tp.plan``;
+    under a vocab-parallel plan the logits come back vocab-sharded (B, S,
+    V/tp), for ``loss_fn``'s sharded CE.  Under ``seq`` the residual
+    stream between regions is (B, S/tp, D) and the unembed gathers the
+    sequence; ``seq_ce`` (ssm, hybrid) runs the final norm on this rank's
+    sequence chunk.  ``inputs_embeds`` is the replicated path's hook
+    only."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"forward(mode={mode!r}): want prefill or train; "
                          f"one token against a cache is decode_step")
     if mode == "prefill":
         with torch.no_grad():
             return _forward(params, cfg, tokens, window, mode,
-                            inputs_embeds, frontend_embeds)
+                            inputs_embeds, frontend_embeds, tp)
     return _forward(params, cfg, tokens, window, mode, inputs_embeds,
-                    frontend_embeds)
+                    frontend_embeds, tp)
 
 
 def _forward(params, cfg, tokens, window, mode: str, inputs_embeds,
-             frontend_embeds):
+             frontend_embeds, tp=None):
+    seq = tp is not None and tp.plan.seq
+    if seq and tokens.shape[1] % tp.size != 0:
+        raise ValueError(
+            f"sequence-parallel plan needs seq_len divisible by the "
+            f"model axis: {tokens.shape[1]} % {tp.size} != 0")
     if inputs_embeds is None:
-        x = embed_inputs(params, cfg, tokens, frontend_embeds)
+        x = embed_inputs(params, cfg, tokens, frontend_embeds, tp)
+    elif tp is not None:
+        raise ValueError("inputs_embeds is a replicated-path hook "
+                         "(attack/simulator side); tp must be None")
     else:
         x = inputs_embeds
-    B, S = x.shape[:2]
+    B = x.shape[0]
+    S = x.shape[1] * (tp.size if seq else 1)    # the full sequence
     positions = torch.arange(S, device=x.device).expand(B, S)
     caches, lb = [], []
     for lp in _layers(params):
-        x, cache, aux = _block(cfg, lp, x, positions, window, mode)
+        x, cache, aux = _block(cfg, lp, x, positions, window, mode, tp=tp)
         lb.append(aux.get("load_balance",
                           torch.zeros((), device=x.device)))
         if mode == "prefill":
             caches.append(cache)
+    # seq_ce (ssm, hybrid, whose residual stream stays replicated): the
+    # final norm on this rank's chunk, entered by a slice whose backward
+    # assembles the chunks' cotangents, left into the unembed by the
+    # sequence gather (reduce-scatter backward): ln_f's gradient partial
+    seq_ce = (tp is not None and tp.plan.seq_ce and not seq
+              and mode == "train" and x.shape[1] % tp.size == 0)
+    if seq_ce:
+        x = L.ctx_enter(x, tp)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    if tp is not None and tp.plan.vocab:
+        # the column-parallel unembed
+        x = (L.tp_seq_gather(x, tp, 1) if (seq or seq_ce)
+             else L.tp_enter(x, tp, _ring(cfg, tp)))
     logits = x @ _head(params, cfg)
     # the reference's scan stacks each layer's load_balance and means it
     return (logits, _stack(caches) if mode == "prefill" else None,
@@ -445,29 +609,52 @@ def _select_logit(pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict,
-            window: Optional[int] = None) -> torch.Tensor:
-    """Causal LM loss (the reference's replicated path, ``tp=None``).
-    batch: dict(tokens (B, S) [, loss_mask (B, S)] [, inputs_embeds (B,
-    S, D)] [, frontend_embeds (B, n_frontend_tokens, d_frontend)]).
-    Next-token CE with f32 logits unless the config keeps them in the
-    compute dtype; vlm predicts its text tokens only."""
+            window: Optional[int] = None,
+            tp: Optional[TPRuntime] = None) -> torch.Tensor:
+    """Causal LM loss.  batch: dict(tokens (B, S) [, loss_mask (B, S)] [,
+    inputs_embeds (B, S, D)] [, frontend_embeds (B, n_frontend_tokens,
+    d_frontend)]).  Next-token CE with f32 logits unless the config keeps
+    them in the compute dtype; vlm predicts its text tokens only.
+
+    ``tp=None`` is the replicated path.  With a :class:`TPRuntime` the
+    forward runs on this rank's shards and, under a vocab-parallel plan,
+    the CE on vocab-sharded logits: the max over the model axis of the
+    stop-gradient max, the sum of exponentials and the target logit
+    assembled by the exit conjugate, so each rank's backward touches only
+    its own columns."""
     tokens = batch["tokens"]
     logits, _, aux = forward(params, cfg, tokens, "train", window,
                              inputs_embeds=batch.get("inputs_embeds"),
-                             frontend_embeds=batch.get("frontend_embeds"))
-    nll = _ce(cfg, logits, tokens, batch.get("loss_mask"))
+                             frontend_embeds=batch.get("frontend_embeds"),
+                             tp=tp)
+    nll = _ce(cfg, logits, tokens, batch.get("loss_mask"), tp)
     if cfg.family == "moe":
         nll = nll + 0.01 * aux["load_balance"]
     return nll
 
 
-def _ce(cfg: ModelConfig, logits, tokens, loss_mask):
-    """Masked next-token CE: the two non-sharded branches of the
-    reference's ``_ce``."""
+def _ce(cfg: ModelConfig, logits, tokens, loss_mask, tp=None):
+    """Masked next-token CE from (under a vocab plan, vocab-sharded)
+    logits (``:603-648``)."""
     n_pre = cfg.n_frontend_tokens if cfg.frontend == "vlm" else 0
     logits = logits[:, n_pre:, :]
     targ = tokens[:, 1:]
-    if cfg.loss_fp32_logits and not cfg.bf16_residency:
+    fp32_logits = cfg.loss_fp32_logits and not cfg.bf16_residency
+    if tp is not None and tp.plan.vocab:
+        v_loc = cfg.vocab // tp.size
+        pred = logits[:, :-1]
+        if fp32_logits:
+            pred = pred.float()
+        m = L.pmax(pred.max(-1).values, tp)
+        e = torch.exp(pred - m[..., None])
+        lse = m.float() + torch.log(L.tp_exit(
+            e.sum(-1, dtype=torch.float32), tp, _ring(cfg, tp)))
+        idx = targ.long() - tp.index * v_loc
+        ok = (idx >= 0) & (idx < v_loc)
+        ll_loc = _select_logit(pred, idx.clamp(0, v_loc - 1))
+        ll = L.tp_exit(torch.where(ok, ll_loc, 0).float(), tp,
+                       _ring(cfg, tp))
+    elif fp32_logits:
         pred = logits[:, :-1].float()
         lse = torch.logsumexp(pred, dim=-1)
         ll = _select_logit(pred, targ)

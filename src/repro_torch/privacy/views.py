@@ -6,8 +6,8 @@ aggregator's view as a masked flat vector, ``m_(a) (.) v_k`` over the
 ravelled parameter vector.  The distributed step expresses the same view
 as per-leaf segment rows: aggregator a receives, for every leaf with a
 client scatter dim, the flattened contiguous segment a of every client's
-update (``launch/train.py``'s ``capture_views`` tap).  This module is the
-bridge:
+update (on a model axis, of its TP-local update: ``launch/train.py``'s
+``capture_views`` tap).  This module is the bridge:
 
 * :func:`view_layouts` / :func:`mesh_flat_assignment` -- the flat
   coordinate->aggregator assignment induced by the mesh layout (the
@@ -21,8 +21,10 @@ bridge:
 
 Plain numpy index bookkeeping, equal to the reference's: leaves are taken
 in jax's flatten order (``convert.tree_leaves``) and need only a
-``shape`` (tensors, meta tensors or numpy arrays).  The model axis
-(``tp > 1``, ``tp_specs``) is ROADMAP queue 1.10.
+``shape`` (tensors, meta tensors or numpy arrays).  With a model axis
+(``tp > 1`` and ``tp_specs``, ``dist.sharding.tp_specs``) each leaf's
+view rows are model position j's chunks in turn, j = 0 .. tp - 1, as the
+tap concatenates them.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from typing import Any, Optional
 import numpy as np
 
 from repro_torch.convert import tree_leaves
-from repro_torch.dist.sharding import scatter_dim_for
+from repro_torch.dist.sharding import scatter_dim_for, tp_local_shape
 
 
 def _np_split_rows(arr: np.ndarray, dim: int, n_client: int) -> np.ndarray:
@@ -65,37 +67,36 @@ class LeafViewLayout:
     chunks: tuple              # tuple over model positions of (A, m_loc)
 
 
-def _require_data_axis(tp: int, tp_specs: Optional[Any]) -> None:
-    if tp > 1 or tp_specs is not None:
-        raise NotImplementedError(
-            "privacy.views over a model axis (tp > 1 or tp_specs): the "
-            "model axis (tensor parallelism) is not ported yet: ROADMAP "
-            "queue 1.10")
-
-
 def _size(shape: tuple) -> int:
     return int(np.prod(shape)) if shape else 1
 
 
 def view_layouts(params_abs: Any, n_client: int, tp: int = 1,
                  tp_specs: Optional[Any] = None) -> list:
-    """Per-leaf view layouts for a parameter tree under n_client
-    aggregators (the data axis; ``tp`` must be 1)."""
-    _require_data_axis(tp, tp_specs)
+    """Per-leaf view layouts for a parameter tree under (n_client, tp)."""
+    leaves = tree_leaves(params_abs)
+    spec_leaves = (tree_leaves(tp_specs) if tp_specs is not None
+                   else [None] * len(leaves))
     out, offset = [], 0
-    for i, p in enumerate(tree_leaves(params_abs)):
+    for i, (p, s) in enumerate(zip(leaves, spec_leaves)):
         shape = tuple(p.shape)
         size = _size(shape)
-        dim = scatter_dim_for(shape, n_client)
+        tp_dim = s.dim if (s is not None and tp > 1) else -1
+        loc_shape = tp_local_shape(shape, s, tp) if s is not None else shape
+        dim = scatter_dim_for(loc_shape, n_client)
         if dim < 0:
-            out.append(LeafViewLayout(i, offset, shape, -1, -1, 0, False,
-                                      ()))
+            out.append(LeafViewLayout(i, offset, shape, -1, tp_dim, 0,
+                                      False, ()))
             offset += size
             continue
         idx = np.arange(size, dtype=np.int64).reshape(shape)
-        rows = _np_split_rows(idx, dim, n_client)
-        out.append(LeafViewLayout(i, offset, shape, dim, -1, rows.shape[1],
-                                  False, (rows + offset,)))
+        model_chunks = (np.split(idx, tp, axis=tp_dim) if tp_dim >= 0
+                        else [idx])
+        chunks = tuple(_np_split_rows(c, dim, n_client)
+                       for c in model_chunks)
+        out.append(LeafViewLayout(i, offset, shape, dim, tp_dim,
+                                  chunks[0].shape[1], tp_dim < 0 and tp > 1,
+                                  tuple(c + offset for c in chunks)))
         offset += size
     return out
 
@@ -122,7 +123,7 @@ def flat_views_from_leaves(view_leaves: dict, params_abs: Any,
                            n_client: int, tp: int = 1,
                            tp_specs: Optional[Any] = None) -> np.ndarray:
     """Reassemble one round of the distributed tap's captured payloads
-    (``{str(leaf_index): (A, K, m_loc)}``, tensors or arrays) into the
+    (``{str(leaf_index): (A, K, m_loc * tp)}``, tensors or arrays) into the
     simulator's ``(A, K, n)`` f32 adversary-view array (zeros outside
     each aggregator's mask and on all-reduced coordinates)."""
     layouts = view_layouts(params_abs, n_client, tp, tp_specs)
@@ -139,9 +140,12 @@ def flat_views_from_leaves(view_leaves: dict, params_abs: Any,
         if lay.dim < 0:
             continue
         arr = _numpy(view_leaves[str(lay.index)])
-        rows = lay.chunks[0]
-        for a in range(A):
-            out[a][:, rows[a]] = arr[a, :, :lay.m_loc]
+        n_chunks = 1 if lay.dup else len(lay.chunks)
+        for j in range(n_chunks):
+            cols = arr[:, :, j * lay.m_loc:(j + 1) * lay.m_loc]
+            rows = lay.chunks[j]
+            for a in range(A):
+                out[a][:, rows[a]] = cols[a]      # (K, m_loc) into the mask
     return out
 
 

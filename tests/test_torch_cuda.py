@@ -969,3 +969,27 @@ def test_hymba_smoke_gradient_on_the_card_equals_the_host(cuda):
     assert abs(lc - lh) <= 1e-4 * abs(lh)
     for a, b in zip(gc, gh):
         assert float((a - b).norm() / b.norm()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_collectives_through_a_gloo_group_are_host_staged(cuda,
+                                                               nccl_rank):
+    """On a gloo group a CUDA tensor crosses through host buffers and
+    comes back on the card: every collective of ``dist/collectives`` at
+    one rank returns its operand, and the NCCL group does not stage.  The
+    ring shift needs a peer (gloo sends to no rank's self; the model axis
+    shifts only at two ranks or more): ``chip_smoke.py`` phase 16 runs
+    it between processes on the card."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as cl
+    device, _ = nccl_rank
+    gloo = dist.new_group([0], backend="gloo")
+    x = torch.arange(24, dtype=torch.float32, device=device).view(2, 3, 4)
+    assert cl.host_staged(x, gloo)
+    assert not cl.host_staged(x, dist.group.WORLD)
+    for y in (cl.all_reduce(x, gloo), cl.all_gather(x, gloo, 1),
+              cl.reduce_scatter(x, gloo, 2), cl.all_to_all(x, gloo, 1, 2)):
+        assert y.device == x.device
+        assert torch.equal(y, x)
+    assert torch.equal(cl.all_reduce(x, gloo, dist.ReduceOp.MAX), x)
+    dist.destroy_process_group(gloo)

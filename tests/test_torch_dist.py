@@ -315,7 +315,9 @@ def group():
 def test_make_host_mesh(group, monkeypatch):
     """A one-axis ``DeviceMesh`` over the group; the reference's
     validation messages (its device-count hint names torchrun here);
-    ``model``/``pipe`` > 1 raise naming queue 1.10."""
+    ``model > 1`` lays a 2-D ``("data", "model")`` mesh, model minor-most
+    (built for real over gloo ranks in ``tests/test_torch_tp_step.py``);
+    ``pipe > 1`` raises naming queue 1.10."""
     mesh = mesh_lib.make_host_mesh(device="cpu")
     assert mesh.mesh_dim_names == ("data",) and sh.client_count(mesh) == 1
     for kw in (dict(data=2), dict(pipe=0), dict(model=2)):
@@ -326,9 +328,17 @@ def test_make_host_mesh(group, monkeypatch):
         head = str(ref_err.value).split("raise the device count")[0]
         assert str(err.value).startswith(head.split(" or ")[0]), kw
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 4)
-    for kw in (dict(model=2), dict(pipe=2), dict(model=2, pipe=2)):
+    for kw in (dict(pipe=2), dict(model=2, pipe=2)):
         with pytest.raises(NotImplementedError, match="queue 1.10"):
             mesh_lib.make_host_mesh(device="cpu", **kw)
+    import torch.distributed.device_mesh as dm
+    laid = []
+    monkeypatch.setattr(dm, "init_device_mesh",
+                        lambda *a, **k: laid.append((a, k)) or "mesh")
+    assert mesh_lib.make_host_mesh(device="cpu", model=2) == "mesh"
+    assert mesh_lib.make_host_mesh(device="cpu", data=1, model=4) == "mesh"
+    assert laid == [(("cpu", (2, 2)), {"mesh_dim_names": ("data", "model")}),
+                    (("cpu", (1, 4)), {"mesh_dim_names": ("data", "model")})]
 
 
 UNPORTED = [
@@ -339,9 +349,7 @@ UNPORTED_CALLS = [
     ("make_production_mesh", lambda: mesh_lib.make_production_mesh(),
      "1.10"),
 ] + [(name, functools.partial(getattr(sh, name), (4, 4), None, 2), "1.10")
-     for name in ("tp_local_shape", "tp_split_leaf", "tp_merge_leaf",
-                  "tp_grad_sync", "pipe_dims", "pipe_local_shape",
-                  "pipe_grad_sync")]
+     for name in ("pipe_dims", "pipe_local_shape", "pipe_grad_sync")]
 
 
 @pytest.mark.parametrize("what,call,queue",

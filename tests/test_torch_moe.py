@@ -128,10 +128,21 @@ def test_moe_ffn_matches_reference(T, dtype):
 
 
 def test_expert_parallel_dispatch_names_its_queue():
-    x = torch.zeros(1, 4, 8)
-    w = torch.zeros(8, 2)
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        moe.moe_ffn(x, w, None, None, None, top_k=1, tp=object())
+    """A model axis whose plan shards no experts (``plan.moe`` False, as
+    for an expert count the axis does not divide) leaves ``moe_ffn`` on
+    its replicated path, bit for bit, and issues no collective (the
+    runtime has no group).  The expert-parallel dispatch itself is held
+    to the reference's in ``tests/test_torch_tp.py`` (moe_tp2, moe_tp4)."""
+    from repro_torch.models import shard_plan as sp
+    g = torch.Generator().manual_seed(3)
+    x, w = torch.randn(1, 4, 8, generator=g), torch.randn(8, 2, generator=g)
+    wg, wu = (torch.randn(2, 8, 4, generator=g) for _ in range(2))
+    wd = torch.randn(2, 4, 8, generator=g)
+    rt = sp.TPRuntime(None, 2, 1, sp.TPPlan(2, attn=True))
+    y0, a0 = moe.moe_ffn(x, w, wg, wu, wd, top_k=1, group=4)
+    y1, a1 = moe.moe_ffn(x, w, wg, wu, wd, top_k=1, group=4, tp=rt)
+    assert torch.equal(y0, y1)
+    assert all(torch.equal(a0[k], a1[k]) for k in a0)
 
 
 # ------------------------------------------------ loss and every grad

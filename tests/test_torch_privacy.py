@@ -273,10 +273,19 @@ def test_views_equal_the_reference(shapes, n_client):
 
 
 def test_views_over_a_model_axis_name_their_queue():
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        views.view_layouts(_abstract(MIXED), 2, tp=2)
-    with pytest.raises(NotImplementedError, match="queue 1.10"):
-        views.mesh_flat_assignment(_abstract(MIXED), 2, tp_specs={})
+    """``tp > 1`` no longer raises: without specs every leaf is replicated
+    over the model axis (its captured width duplicated), and an empty
+    spec tree places no leaf, both as the reference's.  Sharded leaves
+    over a model axis: ``tests/test_torch_tp.py``."""
+    abstract = _abstract(MIXED)
+    got = views.view_layouts(abstract, 2, tp=2)
+    want = ref_views.view_layouts(abstract, 2, tp=2)
+    assert [(g.dim, g.tp_dim, g.m_loc, g.dup) for g in got] == \
+        [(w.dim, w.tp_dim, w.m_loc, w.dup) for w in want]
+    assert any(g.dup for g in got)
+    np.testing.assert_array_equal(
+        views.mesh_flat_assignment(abstract, 2, tp_specs={}),
+        ref_views.mesh_flat_assignment(abstract, 2, tp_specs={}))
 
 
 # ------------------------------------------------------------ the capture
