@@ -10,10 +10,15 @@ of the step's captured wire, the non-IID feeds, the reference's init
 draws and the MoE family (olmoe-1b-7b served, a gradient and ERIS
 rounds), and the recurrent and vision families (xlstm-350m and
 hymba-1.5b trained, beam-searched and in ERIS rounds, internvl2-26b at
-reduced depth), and the model axis (tensor, context and expert
-parallelism: ranks sharing the card over gloo), on one NVIDIA card.
+reduced depth), the model axis (tensor, context and expert
+parallelism: ranks sharing the card over gloo), and the pipe axis (the
+1F1B wavefront over gloo ranks, its composite checkpoint served through
+``ServeEngine.from_checkpoint``), on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--only 16 17]
+
+``--only`` runs the device, the build and the named multi-rank phases
+alone, and prints no result line.
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -284,7 +289,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     from the same params and keys, within 1e-4.  Each case prints its
     loss error, worst leaf, ms, launches and each rank's peak; the flash
     launches of (a)'s TP gradients and steps join the kernels line.
-17. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+17. the pipe axis, as phase 16 runs the model axis (ranks are processes
+    on cuda:0 over gloo groups; every boundary send is staged through
+    the host).  (a) two ranks: eris-gptneo-1.3b at full width and depth
+    in f32, 4 x 512 in 4 microbatches at pp = 2 (12 layers a stage),
+    its pipelined gradient against the same model replicated on the
+    card (loss 1e-5 relative, each merged leaf 1e-3 of its max; 12
+    layers x 5 ticks of flash launches a rank: every tick runs, masked);
+    then three steps at (data 1, pipe 2) with phase 11's (b) settings,
+    bf16 params, adam lr 1e-5, 8 x 64 in 4 microbatches (the loss falls;
+    the wire kernels once a leaf a step), and the composite checkpoint;
+    this process then serves 4 requests x 16 greedy tokens through
+    ``ServeEngine.from_checkpoint`` on the paged kernel and through an
+    engine built from the ranks' merged pieces: the tokens must be
+    equal.  (b) four ranks: qwen2-0.5b at full width at (pipe 2, model
+    2), 2 x 512 in 2 microbatches (7 heads over 1 kv head a rank through
+    the flash kernels), the same gates; the smoke int8 step at (data 2,
+    pipe 2) on the card and the host within 1e-6.  The launches of the
+    pipelined gradients, the steps and the serving join the kernels
+    line.
+18. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -4115,13 +4139,391 @@ def model_axis_phase(dev, seed) -> dict:
     return totals
 
 
+# ------------------------------------------------------------------ phase 17
+# The pipe axis on one card, as phase 16 runs the model axis: ranks are
+# processes on cuda:0 over gloo groups (every collective of a CUDA tensor
+# staged through the host), the compute on the card.  (a) two ranks:
+# (arch, layers (None = all), batch, tokens, pipe, model, microbatches)
+# gradient parity, the pipelined gradient against the same model
+# replicated on the card, f32; then the step, its composite checkpoint,
+# and serving from it in this process.  (b) four ranks.
+PIPE_PARITY_A = ("eris-gptneo-1.3b", None, 4, 512, 2, 1, 4)
+PIPE_PARITY_B = ("qwen2-0.5b", None, 2, 512, 2, 2, 2)
+PIPE_STEP_LR, PIPE_STEPS, PIPE_STEP_MB = 1e-5, 3, 4
+PIPE_STEP_CONFIG = TRAIN_CONFIGS[1]         # (b) dsc int8 fused
+PIPE_SERVE_REQUESTS, PIPE_SERVE_GEN = 4, 16
+# the smoke int8 step at (data 2, pipe 2), card vs host: params and
+# losses within this relative error
+PIPE_SMOKE_TOL = 1e-6
+
+
+def _pipe_mesh(dev, data: int, pipe: int, model: int):
+    from repro_torch.launch import mesh as mesh_lib
+    return mesh_lib.make_host_mesh(data=data, pipe=pipe, model=model,
+                                   device=dev)
+
+
+def _pipe_parity(dev, seed, rank, case, mesh) -> dict:
+    """One gradient of the case's model at full width, f32: replicated on
+    the card, then pipelined at (1, pipe, model) on this rank's stage and
+    model position: the loss's relative error, each merged leaf's, the
+    pipelined gradient's ms, launches and peak."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as cl
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import shard_plan as sp
+    arch, layers, batch, tokens, pipe, tp, mb = case
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    plan = sp.build_plan(cfg, tp)
+    pplan = sp.build_pipeline_plan(cfg, pipe, mb)
+    check(pplan.active and (tp == 1 or plan.active),
+          f"{arch} at pipe {pipe}, tp {tp}: no plan")
+    s, j = sh.axis_rank(mesh, "pipe"), sh.axis_rank(mesh, "model")
+    specs = tree_leaves(sh.tp_specs(cfg, tp))
+    pdims = tree_leaves(sh.pipe_dims(cfg, pipe))
+    cuts = [((pd, pipe, s), (t.dim, tp, j)) for t, pd in zip(specs, pdims)]
+    toks = lm_token_batches(random.fold_in(random.PRNGKey(seed), 17), 1,
+                            batch, tokens, cfg.vocab, device=dev)[0]
+    params = tr.init_params(cfg, seed=seed, device=dev)
+    template = sh.shape_tree(cfg, lambda shape: None)
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss = tr.loss_fn(tree_unflatten(template, leaves), cfg,
+                      {"tokens": toks})
+    grads = torch.autograd.grad(loss, leaves)
+    rep_loss = float(loss.detach())
+    ref = [sh.cut_piece(g, c).clone() for g, c in zip(grads, cuts)]
+    local = [sh.cut_piece(p, c).clone()
+             for p, c in zip(tree_leaves(params), cuts)]
+    del grads, leaves, loss, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    tp_rt = (sp.TPRuntime(mesh.get_group("model"), tp, j, plan)
+             if tp > 1 else None)
+    pipe_rt = sp.PipeRuntime(mesh.get_group("pipe"), pipe, s, pplan)
+    _set_round_launches(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = _event_pair()
+    start.record()
+    leaves = [t.requires_grad_() for t in local]
+    loss = tr.pipeline_loss_fn(tree_unflatten(template, leaves), cfg,
+                               {"tokens": toks}, tp=tp_rt, pipe=pipe_rt)
+    grads = list(torch.autograd.grad(loss, leaves))
+    if tp_rt is not None:
+        grads = sh.tp_grad_sync(grads, specs, tp_rt)
+    grads = sh.pipe_grad_sync(grads, pdims, pipe_rt)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: FLASH[k].launches for k in FLASH}
+    f32_tc = [fn.f32_tensor_core_launches for fn in TENSOR_CORE]
+    flash = tr.uses_flash_kernel(cfg, tokens) and (tp == 1 or plan.attn)
+    # every tick runs the stage's layers both ways, valid or not
+    want = pplan.layers_per_stage * (mb + pipe - 1) if flash else 0
+    check(all(n == want for n in launches.values()) and
+          f32_tc == [want] * 3,
+          f"{arch} pipe {pipe} tp {tp}: flash launches {launches} (f32 "
+          f"tensor cores {f32_tc}), want {want} each")
+    loss_err = abs(float(loss.detach()) - rep_loss) / abs(rep_loss)
+    worst, worst_leaf = 0.0, None
+    names = [".".join(p) for p, _ in sh.spec_items(cfg)]
+    for g, r, name in zip(grads, ref, names):
+        pair = cl.all_reduce(torch.stack([(g - r).abs().max(),
+                                          r.abs().max()]),
+                             dist.group.WORLD, dist.ReduceOp.MAX)
+        err = float(pair[0]) / max(float(pair[1]), 1e-4)
+        if err > worst:
+            worst, worst_leaf = err, name
+    print(f"  rank {rank}: {arch}, {batch} x {tokens} tokens, pipe {pipe} "
+          f"({pplan.layers_per_stage} layers a stage), tp {tp}, "
+          f"microbatches {mb}\n"
+          f"  rank {rank}:   loss {rep_loss:.6f} replicated, relative error "
+          f"{loss_err:.3e} (tol {TP_LOSS_TOL:g}); worst leaf {worst_leaf} "
+          f"{worst:.3e} of its max |g| (tol {TP_GRAD_TOL:g})\n"
+          f"  rank {rank}:   pipelined gradient {ms:.1f} ms, flash launches "
+          f"{launches}, peak {peak:.2f} GB (this rank)", flush=True)
+    check(loss_err <= TP_LOSS_TOL and worst <= TP_GRAD_TOL,
+          f"{arch} pipe {pipe} tp {tp}: loss {loss_err:.3e}, worst leaf "
+          f"{worst_leaf} {worst:.3e}")
+    return dict(loss_err=loss_err, worst_leaf=worst_leaf, grad_err=worst,
+                ms=ms, peak_gb=peak, launches=launches)
+
+
+def _pipe_step(dev, seed, rank, mesh, out_dir) -> dict:
+    """Three steps of eris-gptneo-1.3b at full width at (data 1, pipe 2),
+    phase 11's DSC fused int8 settings, bf16 params, adam lr 1e-5, 8 x 64
+    in 4 microbatches: the loss finite and falling, the wire kernels once
+    a leaf a step, the flash kernels 12 layers x 5 ticks a step; then the
+    composite checkpoint under ``out_dir`` and this rank's pieces beside
+    it (for the merged engine)."""
+    from repro_torch.checkpoint import msgpack_ckpt as ck
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import train
+    from repro_torch.optim import adam
+    cfg = get_config("eris-gptneo-1.3b")
+    name, fields, wire = PIPE_STEP_CONFIG
+    settings = train.TrainSettings(microbatches=PIPE_STEP_MB, **fields)
+    opt = adam(PIPE_STEP_LR)
+    step = train.make_train_step(cfg, mesh, opt, settings, device=dev)
+    params = train.store_params(tr.init_params(cfg, seed=seed, device=dev),
+                                cfg, mesh, settings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = opt.init(params)
+    dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=dev)
+    toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
+                            cfg.vocab, device=dev)[0]
+    n_leaves = len(tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _set_round_launches(0)
+    losses, ms = [], []
+    for i in range(PIPE_STEPS):
+        start, end = _event_pair()
+        start.record()
+        params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                         {"tokens": toks}, random.PRNGKey(i))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    launches = {k: fn.launches for k, fn in ROUND.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    lps = cfg.n_layers // 2
+    print(f"  rank {rank}: step {name} at (data 1, pipe 2), microbatches "
+          f"{PIPE_STEP_MB}, adam lr {PIPE_STEP_LR}: losses {losses}, ms "
+          f"{[round(x, 1) for x in ms]}, launches {launches}, peak "
+          f"{peak:.2f} GB (this rank)", flush=True)
+    check(all(math.isfinite(x) for x in losses) and
+          all(b < a for a, b in zip(losses, losses[1:])),
+          f"pipe step losses {losses}: not finite and falling")
+    for k in wire:
+        check(launches[k] == n_leaves * PIPE_STEPS,
+              f"pipe step: {k} launched {launches[k]}, want {n_leaves} a "
+              f"step")
+    for k in FLASH:
+        want = lps * (PIPE_STEP_MB + 1) * PIPE_STEPS
+        check(launches[k] == want,
+              f"pipe step: {k} launched {launches[k]}, want {want}")
+    del state, dsc_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ck.save_sharded(pathlib.Path(out_dir, "ckpt"), params,
+                    cuts=train.store_cuts(cfg, mesh, settings))
+    torch.save({"leaves": [t.cpu() for t in tree_leaves(params)],
+                "stage": sh.axis_rank(mesh, "pipe")},
+               pathlib.Path(out_dir, f"pieces{rank}.pt"))
+    save_s = time.monotonic() - t0
+    print(f"  rank {rank}: composite checkpoint and pieces written in "
+          f"{save_s:.1f} s", flush=True)
+    del params
+    return dict(losses=losses, ms=ms, peak_gb=peak, launches=launches,
+                save_s=save_s)
+
+
+def _pipe_smoke(dev, seed, rank) -> dict:
+    """The smoke variant in f32 at (data 2, pipe 2) on the int8 wire, 2
+    microbatches, two sgd steps on the card and on the host (the same gloo
+    groups) from the same params and keys: params and losses within
+    PIPE_SMOKE_TOL."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as cl
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
+    mesh = _pipe_mesh(dev, 2, 2, 1)
+    settings = train.TrainSettings(grad_dtype="float32", int8_wire=True,
+                                   microbatches=2)
+    toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
+                            cfg.vocab)[0]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        opt = sgd(TRAIN_SMOKE_LR)
+        step = train.make_train_step(cfg, mesh, opt, settings, device=d)
+        params = tree_map(lambda t: t.to(d), train.store_params(
+            tr.init_params(cfg, seed=seed, device="cpu"), cfg, mesh,
+            settings))
+        state = opt.init(params)
+        dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=d)
+        losses = []
+        for i in range(2):
+            params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                             {"tokens": toks.to(d)},
+                                             random.PRNGKey(i))
+            losses.append(float(m["loss"]))
+        out.append((torch.cat([t.reshape(-1).float().cpu()
+                               for t in tree_leaves(params)]), losses))
+    (cx, closs), (hx, hloss) = out
+    sums = cl.all_reduce(torch.stack([(cx - hx).square().sum(),
+                                      hx.square().sum()]).double(),
+                         dist.group.WORLD)
+    rel = float(sums[0].sqrt() / sums[1].sqrt())
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(closs, hloss))
+    if rank == 0:
+        print(f"  smoke int8 at (data 2, pipe 2), microbatches 2: 2 sgd "
+              f"steps, params card vs host {rel:.3e}, losses {lrel:.3e} "
+              f"(tol {PIPE_SMOKE_TOL:g}); losses {closs}", flush=True)
+    check(rel <= PIPE_SMOKE_TOL and lrel <= PIPE_SMOKE_TOL,
+          f"pipe smoke int8: params card vs host {rel:.3e}, losses "
+          f"{lrel:.3e}")
+    return dict(params_rel=rel, loss_rel=lrel)
+
+
+def _pipe_rank(rank: int, world: int, port: int, part: str, seed: int,
+               out_dir: str) -> None:
+    """One rank of phase 17, in its own process on cuda:0."""
+    _tp_env(rank, world, port)
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    dev = mesh_lib.init_process_group("cuda", backend="gloo")
+    t0 = time.monotonic()
+    res = {"backend": str(dist.get_backend()), "cases": {}}
+    try:
+        case = PIPE_PARITY_A if part == "a" else PIPE_PARITY_B
+        mesh = _pipe_mesh(dev, 1, case[4], case[5])
+        res["cases"][case[0]] = _pipe_parity(dev, seed, rank, case, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if part == "a":
+            res["step"] = _pipe_step(dev, seed, rank, mesh, out_dir)
+        else:
+            res["smoke"] = _pipe_smoke(dev, seed, rank)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.monotonic() - t0
+    pathlib.Path(out_dir, f"{part}{rank}.json").write_text(json.dumps(res))
+
+
+def _pipe_serve(dev, seed, out_dir) -> int:
+    """Serves 4 requests x 16 greedy tokens from (a)'s composite checkpoint
+    through ``ServeEngine.from_checkpoint`` on the paged kernel, and from
+    an engine built from the ranks' pieces merged here (stage 0's block
+    rows, then stage 1's; the pipe-replicated leaves equal on both): the
+    tokens must be equal.  Returns the paged kernel's launches of the
+    checkpoint's engine."""
+    from repro_torch.dist import sharding as sh
+    cfg = dataclasses.replace(get_config("eris-gptneo-1.3b"),
+                              dtype="float32")
+    requests = [(p, SamplingParams()) for p, _ in serve_lib.random_requests(
+        cfg.vocab, PIPE_SERVE_REQUESTS, 32, 64, seed)]
+    settings = serve_lib.settings_for(requests, PIPE_SERVE_GEN,
+                                      PIPE_SERVE_REQUESTS,
+                                      cache_dtype="float32")
+    t0 = time.monotonic()
+    engine = ServeEngine.from_checkpoint(pathlib.Path(out_dir, "ckpt"), cfg,
+                                         settings, device=dev)
+    load_s = time.monotonic() - t0
+    pa.paged_attention.launches = 0
+    got = [o.tokens for o in serve_lib.serve(engine, requests)]
+    launches = pa.paged_attention.launches
+    steps = engine.stats()["decode_steps"]
+    check(launches == cfg.n_layers * steps,
+          f"pipe serve: paged kernel launched {launches} times over "
+          f"{steps} decode steps")
+    ckpt_leaves = tree_leaves(engine.params)
+    del engine
+    pieces = [torch.load(pathlib.Path(out_dir, f"pieces{r}.pt"))
+              for r in range(2)]
+    pieces.sort(key=lambda p: p["stage"])
+    merged = []
+    for pd, a, b in zip(tree_leaves(sh.pipe_dims(cfg, 2)),
+                        pieces[0]["leaves"], pieces[1]["leaves"]):
+        if pd >= 0:
+            merged.append(torch.cat([a, b], pd))
+        else:
+            check(torch.equal(a, b), "pipe serve: a pipe-replicated leaf "
+                  "differs between the stages")
+            merged.append(a)
+    same = all(torch.equal(x.cpu(), y) for x, y in zip(ckpt_leaves, merged))
+    del ckpt_leaves
+    params = tree_unflatten(sh.shape_tree(cfg, lambda s: None), merged)
+    want = [o.tokens for o in serve_lib.serve(
+        ServeEngine(cfg, params, settings, device=dev), requests)]
+    print(f"  from_checkpoint: restored in {load_s:.1f} s, leaves == the "
+          f"ranks' merged pieces: {same}; {PIPE_SERVE_REQUESTS} requests x "
+          f"{PIPE_SERVE_GEN} greedy tokens, paged launches {launches}, "
+          f"tokens == the merged params' engine: {got == want}", flush=True)
+    check(same and got == want and all(len(t) == PIPE_SERVE_GEN
+                                       for t in got),
+          "pipe serve: the checkpoint's engine differs from the merged "
+          "params' engine")
+    return launches
+
+
+def pipe_axis_phase(dev, seed) -> tuple:
+    """Phase 17: (a) two ranks, (b) four, each a ``torch.multiprocessing``
+    launch of processes on cuda:0 over gloo groups, and serving from (a)'s
+    checkpoint in this process.  Returns (the paged kernel's launches, the
+    main path's other launches: the pipelined gradients and steps, summed
+    over ranks)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.launch import mesh as mesh_lib
+    _expect_free_card("before the pipe axis")
+    print("  the pipe stages run over gloo on one card, as phase 16's model "
+          "groups: every boundary send and every collective of a CUDA "
+          "tensor is staged through host buffers", flush=True)
+    totals = {name: 0 for name in ROUND}
+    paged = 0
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        for part, world in (("a", 2), ("b", 4)):
+            t0 = time.monotonic()
+            mp.spawn(_pipe_rank, args=(world, mesh_lib.free_port(), part,
+                                       seed, out), nprocs=world, join=True)
+            ranks = [json.loads(pathlib.Path(out, f"{part}{r}.json")
+                                .read_text()) for r in range(world)]
+            check(all(r["backend"] == "gloo" for r in ranks),
+                  f"pipe axis ({part}): backends "
+                  f"{[r['backend'] for r in ranks]}")
+            print(f"  ({part}) {world} ranks in {time.monotonic() - t0:.1f} "
+                  f"s (each rank's own: "
+                  f"{[round(r['seconds'], 1) for r in ranks]})", flush=True)
+            print("pipe_axis " + json.dumps({part: ranks}), flush=True)
+            for r in ranks:
+                for case in r["cases"].values():
+                    for k, n in case["launches"].items():
+                        totals[k] += n
+                for k, n in r.get("step", {}).get("launches", {}).items():
+                    totals[k] += n
+            if part == "a":
+                t0 = time.monotonic()
+                paged = _pipe_serve(dev, seed, out)
+                print(f"  (a) serving from the checkpoint in "
+                      f"{time.monotonic() - t0:.1f} s", flush=True)
+                gc.collect()
+                torch.cuda.empty_cache()
+    return paged, totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", type=int, nargs="+", choices=(16, 17),
+                    help="after the device and the build, run only these "
+                         "multi-rank phases, and print no result (a "
+                         "partial run: the kernels line needs every phase)")
     args = ap.parse_args()
 
     dev = device_phase()
     build_phase()
+    if args.only:
+        for n in args.only:
+            if n == 16:
+                phase("16 the model axis")
+                model_axis_phase(dev, args.seed)
+            else:
+                phase("17 the pipe axis")
+                pipe_axis_phase(dev, args.seed)
+        phase(None)
+        print(f"phase seconds {json.dumps(PHASE_SECONDS)}")
+        print(f"partial run of phases {args.only}: no result line")
+        return
 
     cfg = get_config("eris-gptneo-1.3b")
     requests = serve_lib.random_requests(cfg.vocab, REQUESTS, PROMPT_MIN,
@@ -4213,7 +4615,15 @@ def main() -> None:
     for name in round_launches:
         round_launches[name] += tp_launches[name]
 
-    phase("17 result")
+    phase("17 the pipe axis: eris-gptneo-1.3b at pp = 2, its composite "
+          "checkpoint served, qwen2-0.5b at (pipe 2, model 2), ranks on "
+          "one card over gloo")
+    pipe_paged, pipe_launches = pipe_axis_phase(dev, args.seed)
+    launches += pipe_paged
+    for name in round_launches:
+        round_launches[name] += pipe_launches[name]
+
+    phase("18 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

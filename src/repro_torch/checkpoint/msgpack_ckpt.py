@@ -11,12 +11,17 @@ Sharded (:func:`save_sharded` / :func:`restore_sharded`): a DIRECTORY of
     shard-{rank}.msgpack    this rank's pieces, each as (start offsets,
                             shape, bytes)
 
-The distributed step keeps each leaf as this rank's store shard (cut at
-its scatter dim, ``dist/sharding.store_shard``), so a rank writes its
-own piece, and a replicated leaf (scatter dim -1) is written once, by
-rank 0, as the reference's replica 0 is.  :func:`restore_sharded`
-assembles every leaf whole, and with ``dims`` cuts this rank's store
-shard from it.
+The distributed step keeps each leaf as this rank's store piece: on a
+(data, pipe, model) mesh a box of the full leaf, cut on the pipe axis
+(the stage's block rows), then the model axis (its TP shard), then the
+data axis (its segment at the scatter dim), each cut nested in the one
+before (``dist/sharding.composite_box``).  A rank writes its box of each
+leaf as one record, ``start`` the box's origin, and a leaf that
+replicates over an axis is written only by the rank at index 0 on it, as
+the reference writes replica 0 only, so every coordinate is written
+once.  :func:`restore_sharded` assembles every leaf whole, and with
+``cuts`` (or ``dims``, the data axis alone) cuts this rank's piece from
+it.
 
 bf16 has no numpy dtype here: its bytes are read and written as uint16
 and viewed as ``torch.bfloat16``.  ``msgpack`` is imported inside these
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import tree_leaves, tree_unflatten
-from repro_torch.dist.sharding import store_shard
+from repro_torch.dist.sharding import composite_box, cut_piece, whole_shape
 
 _MANIFEST = "manifest.msgpack"
 _NAMES = {torch.float32: "float32", torch.float64: "float64",
@@ -113,30 +118,46 @@ def _rank_world(rank: Optional[int], world: Optional[int]):
     return rank, world
 
 
+def _leaf_cuts(n: int, dims: Any, cuts: Optional[list], rank: int,
+               world: int) -> list:
+    """Each leaf's chain of cuts (``dist/sharding.composite_box``):
+    ``cuts`` as given, else the data axis alone from ``dims`` (the leaf
+    cut at its dim into ``world`` store shards, of which this rank holds
+    the ``rank``-th), else whole."""
+    if cuts is not None:
+        return list(cuts)
+    dim_list = [-1] * n if dims is None else tree_leaves(dims)
+    return [((d, world, rank),) for d in dim_list]
+
+
 def save_sharded(path, tree, dims: Any = None, *, rank: Optional[int] = None,
-                 world: Optional[int] = None) -> None:
+                 world: Optional[int] = None,
+                 cuts: Optional[list] = None) -> None:
     """Write this rank's pieces of ``tree`` into the checkpoint directory
-    ``path`` (see the module docstring).  ``dims`` (a tree of ints, as
-    ``dist/sharding.fsa_scatter_dims``) says at which dim each leaf is cut
-    into ``world`` store shards, of which ``tree`` holds the ``rank``-th;
-    -1, or no ``dims``, means the leaf is whole and replicated.  ``rank``
-    and ``world`` default to the process group's (0 and 1 without one).
-    """
+    ``path`` (see the module docstring).  Each leaf of ``tree`` is the
+    piece that a chain of cuts selects from the full leaf: ``cuts``, one
+    chain of ``(dim, parts, index)`` per leaf in flatten order
+    (``launch/train.store_cuts``), or ``dims`` (a tree of ints, as
+    ``dist/sharding.fsa_scatter_dims``: the leaf cut at that dim into
+    ``world`` store shards, of which ``tree`` holds the ``rank``-th; -1
+    whole).  Neither means every leaf is whole and replicated.  A piece
+    is written only by the rank whose index is 0 on every axis the leaf
+    is not cut over.  ``rank`` and ``world`` default to the process
+    group's (0 and 1 without one); ``rank`` names the shard file."""
     import msgpack
     rank, world = _rank_world(rank, world)
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     leaves = tree_leaves(tree)
-    dim_list = ([-1] * len(leaves) if dims is None else tree_leaves(dims))
     manifest, shards = {}, {}
-    for key, t, dim in zip(_key_paths(tree), leaves, dim_list):
-        shape = list(t.shape)
-        starts = [0] * t.dim()
-        if dim >= 0:
-            starts[dim] = rank * shape[dim]
-            shape[dim] *= world
-        manifest[key] = {"dtype": _dtype_name(t), "shape": shape}
-        writes = dim >= 0 or rank == 0
+    for key, t, chain in zip(_key_paths(tree), leaves,
+                             _leaf_cuts(len(leaves), dims, cuts, rank,
+                                        world)):
+        shape = whole_shape(tuple(t.shape), chain)
+        starts, _ = composite_box(shape, chain)
+        manifest[key] = {"dtype": _dtype_name(t), "shape": list(shape)}
+        writes = all(index == 0 for dim, parts, index in chain
+                     if dim < 0 or parts <= 1)
         shards[key] = ([{"start": starts, "shape": list(t.shape),
                          "data": _to_bytes(t)}] if writes else [])
     (path / f"shard-{rank}.msgpack").write_bytes(msgpack.packb(shards))
@@ -146,11 +167,11 @@ def save_sharded(path, tree, dims: Any = None, *, rank: Optional[int] = None,
 
 def restore_sharded(path, target, dims: Any = None, *,
                     rank: Optional[int] = None, world: Optional[int] = None,
-                    device=None):
+                    device=None, cuts: Optional[list] = None):
     """Assemble a checkpoint directory onto ``target``'s structure
-    (``target``'s leaves give the GLOBAL shapes to check).  With ``dims``,
-    each leaf comes back as this rank's store shard (``rank`` and
-    ``world`` as in :func:`save_sharded`), else whole."""
+    (``target``'s leaves give the GLOBAL shapes to check).  With ``cuts``
+    or ``dims`` (as in :func:`save_sharded`), each leaf comes back as
+    this rank's piece, else whole."""
     import msgpack
     path = Path(path)
     manifest = msgpack.unpackb((path / _MANIFEST).read_bytes())
@@ -159,11 +180,12 @@ def restore_sharded(path, target, dims: Any = None, *,
         for key, recs in msgpack.unpackb(f.read_bytes()).items():
             merged.setdefault(key, []).extend(recs)
     leaves = tree_leaves(target)
-    dim_list = ([-1] * len(leaves) if dims is None else tree_leaves(dims))
-    if dims is not None:
+    chains = [()] * len(leaves)
+    if dims is not None or cuts is not None:
         rank, world = _rank_world(rank, world)
+        chains = _leaf_cuts(len(leaves), dims, cuts, rank, world)
     out = []
-    for key, leaf, dim in zip(_key_paths(target), leaves, dim_list):
+    for key, leaf, chain in zip(_key_paths(target), leaves, chains):
         meta = manifest[key]
         if tuple(meta["shape"]) != tuple(np.shape(leaf)):
             raise ValueError(f"shape mismatch at {key}: "
@@ -174,15 +196,16 @@ def restore_sharded(path, target, dims: Any = None, *,
             sl = tuple(slice(st, st + sz)
                        for st, sz in zip(rec["start"], rec["shape"]))
             full[sl] = _from_bytes(rec["data"], meta["dtype"], rec["shape"])
-        if dim >= 0:
-            full = store_shard(full, dim, world, rank).clone()
+        if chain:
+            full = cut_piece(full, chain).clone()
         out.append(full.to(device) if device is not None else full)
     return tree_unflatten(target, out)
 
 
 def restore_any(path, target, dims: Any = None, **kw):
     """Dispatch on the checkpoint's format: a directory restores the
-    sharded layout, a single file the legacy one (whole leaves)."""
+    sharded layout (whole leaves, or with ``cuts`` or ``dims`` this rank's
+    pieces), a single file the legacy one (whole leaves)."""
     path = Path(path)
     if path.is_dir():
         return restore_sharded(path, target, dims, **kw)

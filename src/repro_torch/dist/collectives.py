@@ -26,6 +26,17 @@ def host_staged(x: torch.Tensor, group) -> bool:
             and "nccl" not in str(dist.get_backend(group)))
 
 
+def _alone(group) -> bool:
+    """Whether ``group`` has one rank: its collectives are the identity."""
+    return dist.get_world_size(group) == 1
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """The identity collective's result: a new contiguous tensor on
+    ``x``'s device."""
+    return x.detach().clone(memory_format=torch.contiguous_format)
+
+
 def _wire(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` where the collective reads it: a host copy when the group
     stages it, else ``x`` itself."""
@@ -35,6 +46,8 @@ def _wire(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, group,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``psum`` (``op`` SUM) or ``pmax`` (MAX) over the group."""
+    if _alone(group):
+        return _own(x)
     y = _wire(x, group)
     y = (y.clone(memory_format=torch.contiguous_format)
          if y.data_ptr() == x.data_ptr() else y.contiguous())
@@ -44,6 +57,8 @@ def all_reduce(x: torch.Tensor, group,
 
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    if _alone(group):
+        return _own(x)
     y = _wire(x, group).contiguous()
     n = dist.get_world_size(group)
     buf = y.new_empty((n, *y.shape))
@@ -55,6 +70,8 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """This rank's ``dim``-chunk of the sum of every rank's ``x``."""
+    if _alone(group):
+        return _own(x)
     y = _wire(x, group)
     n = dist.get_world_size(group)
     parts = [c.contiguous() for c in y.chunk(n, dim)]
@@ -68,6 +85,8 @@ def all_to_all(x: torch.Tensor, group, split_axis: int = 0,
     """``x`` cut into group-size chunks along ``split_axis``, chunk j to
     rank j; the chunks received concatenated along ``concat_axis`` in
     rank order."""
+    if _alone(group):
+        return _own(x)
     y = _wire(x, group)
     n = dist.get_world_size(group)
     if split_axis == 0 and concat_axis == 0:
@@ -86,6 +105,8 @@ def ring_shift(xs: list, group, shift: int = 1) -> list:
     the group's ring: rank i sends to rank i + shift and receives from
     rank i - shift.  The tensors travel as separate messages of one
     batch (tag = their place in ``xs``)."""
+    if _alone(group):
+        return [_own(x) for x in xs]
     n = dist.get_world_size(group)
     me = dist.get_rank(group)
     dst = dist.get_global_rank(group, (me + shift) % n)

@@ -1,5 +1,5 @@
 """Sharding policy of the distributed FSA step (``repro/dist/sharding.py``,
-Section 3.2.1 on a process group), on the data and model axes.
+Section 3.2.1 on a process group), on the data, pipe and model axes.
 
 Every rank of the mesh's ``"data"`` axis is one FSA *aggregator*: it
 owns a disjoint segment of each parameter (the "store" layout), receives
@@ -14,18 +14,22 @@ owns IS the mask m_(a) of ``core/masks`` at tensor granularity, disjoint
 and complete by construction, so Theorem B.1 applies unchanged.
 
 The model axis (tensor parallelism, ``models/shard_plan``) shards each
-leaf at its :class:`TPSpec` dim; the scatter dim is then taken of the
-TP-LOCAL shape, and the store layout composes both: rank (a, j) of the
-(data, model) mesh holds aggregator a's segment of model position j's
-shard (:func:`composite_store_shard`).  Theorem B.1 applies per model
-position.
+leaf at its :class:`TPSpec` dim, and the pipe axis slices every block
+leaf's stacked layer dim 0 into contiguous stages (:func:`pipe_dims`);
+the scatter dim is then taken of the PIPE- and TP-LOCAL shape, and the
+store layout composes the three: rank (a, s, j) of the (data, pipe,
+model) mesh holds aggregator a's segment of model position j's shard of
+stage s's rows (:func:`composite_store_shard`).  Where two cuts land on
+one dim they nest, pipe major, then model, then the client segment, so
+each rank's piece of a leaf is one contiguous box
+(:func:`composite_box`).  Theorem B.1 applies per (stage, model
+position).
 
 The reference expresses the layout as ``PartitionSpec``s of a jax
 ``Mesh``; here a rank holds its pieces as plain tensors.  Helpers that
 take a ``mesh`` accept the port's ``DeviceMesh``
 (``launch/mesh.make_host_mesh``) or the client count itself (a mesh
-without a model axis).  The pipe axis is ROADMAP queue 1.10: its helpers
-raise.
+with the data axis alone).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import math
 from typing import Any, Iterator, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.convert import tree_leaves, tree_map, tree_unflatten
 from repro_torch.dist import collectives as cl
@@ -42,10 +47,6 @@ from repro_torch.models.shard_plan import TPSpec, tp_specs  # noqa: F401
 QBLOCK = 256        # coords per int8-wire scale (kernels/quantize.QBLOCK)
 FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
-
-_QUEUE_1_10 = ("the pipe axis (pipeline parallelism) is not ported yet: "
-               "ROADMAP queue 1.10")
-
 
 # ------------------------------------------------------------------ axes
 def client_count(mesh: Union[int, Any]) -> int:
@@ -56,11 +57,29 @@ def client_count(mesh: Union[int, Any]) -> int:
     return int(mesh.size(mesh.mesh_dim_names.index("data")))
 
 
-def model_size(mesh: Union[int, Any]) -> int:
-    """The size of the mesh's ``"model"`` axis (1 without one, and for a
-    bare client count)."""
+def axis_size(mesh: Union[int, Any], name: str) -> int:
+    """The size of the mesh's axis ``name`` (1 where it has none, and for
+    a bare client count)."""
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    return int(mesh.size(names.index("model"))) if "model" in names else 1
+    return int(mesh.size(names.index(name))) if name in names else 1
+
+
+def axis_rank(mesh, name: str) -> int:
+    """This rank's place on the mesh's axis ``name`` (0 where it has none
+    or where the axis has one position)."""
+    if axis_size(mesh, name) == 1:
+        return 0
+    return dist.get_rank(mesh.get_group(name))
+
+
+def model_size(mesh: Union[int, Any]) -> int:
+    """The size of the mesh's ``"model"`` axis."""
+    return axis_size(mesh, "model")
+
+
+def pipe_size(mesh: Union[int, Any]) -> int:
+    """The size of the mesh's ``"pipe"`` axis."""
+    return axis_size(mesh, "pipe")
 
 
 # ----------------------------------------------------------- model axis
@@ -111,16 +130,87 @@ def tp_grad_sync(grads, specs, tp):
                       else g), grads, specs)
 
 
-def pipe_dims(*args, **kwargs):
-    raise NotImplementedError(f"pipe_dims: {_QUEUE_1_10}")
+# --------------------------------------------------------- pipe axis
+# The pipe axis slices the leading L-stacked layer dim of every block leaf
+# into contiguous stages (models/shard_plan.PipelinePlan); the other leaves
+# (embed, lm_head, ln_f, proj_in) replicate over pipe: every stage embeds
+# its own injection and computes the (masked) CE, so their gradients are
+# per-stage partials, summed over the pipe group.
+def pipe_dims(cfg, pp: int) -> dict:
+    """Each leaf's pipe slice dim, a tree of ints matching the param tree:
+    0 for the block leaves when the pipe axis is real, else -1."""
+    from repro_torch.models import transformer as tr
+    spec = tr.param_spec(cfg)
+    out: dict = {}
+    for name in spec:
+        if name == "blocks":
+            out["blocks"] = {bn: (0 if pp > 1 else -1)
+                             for bn in spec["blocks"]}
+        else:
+            out[name] = -1
+    return out
 
 
-def pipe_local_shape(*args, **kwargs):
-    raise NotImplementedError(f"pipe_local_shape: {_QUEUE_1_10}")
+def pipe_local_shape(shape: Tuple[int, ...], pdim: int,
+                     pp: int) -> Tuple[int, ...]:
+    """The per-stage shape of a (TP-local) leaf."""
+    if pdim < 0 or pp <= 1:
+        return tuple(shape)
+    shape = list(shape)
+    shape[pdim] //= pp
+    return tuple(shape)
 
 
-def pipe_grad_sync(*args, **kwargs):
-    raise NotImplementedError(f"pipe_grad_sync: {_QUEUE_1_10}")
+def pipe_grad_sync(grads, pdims, pipe):
+    """After the gradient of the pipelined loss on the pipe axis ``pipe``
+    (a ``PipeRuntime``): the block leaves' gradients are the stage's own
+    rows, complete, and pass through; the pipe-replicated leaves carry
+    per-stage partial sums, all-reduced over the pipe group, in leaf
+    order.  ``grads`` and ``pdims`` are trees of the same structure."""
+    return tree_map(
+        lambda g, pd: g if pd >= 0 else cl.all_reduce(g, pipe.group),
+        grads, pdims)
+
+
+# ------------------------------------------------- the composite cut
+# A rank's piece of a leaf is a chain of cuts, each (dim, parts, index):
+# the pipe axis's, the model axis's, then the data axis's, in that
+# nesting.  A cut with dim -1 (or one part) leaves the leaf whole on its
+# axis: the leaf replicates there.
+
+
+def composite_box(shape: Tuple[int, ...], cuts) -> Tuple[list, list]:
+    """The box a chain of ``cuts`` selects in a leaf of ``shape``: its
+    origin and its extent per dim.  Each cut takes the index-th of parts
+    contiguous chunks of what the cuts before it left, so cuts that land
+    on one dim nest, the first major."""
+    start, size = [0] * len(shape), list(shape)
+    for dim, parts, index in cuts:
+        if dim < 0 or parts <= 1:
+            continue
+        size[dim] //= parts
+        start[dim] += index * size[dim]
+    return start, size
+
+
+def cut_piece(x: torch.Tensor, cuts) -> torch.Tensor:
+    """The box of ``x`` that ``cuts`` select (:func:`composite_box`).  A
+    view of ``x``."""
+    start, size = composite_box(tuple(x.shape), cuts)
+    for d, (st, sz) in enumerate(zip(start, size)):
+        if sz != x.shape[d]:
+            x = x.narrow(d, st, sz)
+    return x
+
+
+def whole_shape(shape: Tuple[int, ...], cuts) -> Tuple[int, ...]:
+    """The full leaf's shape, from the shape of a piece that ``cuts``
+    selected."""
+    shape = list(shape)
+    for dim, parts, _ in cuts:
+        if dim >= 0 and parts > 1:
+            shape[dim] *= parts
+    return tuple(shape)
 
 
 # ------------------------------------------------------- param shapes
@@ -160,24 +250,28 @@ def scatter_dim_for(shape: Tuple[int, ...], n_client: int) -> int:
 
 
 def local_shapes(cfg, mesh) -> list:
-    """Each leaf's TP-local shape on the mesh's model axis, in flatten
-    order."""
-    tp = model_size(mesh)
-    return [tp_local_shape(shape, s, tp) for (_, shape), s in
-            zip(spec_items(cfg), tree_leaves(tp_specs(cfg, tp)))]
+    """Each leaf's pipe- and TP-local shape on the mesh's pipe and model
+    axes (the block rows of one stage, then one model position's shard),
+    in flatten order."""
+    tp, pp = model_size(mesh), pipe_size(mesh)
+    return [pipe_local_shape(tp_local_shape(shape, s, tp), pd, pp)
+            for (_, shape), s, pd in
+            zip(spec_items(cfg), tree_leaves(tp_specs(cfg, tp)),
+                tree_leaves(pipe_dims(cfg, pp)))]
 
 
 def local_shape_tree(cfg, mesh, fn) -> dict:
-    """``fn(TP-local shape)`` at every leaf of the parameter tree."""
+    """``fn(pipe- and TP-local shape)`` at every leaf of the param tree."""
     return tree_unflatten(shape_tree(cfg, lambda shape: None),
                           [fn(shape) for shape in local_shapes(cfg, mesh)])
 
 
 def fsa_scatter_dims(cfg, mesh) -> dict:
     """Per-leaf scatter dim for the FSA reduce-scatter and the shard-local
-    optimizer (a tree of ints matching the param tree), of the TP-LOCAL
-    shape: on each rank every leaf is already its model position's
-    shard, and the client segmentation divides that."""
+    optimizer (a tree of ints matching the param tree), of the PIPE- and
+    TP-LOCAL shape: on each rank every leaf is already its stage's rows of
+    its model position's shard, and the client segmentation divides
+    that."""
     n_client = client_count(mesh)
     return local_shape_tree(cfg, mesh,
                             lambda shape: scatter_dim_for(shape, n_client))
@@ -185,11 +279,15 @@ def fsa_scatter_dims(cfg, mesh) -> dict:
 
 def composite_store_shard(x: torch.Tensor, spec: TPSpec, tp: int,
                           midx: int, fsa_dim: int, n_client: int,
-                          aidx: int) -> torch.Tensor:
-    """Rank (aidx, midx)'s piece of a full leaf in the store layout:
-    model position midx's TP shard, then aggregator aidx's segment of it
-    along its scatter dim.  A view of ``x``."""
-    return store_shard(tp_shard(x, spec, tp, midx), fsa_dim, n_client, aidx)
+                          aidx: int, pipe_dim: int = -1, pp: int = 1,
+                          pidx: int = 0) -> torch.Tensor:
+    """Rank (aidx, pidx, midx)'s piece of a full leaf in the store layout:
+    stage pidx's rows at ``pipe_dim``, model position midx's TP shard of
+    them, then aggregator aidx's segment of that along its scatter dim
+    (the reference's ``composite_store_spec``: pipe major, then model,
+    then the client segment).  A view of ``x``."""
+    return cut_piece(x, ((pipe_dim, pp, pidx), (spec.dim, tp, midx),
+                         (fsa_dim, n_client, aidx)))
 
 
 def store_shard(x: torch.Tensor, dim: int, n_client: int,
@@ -250,7 +348,7 @@ def wire_layout_for(shape: Tuple[int, ...], n_client: int) -> WireLayout:
 
 def int8_wire_layouts(cfg, mesh) -> dict:
     """Tree of :class:`WireLayout` matching the parameter tree (the wire
-    geometry of the TP-local leaf each rank exchanges)."""
+    geometry of the pipe- and TP-local leaf each rank exchanges)."""
     n_client = client_count(mesh)
     return local_shape_tree(cfg, mesh,
                             lambda shape: wire_layout_for(shape, n_client))
@@ -260,10 +358,11 @@ def mesh_wire_bytes(cfg, mesh, *, int8: bool, grad_bytes: int = 2) -> int:
     """Bytes ONE client (rank) puts on the data axis per round under the
     FSA exchange: the sum over leaves of every transmitted segment
     (n_client - 1 remote segments + its own, counted once each, matching
-    the collective's logical payload).  With a model axis each rank
-    exchanges only its TP-local shard, so this is per rank; the model
-    axis's own traffic is not counted here.  ``int8=False`` accounts the
-    ``grad_dtype`` path.  Computed from shapes, not measured."""
+    the collective's logical payload).  With a pipe or model axis each
+    rank exchanges only its pipe- and TP-local shard, so this is per
+    rank; those axes' own traffic is not counted here.  ``int8=False``
+    accounts the ``grad_dtype`` path.  Computed from shapes, not
+    measured."""
     n_client = client_count(mesh)
     total = 0
     for shape in local_shapes(cfg, mesh):
@@ -277,8 +376,8 @@ def mesh_wire_bytes(cfg, mesh, *, int8: bool, grad_bytes: int = 2) -> int:
 
 def param_bytes_per_device(cfg, mesh) -> int:
     """Resident parameter bytes per device in the compute layout: every
-    leaf at its TP-local shape (client-replicated), in the config's
-    dtype."""
+    leaf at its pipe- and TP-local shape (client-replicated), in the
+    config's dtype."""
     itemsize = FLOAT_DTYPES[cfg.dtype].itemsize
     return sum(math.prod(shape) * itemsize
                for shape in local_shapes(cfg, mesh))

@@ -5,8 +5,10 @@ One process per mesh position.  :func:`init_process_group` joins the
 default group (under ``torchrun``) or makes a one-rank group on a
 loopback port (under plain ``python``); :func:`make_host_mesh` lays the
 ``"data"`` axis, and a ``"model"`` axis minor-most, over it: rank a *
-model + j is aggregator a's model position j.  The pipe axis is ROADMAP
-queue 1.10.
+model + j is aggregator a's model position j.  With a pipe axis the mesh
+is the reference's ``("data", "pipe", "model")``: rank (a * pipe + s) *
+model + j is aggregator a's stage s at model position j, and
+``mesh.get_group("pipe")`` is the stage ring of its (a, j).
 
 Defined as functions, so importing this module touches no process group.
 """
@@ -66,20 +68,23 @@ def init_process_group(device: DeviceLike = None,
 
 
 def make_production_mesh(*, multi_pod: bool = False, pipe: int = 1):
-    """The reference's 256/512-device TPU production mesh (its pipe axis
-    carved out of the data axis): ROADMAP queue 1.10."""
+    """The reference's 256/512-device TPU production mesh, which only its
+    ahead-of-time lowering (``launch/dryrun.py``) builds: ROADMAP queue
+    1.12, with the lowering."""
     raise NotImplementedError(
-        "make_production_mesh: the 256/512-device production mesh and "
-        "its pipe axis are not ported yet: ROADMAP queue 1.10")
+        "make_production_mesh: the 256/512-device production mesh serves "
+        "the reference's lowering for accounting, not ported yet: ROADMAP "
+        "queue 1.12")
 
 
 def make_host_mesh(data: int | None = None, model: int = 1, pipe: int = 1,
                    device: DeviceLike = None):
     """A ``DeviceMesh`` over the initialised process group's ranks: one
     ``"data"`` axis, or with ``model > 1`` the 2-D ``("data", "model")``
-    mesh, model minor-most (the model group is consecutive ranks).
-    Validates the factorization up front, with the reference's messages;
-    ``pipe > 1`` raises naming ROADMAP queue 1.10."""
+    mesh, model minor-most (the model group is consecutive ranks), or
+    with ``pipe > 1`` the reference's 3-D ``("data", "pipe", "model")``
+    mesh, model minor-most, then pipe.  Validates the factorization up
+    front, with the reference's messages."""
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_initialized():
         raise RuntimeError(
@@ -103,11 +108,10 @@ def make_host_mesh(data: int | None = None, model: int = 1, pipe: int = 1,
             f"mesh ({data} data x {pipe} pipe x {model} model) needs "
             f"{data * inner} devices but {n} are available; leave "
             f"data=None to infer data = n // (model*pipe) = {n // inner}")
-    if pipe > 1:
-        raise NotImplementedError(
-            f"make_host_mesh(pipe={pipe}): the pipe axis is not ported "
-            f"yet: ROADMAP queue 1.10")
     device_type = resolve_device(device).type
+    if pipe > 1:
+        return init_device_mesh(device_type, (data, pipe, model),
+                                mesh_dim_names=("data", "pipe", "model"))
     if model == 1:
         return init_device_mesh(device_type, (data,),
                                 mesh_dim_names=("data",))

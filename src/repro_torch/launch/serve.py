@@ -6,7 +6,11 @@ width (``--smoke`` for its reduced variant) and prints the engine's
 stats as JSON:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch eris-gptneo-1.3b \
-        [--requests 8] [--gen 32] [--concurrency 8] [--device cuda]
+        [--requests 8] [--gen 32] [--concurrency 8] [--device cuda] \
+        [--ckpt DIR]
+
+``--ckpt`` serves a ``launch/train.py --save`` artifact
+(``ServeEngine.from_checkpoint``) in place of random params.
 
 The static lowering path of the reference (``lower_step``) is XLA's and
 has no counterpart here.
@@ -78,19 +82,26 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
+    ap.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="serve a launch/train.py --save artifact")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    params = tr.init_params(cfg, seed=args.seed, device=args.device)
     requests = random_requests(cfg.vocab, args.requests, args.prompt_min,
                                args.prompt_max, args.seed)
     settings = settings_for(requests, args.gen, args.concurrency,
                             decode_kernel=args.decode_kernel,
                             cache_dtype=("float32" if cfg.dtype == "float32"
                                          else "bfloat16"))
-    engine = ServeEngine(cfg, params, settings, device=args.device)
+    if args.ckpt:
+        engine = ServeEngine.from_checkpoint(args.ckpt, cfg, settings,
+                                             device=args.device)
+    else:
+        engine = ServeEngine(cfg, tr.init_params(cfg, seed=args.seed,
+                                                 device=args.device),
+                             settings, device=args.device)
     outs = serve(engine, requests)
     stats = dict(engine.stats(), arch=cfg.name, device=str(engine.device),
                  requests=len(outs),

@@ -72,12 +72,26 @@ batch divides ``n_client * model``, else each model position repeats the
 group's step.  The grad norm sums each leaf once: TP-sharded leaves over
 the model group, replicated ones not.  With ``capture_views`` each
 aggregator's views are its TP-local segments concatenated over the model
-group.  The pipe axis (queue 1.10) and the lowering for accounting (1.12)
-raise ``NotImplementedError`` naming their ROADMAP queue.
+group.
+
+The pipe axis (``make_host_mesh(data, model, pipe)``): the block leaves
+enter cut to this rank's stage's rows, pipe major in the composite store
+layout, and the gradient is ``transformer.pipeline_loss_fn`` over the
+stage ring (the reference's 1F1B wavefront of ``microbatches``
+slices), its model-axis partials summed first, then its pipe-replicated
+leaves over the pipe group (``sharding.pipe_grad_sync``); the loss is the
+same on every stage and averaged over the data group only.  The grad norm
+buckets each leaf by the axes it is split over, (model?, pipe?), and sums
+each bucket over those groups, so a leaf replicated over pipe counts
+once.  Adam's state, the DSC shifts and the FedBuff buffer mirror the
+store pieces, so they follow the cut.  Without a pipe axis
+``microbatches`` is ignored, as the reference's inactive plan ignores
+it.  The lowering for accounting (1.12) raises ``NotImplementedError``
+naming its ROADMAP queue.
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --smoke --steps 4 [--dsc] [--int8-wire] \\
-        [--model-axis 2]
+        [--model-axis 2] [--pp 2 --microbatches 2] [--save DIR]
     python -m repro_torch.launch.train --arch eris-gptneo-1.3b --steps 3 \\
         --dsc --int8-wire
 """
@@ -125,7 +139,9 @@ class TrainSettings:
     fused_wire: bool = True          # int8+DSC leaves through the one-pass
                                      # dsc_quantize kernel
     shift_dtype: str = "float32"     # DSC shift-state residency
-    microbatches: int = 1            # 1F1B microbatches (pipe axis: 1.10)
+    microbatches: int = 1            # 1F1B microbatches on a pipe axis
+                                     # (m + p - 1 wavefront ticks; the
+                                     # bubble (p - 1) / (m + p - 1))
     remat: bool = True
     fsa: bool = True                 # False => FedAvg all-reduce baseline
     capture_views: bool = False      # adversary-view tap: per aggregator,
@@ -194,9 +210,8 @@ def lower_train_step(*args, **kwargs):
 
 def _validate(settings: TrainSettings, cfg: Optional[ModelConfig] = None,
               mesh=None) -> AsyncSettings:
-    """The reference's validation errors in its order, word for word, then
-    NotImplementedError for each knob the port does not run yet.  Returns
-    the resolved async settings."""
+    """The reference's validation errors in its order, word for word.
+    Returns the resolved async settings."""
     if settings.async_buffer and settings.use_dsc:
         raise ValueError(
             "async_buffer does not compose with use_dsc: the Eq. 4 shift "
@@ -206,8 +221,8 @@ def _validate(settings: TrainSettings, cfg: Optional[ModelConfig] = None,
     # one validation surface for the async knobs (shared with FLConfig):
     # raises naming the offending or conflicting field
     async_cfg = settings.async_settings()
-    model_size = _axis_size(mesh, "model")
-    pipe_size = _axis_size(mesh, "pipe")
+    model_size = sh.axis_size(mesh, "model")
+    pipe_size = sh.axis_size(mesh, "pipe")
     use_tp = cfg is not None and tr.tp_plan(cfg, model_size).active
     use_pipe = cfg is not None and sp.build_pipeline_plan(
         cfg, pipe_size, settings.microbatches).active
@@ -258,18 +273,6 @@ def _validate(settings: TrainSettings, cfg: Optional[ModelConfig] = None,
             "agg_dropout/link_failure compose with the synchronous FSA "
             "step; the async buffered runtime models client dropout "
             "through its ArrivalModel instead")
-    unported = [
-        ("microbatches > 1", settings.microbatches > 1, "1.10"),
-    ]
-    for what, on, queue in unported:
-        if on:
-            raise NotImplementedError(
-                f"TrainSettings.{what}: not ported to the distributed step "
-                f"yet: ROADMAP queue {queue}")
-    if pipe_size > 1:
-        raise NotImplementedError(
-            "a pipe axis (the pipelined step): not ported to the "
-            "distributed step yet: ROADMAP queue 1.10")
     if settings.grad_dtype not in sh.FLOAT_DTYPES:
         raise ValueError(f"grad_dtype must be one of "
                          f"{sorted(sh.FLOAT_DTYPES)}, got "
@@ -286,50 +289,47 @@ def _scatter_dims(cfg: ModelConfig, mesh, settings: TrainSettings) -> dict:
     return dims if settings.fsa else tree_map(lambda d: -1, dims)
 
 
-def _axis_size(mesh, name: str) -> int:
-    """The size of the mesh's axis ``name`` (1 where it has none)."""
-    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    return int(mesh.size(names.index(name))) if name in names else 1
-
-
 def _rank(mesh) -> int:
     """This rank's place on the data axis: its aggregator index."""
     return dist.get_rank(mesh.get_group("data"))
 
 
-def _model_rank(mesh) -> int:
-    """This rank's place on the model axis (0 without one)."""
-    if _axis_size(mesh, "model") == 1:
-        return 0
-    return dist.get_rank(mesh.get_group("model"))
+def store_cuts(cfg: ModelConfig, mesh,
+               settings: TrainSettings = TrainSettings()) -> list:
+    """Each leaf's chain of cuts to this rank's store piece, in flatten
+    order (``sharding.composite_box``): its stage's rows on the pipe axis,
+    its model position's TP shard, then its aggregator's segment at the
+    scatter dim (none with ``fsa=False``), each ``(dim, parts, index)``."""
+    n_client, aidx = sh.client_count(mesh), _rank(mesh)
+    tp, midx = sh.axis_size(mesh, "model"), sh.axis_rank(mesh, "model")
+    pp, pidx = sh.axis_size(mesh, "pipe"), sh.axis_rank(mesh, "pipe")
+    return [((pd, pp, pidx), (s.dim, tp, midx), (d, n_client, aidx))
+            for pd, s, d in zip(tree_leaves(sh.pipe_dims(cfg, pp)),
+                                tree_leaves(sh.tp_specs(cfg, tp)),
+                                tree_leaves(_scatter_dims(cfg, mesh,
+                                                          settings)))]
 
 
 def store_params(params: dict, cfg: ModelConfig, mesh,
                  settings: TrainSettings = TrainSettings()) -> dict:
     """This rank's ``params_stored``: each leaf of the full ``params`` cut
-    to its model position's TP shard, then to this aggregator's store
-    segment of that under FSA (whole where the scatter dim is -1, and
-    everywhere with ``fsa=False``).  The shards are copies, so the full
-    tree can be freed."""
-    n_client = sh.client_count(mesh)
-    aidx = _rank(mesh)
-    tp, midx = _axis_size(mesh, "model"), _model_rank(mesh)
-    specs = sh.tp_specs(cfg, tp)
-    dims = _scatter_dims(cfg, mesh, settings)
-    return tree_map(
-        lambda x, s, d: (
-            sh.composite_store_shard(x, s, tp, midx, d, n_client,
-                                     aidx).clone()
-            if (d >= 0 and n_client > 1) or (s.dim >= 0 and tp > 1)
-            else x), params, specs, dims)
+    to its stage's rows and its model position's TP shard, then to this
+    aggregator's store segment of that under FSA (whole where the scatter
+    dim is -1, and everywhere with ``fsa=False``).  The pieces are copies,
+    so the full tree can be freed."""
+    return tree_unflatten(params, [
+        sh.cut_piece(x, cuts).clone()
+        if any(d >= 0 and n > 1 for d, n, _ in cuts) else x
+        for x, cuts in zip(tree_leaves(params),
+                           store_cuts(cfg, mesh, settings))])
 
 
 def abstract_train_state(cfg: ModelConfig, mesh, opt: Optimizer,
                          settings: TrainSettings = TrainSettings()):
     """Meta tensors (shape and dtype, no storage) of this rank's
     ``(params_stored, opt_state, dsc_ref)``: the reference's
-    ``ShapeDtypeStruct``s cut to one position (store shards of the
-    TP-local leaves; adam's step count and the buffer's w and t
+    ``ShapeDtypeStruct``s cut to one position (store shards of the pipe-
+    and TP-local leaves; adam's step count and the buffer's w and t
     replicated)."""
     n_client = sh.client_count(mesh)
     dtype = sh.FLOAT_DTYPES[cfg.dtype]
@@ -344,8 +344,9 @@ def abstract_train_state(cfg: ModelConfig, mesh, opt: Optimizer,
 
 def _dsc_tree(full: dict, stored: dict, settings: TrainSettings, device):
     """This rank's DSC state: its own client shift s_k (a ``(1, *shape)``
-    block of the client-stacked global, TP-local leaf shapes) and s_agg on its
-    own store segments; without DSC a tree of f32 scalar placeholders.
+    block of the client-stacked global, pipe- and TP-local leaf shapes)
+    and s_agg on its own store segments; without DSC a tree of f32 scalar
+    placeholders.
     With ``async_buffer`` that tree is ``{"dsc": ..., "buffer": {"u", "w",
     "t"}}``: the FedBuff accumulator u, f32 in the store layout (each rank
     buffers its own segments), and the replicated weight w (f32) and round
@@ -680,8 +681,10 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
     segments of the model group's ranks concatenated in rank order (every
     rank of the group returns the same).
 
-    On a (data, model) mesh every piece above is TP-local: this rank's
-    model position's shard, cut as :func:`store_params` cuts it.
+    On a (data, pipe, model) mesh every piece above is pipe- and
+    TP-local: this rank's stage's rows of its model position's shard, cut
+    as :func:`store_params` cuts it.  The batch is the client group's
+    whole: the pipelined loss slices it into ``settings.microbatches``.
 
     The tensors live on ``device``, the CUDA card unless the caller asks
     for the CPU.  ``mark(name)``, when given, is called as each part of
@@ -694,13 +697,19 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
     device = resolve_device(device)
     wire = _Wire(mesh)
     n_client, aidx = wire.n, wire.aidx
-    model_size = _axis_size(mesh, "model")
+    model_size = sh.axis_size(mesh, "model")
     plan = tr.tp_plan(cfg, model_size)
     use_tp = plan.active
     mgroup = mesh.get_group("model") if model_size > 1 else None
-    midx = _model_rank(mesh)
+    midx = sh.axis_rank(mesh, "model")
     tp_rt = tr.TPRuntime(mgroup, model_size, midx, plan) if use_tp else None
+    pipe_size = sh.axis_size(mesh, "pipe")
+    pplan = sp.build_pipeline_plan(cfg, pipe_size, settings.microbatches)
+    pipe_rt = (sp.PipeRuntime(mesh.get_group("pipe"), pipe_size,
+                              sh.axis_rank(mesh, "pipe"), pplan)
+               if pplan.active else None)
     specs = tree_leaves(sh.tp_specs(cfg, model_size))
+    pdims = tree_leaves(sh.pipe_dims(cfg, pipe_size))
     dims = tree_leaves(_scatter_dims(cfg, mesh, settings))
     shapes = sh.local_shapes(cfg, mesh)
     grad_dtype = sh.FLOAT_DTYPES[settings.grad_dtype]
@@ -724,7 +733,7 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
         rows = next(iter(torch.as_tensor(x).shape[0]
                          for x in batch.values()
                          if torch.as_tensor(x).dim() > 0))
-        return (not use_tp and model_size > 1
+        return (not use_tp and pipe_rt is None and model_size > 1
                 and rows % (n_client * model_size) == 0)
 
     def local_batch(batch: dict, split: bool) -> dict:
@@ -931,16 +940,21 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
                   for (box, name), d, shape in zip(slots, dims, shapes)]
 
         # 2. this client group's gradient (on the model axis: its shard's,
-        # the partial leaves summed over the model group)
+        # the partial leaves summed over the model group; on the pipe
+        # axis: its stage's, through the wavefront, then the pipe-
+        # replicated leaves summed over the stages)
         note("gradient")
         split = model_split(batch)
         with torch.enable_grad():
-            loss = tr.loss_fn(tree_unflatten(params_stored, leaves), cfg,
-                              local_batch(batch, split), tp=tp_rt)
+            loss = tr.pipeline_loss_fn(
+                tree_unflatten(params_stored, leaves), cfg,
+                local_batch(batch, split), tp=tp_rt, pipe=pipe_rt)
             grads = list(torch.autograd.grad(loss, leaves))
         del leaves
         if use_tp:
             grads = sh.tp_grad_sync(grads, specs, tp_rt)
+        if pipe_rt is not None:
+            grads = sh.pipe_grad_sync(grads, pdims, pipe_rt)
         lsum = wire.all_reduce(loss.detach().float().reshape(1))
         if split:
             # the model axis as data parallelism inside the group: the
@@ -1001,7 +1015,7 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
         if apply:
             sq, new_state = _optimize(opt, slots, opt_state, out)
         del out
-        gn2 = (_norm_sq(sq, specs, tp_rt) if sq
+        gn2 = (_norm_sq(sq, specs, pdims, tp_rt, pipe_rt) if sq
                else torch.zeros((), dtype=torch.float32, device=device))
         if settings.fsa:
             gn2 = wire.all_reduce(gn2.reshape(1))[0]
@@ -1014,22 +1028,28 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
     return step
 
 
-def _norm_sq(sq: list, specs: list, tp) -> torch.Tensor:
+def _norm_sq(sq: list, specs: list, pdims: list, tp, pipe) -> torch.Tensor:
     """This rank's share of the squared grad norm: the leaves' squared
-    sums added in order; on a model axis (``tp``) bucketed by the axes a
-    leaf is sharded over, the TP-sharded bucket summed over the model
-    group and the replicated one counted once (the reference's
-    ``:704-721``)."""
-    if tp is None:
+    sums added in order; on a model axis (``tp``) or a pipe axis
+    (``pipe``) bucketed by the axes a leaf is split over, (model?,
+    pipe?), each bucket summed over the model group, then over the pipe
+    group, and the bucket of leaves split over neither counted once (the
+    reference's ``:704-721``, its buckets in order of first use)."""
+    if tp is None and pipe is None:
         return sum(sq)
     zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
     buckets: dict = {}
-    for x, s in zip(sq, specs):
-        buckets[s.dim >= 0] = buckets.get(s.dim >= 0, zero) + x
+    for x, s, pd in zip(sq, specs, pdims):
+        axes = ((tp is not None and s.dim >= 0),
+                (pipe is not None and pd >= 0))
+        buckets[axes] = buckets.get(axes, zero) + x
     gn2 = zero
-    for sharded, tot in buckets.items():
-        gn2 = gn2 + (cl.all_reduce(tot.reshape(1), tp.group)[0] if sharded
-                     else tot)
+    for (on_model, on_pipe), tot in buckets.items():
+        if on_model:
+            tot = cl.all_reduce(tot.reshape(1), tp.group)[0]
+        if on_pipe:
+            tot = cl.all_reduce(tot.reshape(1), pipe.group)[0]
+        gn2 = gn2 + tot
     return gn2
 
 
@@ -1061,10 +1081,11 @@ def _optimize(opt: Optimizer, slots: list, opt_state, out: list):
 
 
 def main(argv=None):  # pragma: no cover - thin CLI over the factories
-    """CLI: distributed FSA training, one process per data-axis rank.
+    """CLI: distributed FSA training, one process per mesh position.
 
         torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
-            --device cpu --smoke --steps 20
+            --device cpu --smoke --steps 20 [--pp 2 --microbatches 2] \\
+            [--save DIR]
     """
     import argparse
     import time
@@ -1090,14 +1111,11 @@ def main(argv=None):  # pragma: no cover - thin CLI over the factories
                     help="1F1B microbatch count (must divide --batch)")
     ap.add_argument("--save", default=None, metavar="DIR",
                     help="write the final params as a sharded checkpoint "
-                         "directory (the reference's msgpack format)")
+                         "directory (the reference's msgpack format; the "
+                         "ServeEngine.from_checkpoint handoff)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.save and args.model_axis > 1:
-        raise NotImplementedError(
-            "--save with --model-axis > 1: the sharded checkpoint of a "
-            "model-axis store layout is not ported yet: ROADMAP queue 1.10")
     device = init_process_group(args.device)
     try:
         cfg = get_config(args.arch)
@@ -1129,7 +1147,7 @@ def main(argv=None):  # pragma: no cover - thin CLI over the factories
         if args.save:
             from repro_torch.checkpoint import msgpack_ckpt as ck
             ck.save_sharded(args.save, params,
-                            dims=_scatter_dims(cfg, mesh, settings))
+                            cuts=store_cuts(cfg, mesh, settings))
             if lead:
                 print(f"saved sharded checkpoint -> {args.save}", flush=True)
     finally:

@@ -246,6 +246,12 @@ class _Shift(torch.autograd.Function):
         return (None, *cl.ring_shift(list(cts), ctx.tp.group, -1))
 
 
+def shift_next(x, rt):
+    """``ppermute`` of ``x`` one place forward around ``rt``'s group (a
+    ``TPRuntime`` or a ``PipeRuntime``): the pipeline's boundary send."""
+    return _Shift.apply(rt, x)[0]
+
+
 def ring_attention(q, k, v, tp, *, window: Optional[int] = None):
     """Causal GQA attention over sequence chunks rotated around the ring.
 

@@ -256,8 +256,9 @@ class PipelinePlan:
     """What the ``pipe`` axis shards for one config (static): ``size``
     contiguous stages of ``layers_per_stage`` layers each, stage s owning
     rows [s lps, (s + 1) lps) of every block leaf's stacked dim 0; the
-    other leaves replicate over ``pipe``.  The pipelined step itself is
-    ROADMAP queue 1.10."""
+    other leaves replicate over ``pipe``.  ``microbatches`` slices the
+    batch for ``transformer.pipeline_loss_fn``'s wavefront of
+    m + p - 1 ticks."""
 
     size: int = 1
     n_layers: int = 0
@@ -280,8 +281,9 @@ class PipelinePlan:
 
 
 class PipeRuntime(NamedTuple):
-    """The pipe axis of one step: its process group, size, this rank's
-    stage, and the plan."""
+    """The pipe axis of one step: its process group (the stage ring that
+    ``layers``' shift and ``tp_pull`` run over), size, this rank's stage,
+    and the plan."""
 
     group: Any
     size: int

@@ -32,6 +32,11 @@ where heads do not divide, the sharded FFN, the channel-sharded mamba
 head and the head-sharded mLSTM, the vocab-parallel embedding and the CE
 on vocab-sharded logits, the expert-parallel MoE, and sequence
 parallelism.  The collectives are ``models/layers``' conjugates.
+
+The pipe axis (``pipe``, a :class:`PipeRuntime`): ``pipeline_loss_fn``
+runs this rank's stage, the block rows it holds, over the reference's
+1F1B wavefront of m + p - 1 ticks, the carry shipped one stage forward
+each tick.
 """
 from __future__ import annotations
 
@@ -49,8 +54,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.shard_plan import (TPPlan, TPRuntime,  # noqa: F401
-                                           tp_plan)
+from repro_torch.models.shard_plan import (PipeRuntime,  # noqa: F401
+                                           TPPlan, TPRuntime, tp_plan)
 
 # the dtypes the paged kernel takes, for params and for the cache
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -576,23 +581,30 @@ def _forward(params, cfg, tokens, window, mode: str, inputs_embeds,
                           torch.zeros((), device=x.device)))
         if mode == "prefill":
             caches.append(cache)
-    # seq_ce (ssm, hybrid, whose residual stream stays replicated): the
-    # final norm on this rank's chunk, entered by a slice whose backward
-    # assembles the chunks' cotangents, left into the unembed by the
-    # sequence gather (reduce-scatter backward): ln_f's gradient partial
+    logits = _unembed(params, cfg, x, tp, seq, mode)
+    # the reference's scan stacks each layer's load_balance and means it
+    return (logits, _stack(caches) if mode == "prefill" else None,
+            {"load_balance": torch.stack(lb).mean()})
+
+
+def _unembed(params, cfg, x, tp, seq: bool, mode: str = "train"):
+    """The forward's tail from the residual stream to the logits: the
+    final norm, and under a vocab plan the column-parallel unembed's
+    entry; shared by ``forward`` and ``pipeline_loss_fn``'s last stage.
+
+    seq_ce (ssm, hybrid, whose residual stream stays replicated): the
+    final norm on this rank's chunk, entered by a slice whose backward
+    assembles the chunks' cotangents, left into the unembed by the
+    sequence gather (reduce-scatter backward): ln_f's gradient partial."""
     seq_ce = (tp is not None and tp.plan.seq_ce and not seq
               and mode == "train" and x.shape[1] % tp.size == 0)
     if seq_ce:
         x = L.ctx_enter(x, tp)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     if tp is not None and tp.plan.vocab:
-        # the column-parallel unembed
         x = (L.tp_seq_gather(x, tp, 1) if (seq or seq_ce)
              else L.tp_enter(x, tp, _ring(cfg, tp)))
-    logits = x @ _head(params, cfg)
-    # the reference's scan stacks each layer's load_balance and means it
-    return (logits, _stack(caches) if mode == "prefill" else None,
-            {"load_balance": torch.stack(lb).mean()})
+    return x @ _head(params, cfg)
 
 
 def _stack(trees: list):
@@ -671,6 +683,97 @@ def _ce(cfg: ModelConfig, logits, tokens, loss_mask, tp=None):
         m = loss_mask[:, 1:]
         return (nll * m).sum() / torch.clamp(m.sum(), min=1)
     return nll.mean()
+
+
+def pipeline_loss_fn(params: dict, cfg: ModelConfig, batch: dict,
+                     window: Optional[int] = None,
+                     tp: Optional[TPRuntime] = None,
+                     pipe: Optional[PipeRuntime] = None) -> torch.Tensor:
+    """Causal LM loss with the layer stack split into ``pipe.plan.size``
+    contiguous stages and the batch into ``pipe.plan.microbatches``
+    slices (``:651-758``); without an active pipe plan, ``loss_fn``.
+
+    ``params["blocks"]`` holds this stage's L/p layer rows, every other
+    leaf whole.  The m + p - 1 wavefront ticks each ship the carry one
+    stage forward (``layers.shift_next``), inject on stage 0 the
+    embedding of microbatch clip(t, 0, m - 1), run this stage's rows, and
+    take the CE of microbatch clip(t - (p - 1), 0, m - 1), which entered
+    p - 1 ticks earlier.  Autograd replays the wavefront in reverse, the
+    interleaved 1F1B order of ``shard_plan.pipeline_schedule``.
+
+    Every stage runs the same program, so that every rank calls the same
+    collectives in the same order both ways: the injection and the CE run
+    on every stage at every tick and are selected by ``torch.where`` on
+    tensor conditions (the reference's ``valid_here`` and ``valid_out``),
+    never by a branch on the stage; tick 0 ships a zero carry with no
+    gradient on every stage.  The loss is the last stage's sum of
+    per-microbatch means, assembled over the pipe group by ``tp_pull``
+    (each stage's backward gets the same 1/m) and divided by m; for moe
+    the load-balance term is each stage's valid ticks' layer means summed
+    over the pipe group, / (p m).  With a ``loss_mask``, or for moe, that
+    is not ``loss_fn``'s value: the reference's ``pipeline_loss_fn``
+    defines it.
+
+    The carry is the embedding's dtype (the reference's is the config's:
+    a bf16 config's f32 params after adam would change its scan's carry
+    type) and (mb, (S + n_pre) / tp, D) under a sequence-parallel plan.
+    The reference remats its block body; recomputing changes no value, so
+    the port keeps the activations."""
+    if pipe is None or not pipe.plan.active:
+        return loss_fn(params, cfg, batch, window, tp)
+    p, m = pipe.plan.size, pipe.plan.microbatches
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if B % m != 0:
+        raise ValueError(f"batch {B} not divisible by microbatches {m}")
+    mb = B // m
+    seq = tp is not None and tp.plan.seq
+    tok_mb = tokens.reshape(m, mb, S)
+    mask = batch.get("loss_mask")
+    mask_mb = mask.reshape(m, mb, S) if mask is not None else None
+    fe = batch.get("frontend_embeds")
+    fe_mb = fe.reshape(m, mb, *fe.shape[1:]) if fe is not None else None
+    n_pre = cfg.n_frontend_tokens if cfg.frontend == "vlm" else 0
+    S_h = (S + n_pre) // (tp.size if seq else 1)      # the carry's length
+    dev = tokens.device
+    positions = torch.arange(S + n_pre, device=dev).expand(mb, S + n_pre)
+    stage = pipe.index
+    layers = _layers(params)
+
+    def flag(cond: bool) -> torch.Tensor:
+        return torch.tensor(cond, device=dev)
+
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    x_prev = torch.zeros((mb, S_h, cfg.d_model),
+                         dtype=params["embed"].dtype, device=dev)
+    loss_sum, lb_sum = zero, zero
+    for t in range(m + p - 1):
+        # the boundary send: last tick's activation, one stage forward
+        recv = L.shift_next(x_prev, pipe)
+        j_in = min(max(t, 0), m - 1)
+        inj = embed_inputs(params, cfg, tok_mb[j_in],
+                           fe_mb[j_in] if fe_mb is not None else None, tp)
+        x = torch.where(flag(stage == 0), inj, recv)
+        lbs = []
+        for lp in layers:
+            x, _, aux = _block(cfg, lp, x, positions, window, "train", tp=tp)
+            lbs.append(aux.get("load_balance", zero))
+        # stage s holds microbatch t - s at ticks s <= t < s + m
+        valid_here = flag(stage <= t < stage + m)
+        lb_sum = lb_sum + torch.where(valid_here, torch.stack(lbs).mean(),
+                                      zero)
+        # what leaves the last stage now entered p - 1 ticks ago
+        j_out = min(max(t - (p - 1), 0), m - 1)
+        logits = _unembed(params, cfg, x, tp, seq)
+        nll = _ce(cfg, logits, tok_mb[j_out],
+                  mask_mb[j_out] if mask_mb is not None else None, tp)
+        valid_out = flag(stage == p - 1 and p - 1 <= t < p - 1 + m)
+        loss_sum = loss_sum + torch.where(valid_out, nll, zero)
+        x_prev = x
+    loss = L.tp_pull(loss_sum, pipe) / m
+    if cfg.family == "moe":
+        loss = loss + 0.01 * L.tp_pull(lb_sum, pipe) / (p * m)
+    return loss
 
 
 # ================================================================= decode

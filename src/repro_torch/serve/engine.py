@@ -403,6 +403,23 @@ class ServeEngine:
             "block_capacity": self.allocator.capacity,
         }
 
+    @classmethod
+    def from_checkpoint(cls, path, cfg: ModelConfig,
+                        settings: ServeSettings = ServeSettings(),
+                        device: DeviceLike = None) -> "ServeEngine":
+        """Serve a ``launch/train.py --save`` artifact (a sharded msgpack
+        directory, whatever (data, pipe, model) mesh wrote it, or a
+        single-file checkpoint): the store->use handoff.  Its whole
+        leaves are restored against the config's parameter shapes, in the
+        dtype they were saved in, straight onto ``device``."""
+        from repro_torch.checkpoint import msgpack_ckpt as ck
+        from repro_torch.dist.sharding import shape_tree
+        target = shape_tree(cfg, lambda shape: torch.empty(shape,
+                                                           device="meta"))
+        device = resolve_device(device)
+        params = ck.restore_any(path, target, device=device)
+        return cls(cfg, params, settings, device=device)
+
 
 def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):

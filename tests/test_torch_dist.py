@@ -317,7 +317,8 @@ def test_make_host_mesh(group, monkeypatch):
     validation messages (its device-count hint names torchrun here);
     ``model > 1`` lays a 2-D ``("data", "model")`` mesh, model minor-most
     (built for real over gloo ranks in ``tests/test_torch_tp_step.py``);
-    ``pipe > 1`` raises naming queue 1.10."""
+    ``pipe > 1`` lays the 3-D ``("data", "pipe", "model")`` mesh (built
+    for real in ``tests/test_torch_pipe_step.py``)."""
     mesh = mesh_lib.make_host_mesh(device="cpu")
     assert mesh.mesh_dim_names == ("data",) and sh.client_count(mesh) == 1
     for kw in (dict(data=2), dict(pipe=0), dict(model=2)):
@@ -328,36 +329,29 @@ def test_make_host_mesh(group, monkeypatch):
         head = str(ref_err.value).split("raise the device count")[0]
         assert str(err.value).startswith(head.split(" or ")[0]), kw
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 4)
-    for kw in (dict(pipe=2), dict(model=2, pipe=2)):
-        with pytest.raises(NotImplementedError, match="queue 1.10"):
-            mesh_lib.make_host_mesh(device="cpu", **kw)
     import torch.distributed.device_mesh as dm
     laid = []
     monkeypatch.setattr(dm, "init_device_mesh",
                         lambda *a, **k: laid.append((a, k)) or "mesh")
     assert mesh_lib.make_host_mesh(device="cpu", model=2) == "mesh"
     assert mesh_lib.make_host_mesh(device="cpu", data=1, model=4) == "mesh"
+    for kw in (dict(pipe=2), dict(model=2, pipe=2)):
+        assert mesh_lib.make_host_mesh(device="cpu", **kw) == "mesh"
+    three = {"mesh_dim_names": ("data", "pipe", "model")}
     assert laid == [(("cpu", (2, 2)), {"mesh_dim_names": ("data", "model")}),
-                    (("cpu", (1, 4)), {"mesh_dim_names": ("data", "model")})]
+                    (("cpu", (1, 4)), {"mesh_dim_names": ("data", "model")}),
+                    (("cpu", (2, 2, 1)), three), (("cpu", (1, 2, 2)), three)]
 
 
-UNPORTED = [
-    ("microbatches", dict(microbatches=2), "1.10"),
-]
 UNPORTED_CALLS = [
     ("lower_train_step", lambda: train.lower_train_step(None, None), "1.12"),
     ("make_production_mesh", lambda: mesh_lib.make_production_mesh(),
-     "1.10"),
-] + [(name, functools.partial(getattr(sh, name), (4, 4), None, 2), "1.10")
-     for name in ("pipe_dims", "pipe_local_shape", "pipe_grad_sync")]
+     "1.12"),
+]
 
 
-@pytest.mark.parametrize("what,call,queue",
-                         [(n, (lambda f=f: train.make_train_step(
-                             get_config("qwen2-0.5b").smoke(), None,
-                             opt_lib.sgd(0.1), train.TrainSettings(**f))), q)
-                          for n, f, q in UNPORTED] + UNPORTED_CALLS,
-                         ids=[n for n, _, _ in UNPORTED + UNPORTED_CALLS])
+@pytest.mark.parametrize("what,call,queue", UNPORTED_CALLS,
+                         ids=[n for n, _, _ in UNPORTED_CALLS])
 def test_unported_paths_name_their_queue(what, call, queue):
     """Each knob and entry point the port does not run yet raises
     NotImplementedError naming its ROADMAP queue."""
@@ -367,7 +361,7 @@ def test_unported_paths_name_their_queue(what, call, queue):
 
 def test_capture_views_with_a_pipe_axis_is_the_references_error():
     """The tap refuses a pipe axis with the reference's words (meshes
-    stubbed: the port's have no pipe axis yet)."""
+    stubbed)."""
     ref_mesh_stub = types.SimpleNamespace(
         axis_names=("data", "pipe"), devices=np.zeros((1, 2)),
         shape={"data": 1, "pipe": 2})
@@ -620,6 +614,20 @@ def test_one_rank_step_matches_reference(group):
     assert [x.shape for x in tree_leaves(dsc_ref["s_clients"])] == [
         (1, *x.shape) for x in pp]
     assert int(state.t) == 2 and state.t.dtype == torch.int32
+
+
+def test_microbatches_without_a_pipe_axis_are_the_references(group):
+    """``microbatches > 1`` on a mesh with no pipe axis: the reference's
+    inactive pipeline plan ignores the count, and so does the port: two
+    sgd steps at microbatches 2 on the one-rank gloo group against the
+    reference's step on one device, params within 1e-5 of the motion,
+    losses and grad norms within 1e-5."""
+    p0, (rp, _, _, rm), (pp, _, _, pm) = _one_rank_runs(
+        dict(grad_dtype="float32", microbatches=2), 2)
+    want, got = _flat(rp), _flat(pp)
+    assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(
+        want - _flat(p0))
+    np.testing.assert_allclose(pm, rm, rtol=1e-5, atol=0)
 
 
 # ------------------------------------------------------------ checkpoints
