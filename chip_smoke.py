@@ -13,9 +13,10 @@ hymba-1.5b trained, beam-searched and in ERIS rounds, internvl2-26b at
 reduced depth), the model axis (tensor, context and expert
 parallelism: ranks sharing the card over gloo), and the pipe axis (the
 1F1B wavefront over gloo ranks, its composite checkpoint served through
-``ServeEngine.from_checkpoint``), on one NVIDIA card.
+``ServeEngine.from_checkpoint``), and serving over a (data, model) mesh
+of gloo ranks, on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--only 16 17]
+    python3 chip_smoke.py [--seed 0] [--only 16 17 18]
 
 ``--only`` runs the device, the build and the named multi-rank phases
 alone, and prints no result line.
@@ -32,7 +33,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and dk/dv) and of the paged kernel.
 3. kernel vs plain version -- ``paged_attention`` (split over 64-position
    chunks) against ``paged_attention_ref`` on the card at (H, KV, hd) =
-   (16, 16, 128) and (14, 2, 64), f32 and bf16, with and without a window,
+   (16, 16, 128) and (14, 2, 64) and at a model-2 rank's (8, 8, 128) and
+   (7, 1, 64), f32 and bf16, with and without a window,
    a ctx-0 row and ragged contexts over several pages, then contexts up
    to 2048 over 128 pages (up to 32 chunks, merged); every row of batch 8
    must be bit-identical to the same row alone, with a table only as wide
@@ -307,8 +309,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     the flash kernels), the same gates; the smoke int8 step at (data 2,
     pipe 2) on the card and the host within 1e-6.  The launches of the
     pipelined gradients, the steps and the serving join the kernels
-    line.
-18. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+    line.  The checkpoint stays on disk for phase 18.
+18. serving over a ("data", "model") mesh, ranks as in phase 16: first
+    the paged kernel timed at a rank's heads at model 2 (eris-gptneo-1.3b
+    8 over 8, qwen2-0.5b 7 over 1), bf16, and held to the plain version
+    within phase 3's bound.  (a) four ranks at (data 2, model 2):
+    eris-gptneo-1.3b at full width and depth, f32 params (drawn from
+    ``--seed`` by torch's generator on the card) and pools, 8 requests
+    of 32-128 prompt and 16 new tokens, every third
+    sampled; rank 0 serves them meshless first on the same params, and
+    every rank's mesh tokens must equal those; the manual path (each data
+    position four slots), the paged kernel 24 times a decode step on
+    each rank, its first call with a live row held to the plain version
+    at (8, 8, 128) (the vocab, 50,257, does not divide: replicated).
+    (b) the same for qwen2-0.5b (7 heads over 1 kv head a rank at (7, 1,
+    64), the vocab sharded).  (d) olmoe-1b-7b's smoke config at (2, 2),
+    expert parallel, card vs host tokens.  (c) two ranks at (data 1,
+    model 2): eris-gptneo-1.3b in bf16, the meshless engine's first
+    decode step replayed through the TP step (logits within phase 4's
+    3e-2), then the requests served: decode step ms by CUDA events and
+    the collectives each step issues, every logit finite.  (e) ``from_checkpoint(...,
+    mesh=)`` at (1, 2) from phase 17's checkpoint (its 4 greedy
+    requests; tokens equal to phase 17's meshless ``from_checkpoint``),
+    or, under ``--only 18``, from a smoke checkpoint saved there.  Every
+    rank's paged launches join the kernels line.
+19. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -543,7 +568,9 @@ def _inputs(gen, dev, B, H, KV, hd, bs, P, ctx, qdt, kvdt, n_pools=1):
 
 
 def kernel_cases(dev, seed):
-    """Kernel vs plain version at the listed shapes, over short contexts
+    """Kernel vs plain version at the listed shapes (eris-gptneo-1.3b's
+    and qwen2-0.5b's (heads, kv heads, head dim), whole and at one model
+    position of two, as the serving mesh cuts them), over short contexts
     (one or a few 64-position chunks) and long ones (up to 32 chunks, so
     the merge of the chunks' partials runs); then a CUDA graph of the
     kernel replayed against an eager call.  Returns the largest absolute
@@ -557,7 +584,8 @@ def kernel_cases(dev, seed):
                 (128, [0, 63, 65, 700, 1024, 1500, 2047, 128 * bs]))
     worst = 0.0
     for P, ctx in contexts:
-        for H, KV, hd in ((16, 16, 128), (14, 2, 64)):
+        for H, KV, hd in ((16, 16, 128), (14, 2, 64), (8, 8, 128),
+                          (7, 1, 64)):
             for window in (None, 40 if P < 100 else 1000):
                 for qdt, kvdt in ((torch.float32, torch.float32),
                                   (torch.bfloat16, torch.bfloat16),
@@ -647,12 +675,16 @@ def _graph_ms(fn, n: int) -> float:
 PAGED_FIRST_DESIGN_US = {"eris-gptneo-1.3b": 21.42}
 
 
-def decode_shape_timing(dev, seed, cfg, ctx, block_size):
+def decode_shape_timing(dev, seed, cfg, ctx, block_size, model: int = 1):
     """The kernel and its plain version at a model's decode shape: batch 8
     at the given contexts, one layer's pools out of n_layers so that,
-    as in the decode step, each call finds its pool cold in L2."""
+    as in the decode step, each call finds its pool cold in L2.  With
+    ``model`` > 1, at one model position's heads (its share of the heads
+    and of the kv heads, as the serving mesh cuts them).  The timed call
+    is held to the plain version within phase 3's bf16 bound."""
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    B, H, KV, hd = len(ctx), cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, hd = len(ctx), cfg.hd
+    H, KV = cfg.n_heads // model, cfg.n_kv_heads // model
     P = max(pages_for(c, block_size) for c in ctx)
     q, kp, vp, tbl, c = _inputs(gen, dev, B, H, KV, hd, block_size, P, ctx,
                                 torch.bfloat16, torch.bfloat16,
@@ -660,7 +692,11 @@ def decode_shape_timing(dev, seed, cfg, ctx, block_size):
     Lyr = cfg.n_layers
     out = pa.paged_attention(q, kp[0], vp[0], tbl, c)
     ref = pa.paged_attention_ref(q, kp[0], vp[0], tbl, c)
-    err = float((out.float() - ref.float()).abs().max())
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    check(bool((diff <= TOL_BF16 + TOL_BF16 * ref.float().abs()).all()),
+          f"{cfg.name} at model {model}: kernel disagrees with the plain "
+          f"version at H={H} KV={KV} hd={hd} ctx={ctx}: max err {err}")
     ms = _graph_ms(lambda i: pa.paged_attention(q, kp[i % Lyr], vp[i % Lyr],
                                                 tbl, c), 4 * Lyr)
     plain_ms = _graph_ms(lambda i: pa.paged_attention_ref(
@@ -674,8 +710,9 @@ def decode_shape_timing(dev, seed, cfg, ctx, block_size):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    was = PAGED_FIRST_DESIGN_US.get(cfg.name)
-    print(f"  {cfg.name} decode shape B={B} H={H} KV={KV} hd={hd} "
+    was = PAGED_FIRST_DESIGN_US.get(cfg.name) if model == 1 else None
+    where = cfg.name + (f" at model {model}" if model > 1 else "")
+    print(f"  {where} decode shape B={B} H={H} KV={KV} hd={hd} "
           f"bs={block_size} ctx={ctx}: kernel {ms * 1e3:.2f} us (first "
           f"design: {'not timed' if was is None else f'{was:.2f} us'}), "
           f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by "
@@ -4025,44 +4062,64 @@ def _tp_step(dev, seed, rank) -> dict:
     return dict(losses=losses, ms=ms, peak_gb=peak, launches=launches)
 
 
-def _tp_smoke(dev, seed, rank) -> dict:
-    """The smoke variant in f32 at (data 2, model 2) on the int8 wire, two
-    sgd steps on the card and on the host (the same gloo groups) from the
-    same params and keys: params and losses within TRAIN_SMOKE_TOL."""
-    import torch.distributed as dist
-    from repro_torch.dist import collectives as cl
-    from repro_torch.launch import mesh as mesh_lib
+def _smoke_run(d, seed, mesh, settings) -> tuple:
+    """Two sgd steps of the smoke variant in f32 on device ``d`` over
+    ``mesh``'s gloo groups, from ``init_params(seed)`` and the keys 0 and
+    1.  Returns the rank's params after them, flat on the host, and the
+    losses."""
     from repro_torch.launch import train
     from repro_torch.optim import sgd
     cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
-    mesh = mesh_lib.make_host_mesh(data=2, model=2, device=dev)
-    settings = train.TrainSettings(grad_dtype="float32", int8_wire=True)
     toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
                             cfg.vocab)[0]
-    out = []
-    for d in (dev, torch.device("cpu")):
-        opt = sgd(TRAIN_SMOKE_LR)
-        step = train.make_train_step(cfg, mesh, opt, settings, device=d)
-        params = tree_map(lambda t: t.to(d), train.store_params(
-            tr.init_params(cfg, seed=seed, device="cpu"), cfg, mesh,
-            settings))
-        state = opt.init(params)
-        dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=d)
-        losses = []
-        for i in range(2):
-            params, state, dsc_ref, m = step(params, state, dsc_ref,
-                                             {"tokens": toks.to(d)},
-                                             random.PRNGKey(i))
-            losses.append(float(m["loss"]))
-        out.append((torch.cat([t.reshape(-1).float().cpu()
-                               for t in tree_leaves(params)]), losses))
-    (cx, closs), (hx, hloss) = out
+    opt = sgd(TRAIN_SMOKE_LR)
+    step = train.make_train_step(cfg, mesh, opt, settings, device=d)
+    params = tree_map(lambda t: t.to(d), train.store_params(
+        tr.init_params(cfg, seed=seed, device="cpu"), cfg, mesh, settings))
+    state = opt.init(params)
+    dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=d)
+    losses = []
+    for i in range(2):
+        params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                         {"tokens": toks.to(d)},
+                                         random.PRNGKey(i))
+        losses.append(float(m["loss"]))
+    return torch.cat([t.reshape(-1).float().cpu()
+                      for t in tree_leaves(params)]), losses
+
+
+def _smoke_steps(dev, seed, mesh, settings) -> tuple:
+    """:func:`_smoke_run` on the card and on the host.  Returns the
+    params' relative error card vs host over every rank's pieces, the
+    losses' largest, and the card's losses.  The host pass runs on one
+    thread: at the process's default, the ranks' host reductions split by
+    the load and the host's params move about 3e-7 (relative) from one
+    run to the next (``tools/smoke_repeat.py``); on one thread they
+    repeat bit for bit, as the card's do."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as cl
+    cx, closs = _smoke_run(dev, seed, mesh, settings)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    hx, hloss = _smoke_run(torch.device("cpu"), seed, mesh, settings)
+    torch.set_num_threads(threads)
     # the norms over every rank's pieces
     sums = cl.all_reduce(torch.stack([(cx - hx).square().sum(),
                                       hx.square().sum()]).double(),
                          dist.group.WORLD)
     rel = float(sums[0].sqrt() / sums[1].sqrt())
     lrel = max(abs(a - b) / abs(b) for a, b in zip(closs, hloss))
+    return rel, lrel, closs
+
+
+def _tp_smoke(dev, seed, rank) -> dict:
+    """The smoke variant at (data 2, model 2) on the int8 wire
+    (:func:`_smoke_steps`): params and losses within TRAIN_SMOKE_TOL."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    mesh = mesh_lib.make_host_mesh(data=2, model=2, device=dev)
+    settings = train.TrainSettings(grad_dtype="float32", int8_wire=True)
+    rel, lrel, _ = _smoke_steps(dev, seed, mesh, settings)
     if rank == 0:
         print(f"  smoke int8 at (data 2, model 2): 2 sgd steps, params card "
               f"vs host {rel:.3e}, losses {lrel:.3e} (tol "
@@ -4327,43 +4384,14 @@ def _pipe_step(dev, seed, rank, mesh, out_dir) -> dict:
 
 
 def _pipe_smoke(dev, seed, rank) -> dict:
-    """The smoke variant in f32 at (data 2, pipe 2) on the int8 wire, 2
-    microbatches, two sgd steps on the card and on the host (the same gloo
-    groups) from the same params and keys: params and losses within
+    """The smoke variant at (data 2, pipe 2) on the int8 wire, 2
+    microbatches (:func:`_smoke_steps`): params and losses within
     PIPE_SMOKE_TOL."""
-    import torch.distributed as dist
-    from repro_torch.dist import collectives as cl
     from repro_torch.launch import train
-    from repro_torch.optim import sgd
-    cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
     mesh = _pipe_mesh(dev, 2, 2, 1)
     settings = train.TrainSettings(grad_dtype="float32", int8_wire=True,
                                    microbatches=2)
-    toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
-                            cfg.vocab)[0]
-    out = []
-    for d in (dev, torch.device("cpu")):
-        opt = sgd(TRAIN_SMOKE_LR)
-        step = train.make_train_step(cfg, mesh, opt, settings, device=d)
-        params = tree_map(lambda t: t.to(d), train.store_params(
-            tr.init_params(cfg, seed=seed, device="cpu"), cfg, mesh,
-            settings))
-        state = opt.init(params)
-        dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=d)
-        losses = []
-        for i in range(2):
-            params, state, dsc_ref, m = step(params, state, dsc_ref,
-                                             {"tokens": toks.to(d)},
-                                             random.PRNGKey(i))
-            losses.append(float(m["loss"]))
-        out.append((torch.cat([t.reshape(-1).float().cpu()
-                               for t in tree_leaves(params)]), losses))
-    (cx, closs), (hx, hloss) = out
-    sums = cl.all_reduce(torch.stack([(cx - hx).square().sum(),
-                                      hx.square().sum()]).double(),
-                         dist.group.WORLD)
-    rel = float(sums[0].sqrt() / sums[1].sqrt())
-    lrel = max(abs(a - b) / abs(b) for a, b in zip(closs, hloss))
+    rel, lrel, closs = _smoke_steps(dev, seed, mesh, settings)
     if rank == 0:
         print(f"  smoke int8 at (data 2, pipe 2), microbatches 2: 2 sgd "
               f"steps, params card vs host {rel:.3e}, losses {lrel:.3e} "
@@ -4400,13 +4428,13 @@ def _pipe_rank(rank: int, world: int, port: int, part: str, seed: int,
     pathlib.Path(out_dir, f"{part}{rank}.json").write_text(json.dumps(res))
 
 
-def _pipe_serve(dev, seed, out_dir) -> int:
+def _pipe_serve(dev, seed, out_dir) -> tuple:
     """Serves 4 requests x 16 greedy tokens from (a)'s composite checkpoint
     through ``ServeEngine.from_checkpoint`` on the paged kernel, and from
     an engine built from the ranks' pieces merged here (stage 0's block
     rows, then stage 1's; the pipe-replicated leaves equal on both): the
-    tokens must be equal.  Returns the paged kernel's launches of the
-    checkpoint's engine."""
+    tokens must be equal.  Returns (the paged kernel's launches of the
+    checkpoint's engine, its tokens)."""
     from repro_torch.dist import sharding as sh
     cfg = dataclasses.replace(get_config("eris-gptneo-1.3b"),
                               dtype="float32")
@@ -4453,16 +4481,16 @@ def _pipe_serve(dev, seed, out_dir) -> int:
                                        for t in got),
           "pipe serve: the checkpoint's engine differs from the merged "
           "params' engine")
-    return launches
+    return launches, got
 
 
-def pipe_axis_phase(dev, seed) -> tuple:
+def pipe_axis_phase(dev, seed, out) -> tuple:
     """Phase 17: (a) two ranks, (b) four, each a ``torch.multiprocessing``
     launch of processes on cuda:0 over gloo groups, and serving from (a)'s
-    checkpoint in this process.  Returns (the paged kernel's launches, the
-    main path's other launches: the pipelined gradients and steps, summed
-    over ranks)."""
-    import tempfile
+    checkpoint in this process.  Its files go under ``out``: the
+    checkpoint stays there for phase 18.  Returns (the paged kernel's
+    launches, the main path's other launches: the pipelined gradients and
+    steps, summed over ranks, and the checkpoint's served tokens)."""
     import torch.multiprocessing as mp
     from repro_torch.launch import mesh as mesh_lib
     _expect_free_card("before the pipe axis")
@@ -4470,41 +4498,536 @@ def pipe_axis_phase(dev, seed) -> tuple:
           "groups: every boundary send and every collective of a CUDA "
           "tensor is staged through host buffers", flush=True)
     totals = {name: 0 for name in ROUND}
-    paged = 0
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
-        for part, world in (("a", 2), ("b", 4)):
-            t0 = time.monotonic()
-            mp.spawn(_pipe_rank, args=(world, mesh_lib.free_port(), part,
-                                       seed, out), nprocs=world, join=True)
-            ranks = [json.loads(pathlib.Path(out, f"{part}{r}.json")
-                                .read_text()) for r in range(world)]
-            check(all(r["backend"] == "gloo" for r in ranks),
-                  f"pipe axis ({part}): backends "
-                  f"{[r['backend'] for r in ranks]}")
-            print(f"  ({part}) {world} ranks in {time.monotonic() - t0:.1f} "
-                  f"s (each rank's own: "
-                  f"{[round(r['seconds'], 1) for r in ranks]})", flush=True)
-            print("pipe_axis " + json.dumps({part: ranks}), flush=True)
-            for r in ranks:
-                for case in r["cases"].values():
-                    for k, n in case["launches"].items():
-                        totals[k] += n
-                for k, n in r.get("step", {}).get("launches", {}).items():
+    paged, served = 0, None
+    for part, world in (("a", 2), ("b", 4)):
+        t0 = time.monotonic()
+        mp.spawn(_pipe_rank, args=(world, mesh_lib.free_port(), part,
+                                   seed, out), nprocs=world, join=True)
+        ranks = [json.loads(pathlib.Path(out, f"{part}{r}.json")
+                            .read_text()) for r in range(world)]
+        check(all(r["backend"] == "gloo" for r in ranks),
+              f"pipe axis ({part}): backends "
+              f"{[r['backend'] for r in ranks]}")
+        print(f"  ({part}) {world} ranks in {time.monotonic() - t0:.1f} "
+              f"s (each rank's own: "
+              f"{[round(r['seconds'], 1) for r in ranks]})", flush=True)
+        print("pipe_axis " + json.dumps({part: ranks}), flush=True)
+        for r in ranks:
+            for case in r["cases"].values():
+                for k, n in case["launches"].items():
                     totals[k] += n
-            if part == "a":
-                t0 = time.monotonic()
-                paged = _pipe_serve(dev, seed, out)
-                print(f"  (a) serving from the checkpoint in "
-                      f"{time.monotonic() - t0:.1f} s", flush=True)
-                gc.collect()
-                torch.cuda.empty_cache()
-    return paged, totals
+            for k, n in r.get("step", {}).get("launches", {}).items():
+                totals[k] += n
+        if part == "a":
+            t0 = time.monotonic()
+            paged, served = _pipe_serve(dev, seed, out)
+            print(f"  (a) serving from the checkpoint in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return paged, totals, served
+
+
+# ------------------------------------------------------------------ phase 18
+# Serving over a ("data", "model") mesh on one card, as phases 16-17 run
+# their ranks: processes on cuda:0 over gloo groups, every collective of a
+# CUDA tensor staged through the host.  (a) and (b) at (data 2, model 2),
+# four ranks: eris-gptneo-1.3b and qwen2-0.5b at full width and depth, f32
+# params and pools, each against the meshless engine on the same params,
+# then (d) olmoe-1b-7b's smoke config card vs host; (c) and (e) at (data 1,
+# model 2), two ranks: eris-gptneo-1.3b in bf16, timed, and serving from a
+# composite checkpoint (phase 17's when it ran, else one saved here at the
+# smoke size).
+SERVE_MESH_REQUESTS, SERVE_MESH_GEN = 8, 16
+SERVE_MESH_PROMPT = (32, 128)
+# (arch, the kernel's (heads, kv heads, head dim) on a rank at model 2)
+SERVE_MESH_FULL = (("eris-gptneo-1.3b", (8, 8, 128)),
+                   ("qwen2-0.5b", (7, 1, 64)))
+SERVE_MESH_SMOKE = "olmoe-1b-7b"
+SERVE_MESH_SMOKE_PROMPT, SERVE_MESH_SMOKE_GEN = (8, 24), 8
+
+
+class PagedCheck:
+    """Inside: the model's paged kernel calls go through a wrapper that
+    holds the first call with a live row to the plain version on the same
+    inputs (phase 3's tolerance).  The wrapper is put in the transformer's
+    view of the kernel module only, so the kernel's own launch counter
+    counts as always; the plain version launches nothing."""
+
+    def __init__(self):
+        self.err, self.shape, self.tol, self.ok = None, None, None, False
+
+    def __enter__(self):
+        import types
+        real = pa.paged_attention
+
+        def run(q, k_pool, v_pool, tables, ctx, **kw):
+            out = real(q, k_pool, v_pool, tables, ctx, **kw)
+            if self.err is None and bool((ctx > 1).any()):
+                ref = pa.paged_attention_ref(q, k_pool, v_pool, tables, ctx,
+                                             **kw)
+                self.tol = (TOL_F32 if k_pool.dtype == torch.float32
+                            else TOL_BF16)
+                err = (out.float() - ref.float()).abs()
+                self.ok = bool((err <= self.tol + self.tol * ref.float()
+                                .abs()).all())
+                self.err = float(err.max())
+                self.shape = (q.shape[1], k_pool.shape[1], q.shape[2])
+            return out
+
+        tr.pa = types.SimpleNamespace(paged_attention=run,
+                                      paged_attention_ref=
+                                      pa.paged_attention_ref)
+        return self
+
+    def __exit__(self, *exc):
+        tr.pa = pa
+
+
+class CollectiveCount(LogitSpy):
+    """A :class:`LogitSpy` that also counts the calls of every collective
+    of ``dist.collectives`` and keeps, for each ``paged_decode_step``,
+    how many it issued, the host ms spent inside them (a staged
+    collective first waits for the card's work before it) and the
+    step's own host ms."""
+
+    NAMES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+             "ring_shift")
+
+    def __init__(self):
+        super().__init__()
+        from repro_torch.dist import collectives as cl
+        self.cl, self.calls, self.coll_s = cl, 0, 0.0
+        self.per_step, self.coll_ms, self.host_ms = [], [], []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.cl, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(self.cl, n, self._counted(fn))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.cl, n, fn)
+        super().__exit__(*exc)
+
+    def _counted(self, fn):
+        def run(*a, **k):
+            self.calls += 1
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.coll_s += time.perf_counter() - t0
+            return out
+        return run
+
+    def _wrap(self, fn, kind):
+        timed = super()._wrap(fn, kind)
+        if kind != "decode":
+            return timed
+
+        def run(*a, **k):
+            calls, coll_s, t0 = self.calls, self.coll_s, time.perf_counter()
+            out = timed(*a, **k)
+            self.host_ms.append((time.perf_counter() - t0) * 1e3)
+            self.per_step.append(self.calls - calls)
+            self.coll_ms.append((self.coll_s - coll_s) * 1e3)
+            return out
+        return run
+
+
+def _serve_mesh_requests(cfg, seed, lo_hi, n=SERVE_MESH_REQUESTS):
+    return serve_lib.random_requests(cfg.vocab, n, *lo_hi, seed)
+
+
+def _seeded_params(cfg, seed, dev) -> dict:
+    """Random params of ``cfg`` on the card from ``seed``, the same in
+    every process: torch's generator on the card, normal draws scaled by
+    fan_in ** -0.5 as ``init_params`` scales its own, norm scales ones,
+    biases zeros.  Four ranks draw these at once in a few hundred ms,
+    where ``init_params``' threefry stream takes seconds a rank."""
+    from repro_torch.dist import sharding as sh
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = tr.DTYPES[cfg.dtype]
+
+    def one(shape, name):
+        if name.startswith(("ln", "q_norm", "k_norm")):
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if name.startswith("b"):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        return (torch.randn(shape, generator=gen, device=dev)
+                * fan_in ** -0.5).to(dtype)
+
+    leaves = [one(shape, path[-1]) for path, shape in sh.spec_items(cfg)]
+    return tree_unflatten(sh.shape_tree(cfg, lambda shape: None), leaves)
+
+
+def _serve_mesh_full(dev, seed, rank, mesh, arch, local) -> dict:
+    """One model at full width and depth, f32, on this rank of the (2, 2)
+    mesh: rank 0 first serves the requests meshless on the same params
+    (the target), then every rank serves them on the mesh, the first
+    kernel call with a live row held to the plain version."""
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    requests = _serve_mesh_requests(cfg, seed, SERVE_MESH_PROMPT)
+    settings = serve_lib.settings_for(requests, SERVE_MESH_GEN,
+                                      SERVE_MESH_REQUESTS,
+                                      cache_dtype="float32")
+    params = _seeded_params(cfg, seed, dev)
+    want = None
+    if rank == 0:
+        want = [o.tokens for o in serve_lib.serve(
+            ServeEngine(cfg, params, settings, device=dev), requests)]
+    engine = ServeEngine(cfg, params, settings, mesh=mesh, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with PagedCheck() as kernel:
+        pa.paged_attention.launches = 0           # the main path starts
+        t0 = time.monotonic()
+        outs = serve_lib.serve(engine, requests)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = pa.paged_attention.launches    # the main path ended
+    steps = engine.stats()["decode_steps"]
+    plan = engine._tp_plan
+    print(f"  rank {rank}: {arch} f32 at (2, 2): manual {engine._manual}, "
+          f"slots {list(engine._slots)}, plan attn {plan.attn} vocab "
+          f"{plan.vocab} ffn {plan.ffn}, pools {tuple(engine.pools['k'].shape)}"
+          f", {steps} decode steps in {wall:.2f} s, paged launches "
+          f"{launches}; the first live call at (H, KV, hd) {kernel.shape} "
+          f"vs the plain version: max abs err {kernel.err:.3e} (tol "
+          f"{kernel.tol:g})", flush=True)
+    check(engine._manual, f"{arch} at (2, 2): not the manual path")
+    check(launches == cfg.n_layers * steps and steps > 0,
+          f"{arch} at (2, 2): paged kernel launched {launches} times over "
+          f"{steps} decode steps of {cfg.n_layers} layers")
+    check(kernel.shape == tuple(local) and kernel.ok,
+          f"{arch} at (2, 2): kernel at {kernel.shape} (want {local}) "
+          f"disagrees with the plain version: {kernel.err}")
+    return dict(tokens=[o.tokens for o in outs], want=want,
+                launches=launches, steps=steps, wall_s=wall,
+                max_abs_err=kernel.err, shape=kernel.shape,
+                attn=plan.attn, vocab=plan.vocab)
+
+
+def _serve_mesh_smoke(dev, seed, rank, mesh) -> dict:
+    """(d) olmoe-1b-7b's smoke config at (2, 2), expert parallel in
+    decode: the same program on the card and on the host (gloo carries
+    both), tokens equal."""
+    cfg = get_config(SERVE_MESH_SMOKE).smoke()
+    requests = _serve_mesh_requests(cfg, seed, SERVE_MESH_SMOKE_PROMPT)
+    settings = serve_lib.settings_for(requests, SERVE_MESH_SMOKE_GEN,
+                                      SERVE_MESH_REQUESTS,
+                                      cache_dtype="float32")
+    params = tr.init_params(cfg, seed=seed, device="cpu")
+    host = [o.tokens for o in serve_lib.serve(
+        ServeEngine(cfg, params, settings, mesh=mesh, device="cpu"),
+        requests)]
+    engine = ServeEngine(cfg, params, settings, mesh=mesh, device=dev)
+    pa.paged_attention.launches = 0               # the main path starts
+    card = [o.tokens for o in serve_lib.serve(engine, requests)]
+    launches = pa.paged_attention.launches        # the main path ended
+    steps = engine.stats()["decode_steps"]
+    print(f"  rank {rank}: {cfg.name} at (2, 2), experts sharded "
+          f"{engine._tp_plan.moe}: tokens card == host {card == host}, "
+          f"paged launches {launches}", flush=True)
+    check(engine._tp_plan.moe and engine._manual,
+          f"{cfg.name} at (2, 2): not expert parallel on the manual path")
+    check(card == host, f"{cfg.name} at (2, 2): card tokens differ from the "
+          f"host's")
+    check(launches == cfg.n_layers * steps,
+          f"{cfg.name} at (2, 2): paged launches {launches}, {steps} steps")
+    return dict(tokens=card, launches=launches, steps=steps)
+
+
+class FirstStep:
+    """Inside: keeps the first ``paged_decode_step``'s inputs (the pools
+    as they were before it wrote them) and its logits."""
+
+    def __enter__(self):
+        self.decode, self.kept = tr.paged_decode_step, None
+        tr.paged_decode_step = self._keep
+        return self
+
+    def __exit__(self, *exc):
+        tr.paged_decode_step = self.decode
+
+    def _keep(self, params, cfg, pools, tables, ctxs, toks, **kw):
+        before = ({n: t.clone() for n, t in pools.items()}
+                  if self.kept is None else None)
+        logits, pools = self.decode(params, cfg, pools, tables, ctxs, toks,
+                                    **kw)
+        if self.kept is None:
+            self.kept = (before, tables.clone(), ctxs.clone(), toks.clone(),
+                         logits.clone(), kw)
+        return logits, pools
+
+
+def _serve_mesh_bf16(dev, seed, rank, mesh) -> dict:
+    """(c) eris-gptneo-1.3b in bf16 at (1, 2), the shape users serve: the
+    meshless engine's first decode step replayed through the TP step on
+    this rank's heads (logits within phase 4's replay gate), then the
+    requests served on the mesh: decode step ms by events, the
+    collectives each step issues (all host-staged here)."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import shard_plan as sp
+    cfg = get_config("eris-gptneo-1.3b")
+    requests = _serve_mesh_requests(cfg, seed, SERVE_MESH_PROMPT)
+    settings = serve_lib.settings_for(requests, SERVE_MESH_GEN,
+                                      SERVE_MESH_REQUESTS,
+                                      cache_dtype="bfloat16")
+    params = _seeded_params(cfg, seed, dev)
+    meshless = ServeEngine(cfg, params, settings, device=dev)
+    for i, (prompt, samp) in enumerate(requests):
+        meshless.submit(prompt, sampling=samp, seed=i)
+    with FirstStep() as first:
+        while meshless.stats()["decode_steps"] == 0:
+            meshless.step()
+    del meshless
+    pools, tables, ctxs, toks, want, kw = first.kept
+    idx = sh.axis_rank(mesh, "model")
+    plan = dataclasses.replace(tr.tp_plan(cfg, 2), seq=False, seq_ce=False,
+                               ctx=1)
+    rt = sp.TPRuntime(mesh.get_group("model"), 2, idx, plan)
+    heads = sh.paged_pool_heads(cfg, plan, 2, idx)
+    local = {n: t[:, :, heads.start:heads.stop].contiguous()
+             for n, t in pools.items()}
+    got, _ = tr.paged_decode_step(sh.tp_piece(params, cfg, 2, idx), cfg,
+                                  local, tables, ctxs, toks,
+                                  window=kw.get("window"), tp=rt)
+    rel = float((got.float() - want.float()).norm()
+                / want.float().norm())
+    del pools, local, got, want
+    engine = ServeEngine(cfg, params, settings, mesh=mesh, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with CollectiveCount() as spy:
+        pa.paged_attention.launches = 0           # the main path starts
+        t0 = time.monotonic()
+        serve_lib.serve(engine, requests)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = pa.paged_attention.launches    # the main path ended
+    steps = engine.stats()["decode_steps"]
+    ms = spy.ms("decode")
+    def mid(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    median = mid(ms)
+    host, coll = mid(spy.host_ms), mid(spy.coll_ms)
+    print(f"  rank {rank}: eris-gptneo-1.3b bf16 at (1, 2): the meshless "
+          f"first step replayed at tp 2, logits relative error {rel:.3e} "
+          f"(gate {LOGITS_REL_TOL:g}); served in {wall:.2f} s, {steps} "
+          f"decode steps, median {median:.2f} ms ({min(ms):.2f}-"
+          f"{max(ms):.2f}), collectives a step {sorted(set(spy.per_step))}, "
+          f"host ms a step (median) {host:.2f}, of it inside the "
+          f"collectives {coll:.2f} and outside {host - coll:.2f}, paged "
+          f"launches {launches}", flush=True)
+    check(int(spy.bad) == 0, f"bf16 at (1, 2): {int(spy.bad)} non-finite "
+          f"logits")
+    check(rel <= LOGITS_REL_TOL,
+          f"bf16 at (1, 2): the TP step's logits {rel:.3e} from the "
+          f"meshless step's")
+    check(launches == cfg.n_layers * steps,
+          f"bf16 at (1, 2): paged launches {launches}, {steps} steps")
+    return dict(rel_err=rel, steps=steps, wall_s=wall, median_ms=median,
+                ms=ms, collectives=spy.per_step, launches=launches,
+                host_ms=spy.host_ms, coll_ms=spy.coll_ms)
+
+
+def _serve_mesh_ckpt(dev, seed, rank, mesh, out_dir, served) -> dict:
+    """(e) ``ServeEngine.from_checkpoint(..., mesh=)`` at (1, 2): phase
+    17's composite checkpoint of eris-gptneo-1.3b (f32) with its requests,
+    against the tokens its meshless ``from_checkpoint`` served there; or,
+    when phase 17 did not run, a checkpoint of the smoke config saved here
+    at (1, 2) against the meshless ``from_checkpoint`` on rank 0."""
+    from repro_torch.checkpoint import msgpack_ckpt as ck
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import train
+    path = pathlib.Path(out_dir, "ckpt")
+    if served is not None:
+        cfg = dataclasses.replace(get_config("eris-gptneo-1.3b"),
+                                  dtype="float32")
+        requests = [(p, SamplingParams()) for p, _ in
+                    serve_lib.random_requests(cfg.vocab, PIPE_SERVE_REQUESTS,
+                                              32, 64, seed)]
+        gen, n = PIPE_SERVE_GEN, PIPE_SERVE_REQUESTS
+    else:
+        import torch.distributed as dist
+        cfg = dataclasses.replace(get_config("eris-gptneo-1.3b").smoke(),
+                                  dtype="float32")
+        requests = _serve_mesh_requests(cfg, seed, SERVE_MESH_SMOKE_PROMPT)
+        gen, n = SERVE_MESH_SMOKE_GEN, SERVE_MESH_REQUESTS
+        settings = train.TrainSettings()
+        ck.save_sharded(path, train.store_params(
+            tr.init_params(cfg, seed=seed, device=dev), cfg, mesh, settings),
+            cuts=train.store_cuts(cfg, mesh, settings))
+        dist.barrier(mesh.get_group("model"))
+    settings = serve_lib.settings_for(requests, gen, n, cache_dtype="float32")
+    if served is None and rank == 0:
+        served = [o.tokens for o in serve_lib.serve(
+            ServeEngine.from_checkpoint(path, cfg, settings, device=dev),
+            requests)]
+    t0 = time.monotonic()
+    engine = ServeEngine.from_checkpoint(path, cfg, settings, mesh=mesh,
+                                         device=dev)
+    load_s = time.monotonic() - t0
+    pa.paged_attention.launches = 0               # the main path starts
+    got = [o.tokens for o in serve_lib.serve(engine, requests)]
+    launches = pa.paged_attention.launches        # the main path ended
+    steps = engine.stats()["decode_steps"]
+    held = sum(t.numel() for t in tree_leaves(engine.params))
+    whole = sum(math.prod(s) for _, s in sh.spec_items(cfg))
+    print(f"  rank {rank}: from_checkpoint({cfg.name}, mesh=(1, 2)): "
+          f"restored this rank's pieces in {load_s:.1f} s ({held} of "
+          f"{whole} params), paged launches {launches}", flush=True)
+    check(launches == cfg.n_layers * steps,
+          f"from_checkpoint at (1, 2): paged launches {launches}, {steps} "
+          f"steps")
+    check(held < whole, f"from_checkpoint at (1, 2): {held} params held, "
+          f"the whole model has {whole}")
+    return dict(tokens=got, want=served, load_s=load_s, launches=launches,
+                steps=steps, arch=cfg.name, held=held, whole=whole)
+
+
+class PairMesh:
+    """A (data 1, model 2) mesh over two ranks, from their model group and
+    this rank's own one-rank data group: the helpers of
+    ``dist/sharding``, the step's cuts and the engine read only these."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, model_group, data_group):
+        self.groups = {"model": model_group, "data": data_group}
+
+    def size(self, i: int) -> int:
+        return (1, 2)[i]
+
+    def get_group(self, name: str):
+        return self.groups[name]
+
+
+def _staged_ms(group, dev, reps: int = 20) -> dict:
+    """Host-clock ms of one staged collective at the bf16 decode step's
+    activation shape, (8, 1, 2048), on the card: the all-reduce after
+    ``wo`` and one ring shift of the FFN's ring all-reduce (two at tp
+    2), each ``reps`` times after a barrier; and the same all-reduce of
+    a host tensor, gloo alone."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as cl
+    x = torch.randn(8, 1, 2048, device=dev).to(torch.bfloat16)
+    halves = list(x.reshape(2, -1).unbind(0))
+    host = x.cpu()
+    out = {}
+    for name, fn in (("all_reduce", lambda: cl.all_reduce(x, group)),
+                     ("ring_shift", lambda: cl.ring_shift(halves, group)),
+                     ("host_all_reduce",
+                      lambda: cl.all_reduce(host, group))):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def _serve_mesh_rank(rank: int, world: int, port: int, seed: int,
+                     out_dir: str, served) -> None:
+    """One rank of phase 18, in its own process on cuda:0: (a), (b) and
+    (d) on the (data 2, model 2) mesh of the four ranks, then (c) and
+    (e) on ranks 0 and 1 at (data 1, model 2)."""
+    _tp_env(rank, world, port)
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    dev = mesh_lib.init_process_group("cuda", backend="gloo")
+    t0 = time.monotonic()
+    res = {"backend": str(dist.get_backend())}
+    try:
+        mesh = mesh_lib.make_host_mesh(2, 2, device=dev)
+        for arch, local in SERVE_MESH_FULL:
+            res[arch] = _serve_mesh_full(dev, seed, rank, mesh, arch, local)
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["smoke"] = _serve_mesh_smoke(dev, seed, rank, mesh)
+        # every rank makes every group, in one order
+        model_group = dist.new_group([0, 1])
+        data_groups = [dist.new_group([r]) for r in range(world)]
+        pair = PairMesh(model_group, data_groups[rank])
+        if rank < 2:
+            res["bf16"] = _serve_mesh_bf16(dev, seed, rank, pair)
+            res["bf16"]["staged_ms"] = _staged_ms(model_group, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["ckpt"] = _serve_mesh_ckpt(dev, seed, rank, pair, out_dir,
+                                           served)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.monotonic() - t0
+    pathlib.Path(out_dir, f"serve_{rank}.json").write_text(json.dumps(res))
+
+
+def serve_mesh_phase(dev, seed, out, served) -> tuple:
+    """Phase 18: the paged kernel timed at a rank's heads at model 2 for
+    both models, then one ``torch.multiprocessing`` launch of four
+    processes on cuda:0 over gloo groups: (a, b, d) at (data 2, model 2),
+    (c, e) on two of them at (data 1, model 2).  ``served``: phase 17's
+    checkpoint tokens, or None.  Returns (the paged kernel's launches on
+    the main paths, summed over ranks, and its timings at the local
+    shapes)."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch import mesh as mesh_lib
+    _expect_free_card("before serving over a mesh")
+    print("  the serving ranks run over gloo on one card, as phase 16's: "
+          "every collective of a CUDA tensor is staged through host "
+          "buffers, so the times are host staging, not NVLink", flush=True)
+    timing = {}
+    requests = _serve_mesh_requests(get_config("eris-gptneo-1.3b"), seed,
+                                    SERVE_MESH_PROMPT)
+    mid = [len(p) + SERVE_MESH_GEN // 2 for p, _ in requests]
+    for arch, _ in SERVE_MESH_FULL:
+        timing[arch] = decode_shape_timing(dev, seed, get_config(arch), mid,
+                                           16, model=2)
+    world = 4
+    t0 = time.monotonic()
+    mp.spawn(_serve_mesh_rank, args=(world, mesh_lib.free_port(), seed, out,
+                                     served), nprocs=world, join=True)
+    ranks = [json.loads(pathlib.Path(out, f"serve_{r}.json").read_text())
+             for r in range(world)]
+    check(all(r["backend"] == "gloo" for r in ranks),
+          f"serving mesh: backends {[r['backend'] for r in ranks]}")
+    print(f"  {world} ranks in {time.monotonic() - t0:.1f} s (each rank's "
+          f"own: {[round(r['seconds'], 1) for r in ranks]})", flush=True)
+    launches = 0
+    for key in [a for a, _ in SERVE_MESH_FULL] + ["smoke", "bf16", "ckpt"]:
+        results = [r[key] for r in ranks if key in r]
+        check(len(results) == (2 if key in ("bf16", "ckpt") else world),
+              f"serving mesh {key}: {len(results)} ranks reported")
+        launches += sum(x["launches"] for x in results)
+        want = results[0].get("want")
+        if want is not None:
+            same = all(x["tokens"] == want for x in results)
+            print(f"  {key}: every rank's tokens == the meshless engine's: "
+                  f"{same}", flush=True)
+            check(same, f"serving mesh {key}: tokens differ from the "
+                  f"meshless engine's")
+        elif key == "smoke":
+            check(all(x["tokens"] == results[0]["tokens"] for x in results),
+                  "smoke: the ranks' tokens differ")
+    for r in ranks[:2]:
+        print(f"  (c) staged collectives at (8, 1, 2048) bf16, ms each: "
+              f"{r['bf16']['staged_ms']}", flush=True)
+    print("serve_mesh " + json.dumps(ranks), flush=True)
+    return launches, timing
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", type=int, nargs="+", choices=(16, 17),
+    ap.add_argument("--only", type=int, nargs="+", choices=(16, 17, 18),
                     help="after the device and the build, run only these "
                          "multi-rank phases, and print no result (a "
                          "partial run: the kernels line needs every phase)")
@@ -4513,13 +5036,19 @@ def main() -> None:
     dev = device_phase()
     build_phase()
     if args.only:
-        for n in args.only:
-            if n == 16:
-                phase("16 the model axis")
-                model_axis_phase(dev, args.seed)
-            else:
-                phase("17 the pipe axis")
-                pipe_axis_phase(dev, args.seed)
+        import tempfile
+        served = None
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+            for n in sorted(args.only):
+                if n == 16:
+                    phase("16 the model axis")
+                    model_axis_phase(dev, args.seed)
+                elif n == 17:
+                    phase("17 the pipe axis")
+                    served = pipe_axis_phase(dev, args.seed, out)[2]
+                else:
+                    phase("18 serving over a mesh")
+                    serve_mesh_phase(dev, args.seed, out, served)
         phase(None)
         print(f"phase seconds {json.dumps(PHASE_SECONDS)}")
         print(f"partial run of phases {args.only}: no result line")
@@ -4615,28 +5144,44 @@ def main() -> None:
     for name in round_launches:
         round_launches[name] += tp_launches[name]
 
-    phase("17 the pipe axis: eris-gptneo-1.3b at pp = 2, its composite "
-          "checkpoint served, qwen2-0.5b at (pipe 2, model 2), ranks on "
-          "one card over gloo")
-    pipe_paged, pipe_launches = pipe_axis_phase(dev, args.seed)
-    launches += pipe_paged
-    for name in round_launches:
-        round_launches[name] += pipe_launches[name]
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        phase("17 the pipe axis: eris-gptneo-1.3b at pp = 2, its composite "
+              "checkpoint served, qwen2-0.5b at (pipe 2, model 2), ranks on "
+              "one card over gloo")
+        pipe_paged, pipe_launches, served = pipe_axis_phase(dev, args.seed,
+                                                            out)
+        launches += pipe_paged
+        for name in round_launches:
+            round_launches[name] += pipe_launches[name]
 
-    phase("18 result")
+        phase("18 serving over a mesh: eris-gptneo-1.3b and qwen2-0.5b at "
+              "(data 2, model 2), olmoe-1b-7b's smoke config, "
+              "eris-gptneo-1.3b in bf16 and from phase 17's checkpoint at "
+              "(data 1, model 2), ranks on one card over gloo")
+        mesh_paged, mesh_timing = serve_mesh_phase(dev, args.seed, out,
+                                                   served)
+        launches += mesh_paged
+
+    phase("19 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:52",
         "launches": launches,
         "max_abs_err": max(worst, timing["max_abs_err"],
-                           qwen_timing["max_abs_err"]),
+                           qwen_timing["max_abs_err"],
+                           *(t["max_abs_err"] for t in mesh_timing.values())),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,
         "shape": "eris-gptneo-1.3b decode, B=8 H=KV=16 hd=128 bf16",
         "qwen2_decode": {key: qwen_timing[key] for key in
-                         ("ms", "plain_ms", "bound_ms", "bound_by")}}]
+                         ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "model_2_decode": {arch: {key: t[key] for key in
+                                  ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "max_abs_err")}
+                           for arch, t in mesh_timing.items()}}]
     for name, _, source, replaces in KERNELS[1:5]:
         t = wire_timing_[name]
         rows.append({

@@ -19,9 +19,9 @@ before (``dist/sharding.composite_box``).  A rank writes its box of each
 leaf as one record, ``start`` the box's origin, and a leaf that
 replicates over an axis is written only by the rank at index 0 on it, as
 the reference writes replica 0 only, so every coordinate is written
-once.  :func:`restore_sharded` assembles every leaf whole, and with
-``cuts`` (or ``dims``, the data axis alone) cuts this rank's piece from
-it.
+once.  :func:`restore_sharded` assembles every leaf whole, or with
+``cuts`` (or ``dims``, the data axis alone) only this rank's piece of
+it, whatever mesh wrote the records.
 
 bf16 has no numpy dtype here: its bytes are read and written as uint16
 and viewed as ``torch.bfloat16``.  ``msgpack`` is imported inside these
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import tree_leaves, tree_unflatten
-from repro_torch.dist.sharding import composite_box, cut_piece, whole_shape
+from repro_torch.dist.sharding import composite_box, whole_shape
 
 _MANIFEST = "manifest.msgpack"
 _NAMES = {torch.float32: "float32", torch.float64: "float64",
@@ -171,35 +171,59 @@ def restore_sharded(path, target, dims: Any = None, *,
     """Assemble a checkpoint directory onto ``target``'s structure
     (``target``'s leaves give the GLOBAL shapes to check).  With ``cuts``
     or ``dims`` (as in :func:`save_sharded`), each leaf comes back as
-    this rank's piece, else whole."""
+    this rank's piece, else whole.
+
+    Only the pieces asked for are held: the shard files are read one
+    record at a time, and each record's overlap with this rank's box of
+    its leaf is copied in, so a rank restoring its TP piece of a model
+    never holds the whole model."""
     import msgpack
     path = Path(path)
     manifest = msgpack.unpackb((path / _MANIFEST).read_bytes())
-    merged: dict = {}
-    for f in sorted(path.glob("shard-*.msgpack")):
-        for key, recs in msgpack.unpackb(f.read_bytes()).items():
-            merged.setdefault(key, []).extend(recs)
     leaves = tree_leaves(target)
+    keys = _key_paths(target)
     chains = [()] * len(leaves)
     if dims is not None or cuts is not None:
         rank, world = _rank_world(rank, world)
         chains = _leaf_cuts(len(leaves), dims, cuts, rank, world)
-    out = []
-    for key, leaf, chain in zip(_key_paths(target), leaves, chains):
+    pieces = {}
+    for key, leaf, chain in zip(keys, leaves, chains):
         meta = manifest[key]
         if tuple(meta["shape"]) != tuple(np.shape(leaf)):
             raise ValueError(f"shape mismatch at {key}: "
                              f"{tuple(meta['shape'])} vs "
                              f"{tuple(np.shape(leaf))}")
-        full = torch.zeros(meta["shape"], dtype=_DTYPES[meta["dtype"]])
-        for rec in merged.get(key, ()):
-            sl = tuple(slice(st, st + sz)
-                       for st, sz in zip(rec["start"], rec["shape"]))
-            full[sl] = _from_bytes(rec["data"], meta["dtype"], rec["shape"])
-        if chain:
-            full = cut_piece(full, chain).clone()
-        out.append(full.to(device) if device is not None else full)
+        start, size = composite_box(tuple(meta["shape"]), chain)
+        pieces[key] = (start, torch.zeros(size,
+                                          dtype=_DTYPES[meta["dtype"]]))
+    for f in sorted(path.glob("shard-*.msgpack")):
+        with open(f, "rb") as fh:
+            unpacker = msgpack.Unpacker(fh, max_buffer_size=0)
+            for _ in range(unpacker.read_map_header()):
+                key = unpacker.unpack()
+                recs = unpacker.unpack()
+                if key in pieces:
+                    for rec in recs:
+                        _paste(pieces[key], rec, manifest[key]["dtype"])
+    out = [pieces[key][1] for key in keys]
+    if device is not None:
+        out = [t.to(device) for t in out]
     return tree_unflatten(target, out)
+
+
+def _paste(piece, rec: dict, dtype: str) -> None:
+    """Copy the overlap of one record (a box of its leaf) into ``piece``:
+    (the origin of this rank's box, the box's tensor)."""
+    origin, dst = piece
+    src_sl, dst_sl = [], []
+    for o, n, st, sz in zip(origin, dst.shape, rec["start"], rec["shape"]):
+        lo, hi = max(o, st), min(o + n, st + sz)
+        if lo >= hi:
+            return
+        src_sl.append(slice(lo - st, hi - st))
+        dst_sl.append(slice(lo - o, hi - o))
+    src = _from_bytes(rec["data"], dtype, rec["shape"])
+    dst[tuple(dst_sl)] = src[tuple(src_sl)]
 
 
 def restore_any(path, target, dims: Any = None, **kw):

@@ -42,7 +42,8 @@ import torch.distributed as dist
 
 from repro_torch.convert import tree_leaves, tree_map, tree_unflatten
 from repro_torch.dist import collectives as cl
-from repro_torch.models.shard_plan import TPSpec, tp_specs  # noqa: F401
+from repro_torch.models.shard_plan import (TPSpec, build_plan,  # noqa: F401
+                                           tp_specs)
 
 QBLOCK = 256        # coords per int8-wire scale (kernels/quantize.QBLOCK)
 FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -309,6 +310,56 @@ def shift_state_dtype(name: str) -> torch.dtype:
         raise ValueError(f"shift_dtype must be a float store dtype, "
                          f"got {name!r}")
     return dt
+
+
+# --------------------------------------------------------------- serving
+# The serving engine's layout on a ("data", "model") mesh (the reference's
+# ``paged_pool_shardings``, ``serve_batch_shardings`` and the TP piece of
+# ``tp_param_in_specs``): each rank holds its model position's TP piece of
+# every leaf, its kv heads of the pools, and decodes its data position's
+# slots.
+def paged_pool_heads(cfg, plan, tp: int, index: int) -> range:
+    """The kv heads that model position ``index`` of ``tp`` holds in its
+    paged pools (L, N, KV, bs, hd) under the decode ``plan``: its
+    contiguous share where the plan shards attention (``plan.attn``: the
+    heads AND the kv heads divide), else all of them, the pools
+    replicated and every rank attending with every head.  The block dim
+    N stays whole: any request's table may point anywhere in the pool."""
+    if tp > 1 and plan.attn:
+        kv = cfg.n_kv_heads // tp
+        return range(index * kv, (index + 1) * kv)
+    return range(cfg.n_kv_heads)
+
+
+def serve_slots(n_slots: int, mesh) -> range:
+    """This rank's decode slots: ``n_slots / n_client`` contiguous slots
+    at its data position where the client count divides them (the
+    reference's manual path), else every slot."""
+    n_client = client_count(mesh)
+    if n_slots % n_client:
+        return range(n_slots)
+    size = n_slots // n_client
+    lo = axis_rank(mesh, "data") * size
+    return range(lo, lo + size)
+
+
+def tp_cuts(cfg, tp: int, index: int) -> list:
+    """Each leaf's chain of cuts (:func:`composite_box`) to model position
+    ``index``'s TP piece, in flatten order: what ``restore_sharded``
+    takes to read a rank's piece of any checkpoint."""
+    return [((s.dim, tp, index),) for s in tree_leaves(tp_specs(cfg, tp))]
+
+
+def tp_piece(params, cfg, tp: int, index: int):
+    """Model position ``index``'s TP piece of each leaf of ``params``: a
+    whole leaf is cut (a contiguous copy; replicated leaves stay whole),
+    a leaf that already is the piece passes as it is."""
+    whole = [shape for _, shape in spec_items(cfg)]
+    return tree_unflatten(params, [
+        tp_shard(x, s, tp, index).contiguous() if tuple(x.shape) == w
+        else x
+        for x, s, w in zip(tree_leaves(params),
+                           tree_leaves(tp_specs(cfg, tp)), whole)])
 
 
 # ------------------------------------------------------ int8 wire layouts

@@ -8,7 +8,11 @@ loopback port (under plain ``python``); :func:`make_host_mesh` lays the
 model + j is aggregator a's model position j.  With a pipe axis the mesh
 is the reference's ``("data", "pipe", "model")``: rank (a * pipe + s) *
 model + j is aggregator a's stage s at model position j, and
-``mesh.get_group("pipe")`` is the stage ring of its (a, j).
+``mesh.get_group("pipe")`` is the stage ring of its (a, j).  The serving
+engine takes the 2-D mesh as it is (``serve/engine.ServeEngine(...,
+mesh=)``).  Ranks that share one card pass ``backend="gloo"``: each
+process then has its own paged-kernel workspace, and the kernel's
+one-stream rule holds in each.
 
 Defined as functions, so importing this module touches no process group.
 """

@@ -12,8 +12,15 @@ stats as JSON:
 ``--ckpt`` serves a ``launch/train.py --save`` artifact
 (``ServeEngine.from_checkpoint``) in place of random params.
 
-The static lowering path of the reference (``lower_step``) is XLA's and
-has no counterpart here.
+Serving over a ("data", "model") mesh is reached through the API, as
+in the reference: one process per position, ``launch/mesh.
+init_process_group`` and ``make_host_mesh(data, model)``, then
+``ServeEngine(cfg, params, settings, mesh=mesh)`` or
+``ServeEngine.from_checkpoint(path, cfg, settings, mesh=mesh)``.
+
+The reference's ``lower_step`` lowers the decode step ahead of time for
+the dry run's HLO accounting (``launch/dryrun.py``, ``launch/shapes.py``):
+it belongs to ROADMAP queue 1.12, with those files.
 """
 from __future__ import annotations
 

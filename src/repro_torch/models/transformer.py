@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import DeviceLike, random, resolve_device
+from repro_torch.dist import collectives as cl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import layers as L
@@ -864,27 +865,41 @@ def paged_families() -> tuple:
 
 def init_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device: DeviceLike = None) -> dict:
-    """Per-layer stacked K/V block pools: (L, N, KV, bs, hd)."""
+                     device: DeviceLike = None,
+                     kv_heads: Optional[int] = None) -> dict:
+    """Per-layer stacked K/V block pools: (L, N, KV, bs, hd), KV the
+    config's kv heads or a model position's ``kv_heads``
+    (``dist/sharding.paged_pool_heads``)."""
     if cfg.family not in paged_families():
         raise ValueError(
             f"paged KV cache supports families {paged_families()}, not "
             f"{cfg.family!r}")
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads, block_size, cfg.hd)
+    shape = (cfg.n_layers, num_blocks, kv_heads or cfg.n_kv_heads,
+             block_size, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _attn_paged(cfg: ModelConfig, lp: dict, x, positions, k_pool, v_pool,
-                block_tables, ctx_lens, window, use_kernel: bool):
+                block_tables, ctx_lens, window, use_kernel: bool,
+                tp: Optional[TPRuntime] = None):
     """One layer's attention against its (N, KV, bs, hd) pools.  x: (B, 1,
     D); positions/ctx_lens: (B, 1)/(B,) -- the new token's absolute
-    position.  Writes the new K/V into the pools IN PLACE, then attends."""
+    position.  Writes the new K/V into the pools IN PLACE, then attends.
+
+    Under ``tp.plan.attn`` (``:812-866``) wq/wk/wv/wo and the pools hold
+    this rank's heads: the kernel runs on (B, H/tp, hd) queries against
+    (N, KV/tp, bs, hd) pools, and the row-parallel ``wo`` partials are
+    summed over the model group.  Otherwise the region runs whole on
+    every rank."""
+    tp_attn = tp is not None and tp.plan.attn
+    n_heads = cfg.n_heads // (tp.size if tp_attn else 1)
+    n_kv = cfg.n_kv_heads // (tp.size if tp_attn else 1)
     B = x.shape[0]
     bs = k_pool.shape[2]
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, lp, h, positions)
+    q, k, v = _qkv(cfg, lp, h, positions, n_heads, n_kv)
     # Write, then attend with ctx + 1: logical position ctx_lens[b] lives
     # at (block_tables[b, ctx // bs], ctx % bs).  Inactive slots (ctx 0,
     # table all scratch) all write to scratch block 0 at offset 0; those
@@ -899,7 +914,9 @@ def _attn_paged(cfg: ModelConfig, lp: dict, x, positions, k_pool, v_pool,
     fn = pa.paged_attention if use_kernel else pa.paged_attention_ref
     out = fn(q[:, 0].contiguous(), k_pool, v_pool, block_tables,
              ctx_lens + 1, window=window)
-    y = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
+    y = out.reshape(B, 1, n_heads * cfg.hd) @ lp["wo"]
+    if tp_attn:
+        y = L.tp_pull(y, tp)                # row-parallel wo partials
     return x + y
 
 
@@ -908,7 +925,8 @@ def paged_decode_step(params: dict, cfg: ModelConfig, pools: dict,
                       block_tables: torch.Tensor,
                       context_lens: torch.Tensor, tokens: torch.Tensor,
                       window: Optional[int] = None,
-                      use_kernel: bool = True):
+                      use_kernel: bool = True,
+                      tp: Optional[TPRuntime] = None):
     """One decode step for a batch of requests at DIFFERENT positions.
 
     tokens: (B, 1) -- each row's newest token
@@ -922,13 +940,25 @@ def paged_decode_step(params: dict, cfg: ModelConfig, pools: dict,
     here the pools are updated in place and the same dict is returned.
     ``use_kernel`` selects :func:`paged_attention` (the CUDA kernel on a
     CUDA tensor) over its plain version.  Returns (logits (B, 1, V), pools).
+
+    With ``tp`` (``:869-931``) the params are this rank's TP pieces and,
+    under ``tp.plan.attn``, the pools hold its kv heads: the embedding is
+    vocab-parallel, attention and the FFN (dense or the expert-parallel
+    MoE) run their TP regions, and under ``tp.plan.vocab`` the logits of
+    the column-parallel unembed are gathered over the model group, so
+    they come back FULL for the row-wise sampler.  The plan should be
+    decode-safe (no ``seq``, ``seq_ce`` or ``ctx``): one token has no
+    sequence to shard.
     """
-    x = embed_inputs(params, cfg, tokens)
+    x = embed_inputs(params, cfg, tokens, None, tp)
     positions = context_lens[:, None]
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         x = _attn_paged(cfg, lp, x, positions, pools["k"][i], pools["v"][i],
-                        block_tables, context_lens, window, use_kernel)
-        x, _ = _ffn(cfg, lp, x)
+                        block_tables, context_lens, window, use_kernel, tp)
+        x, _ = _ffn(cfg, lp, x, tp)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x @ _head(params, cfg), pools
+    logits = x @ _head(params, cfg)
+    if tp is not None and tp.plan.vocab:
+        logits = cl.all_gather(logits, tp.group, 2)
+    return logits, pools

@@ -22,6 +22,24 @@ The engine owns ``max_concurrency`` decode slots.  Every ``step()``:
 Token streams are a function of (params, prompt, SamplingParams, seed)
 only -- never of slot, step, or co-resident requests.  The reference
 donates its pools to ``jit``; here the pools are updated in place.
+
+With a ``mesh`` (``launch/mesh.make_host_mesh(data, model)``, one process
+per position) every rank runs the same host scheduler, holds its model
+position's TP piece of the params and its kv heads of the pools
+(``dist/sharding.paged_pool_heads``), and decodes under the decode-safe
+TP plan (no sequence, context or sequence-CE sharding: one token has no
+sequence to shard) through ``paged_decode_step(..., tp=...)``: the CUDA
+paged kernel on the rank's local heads, the row-parallel partials summed
+over the model group, the logits gathered there.  When the client count
+divides the slots (``_manual``, the reference's manual ``shard_map``
+body) a rank decodes only its data position's slots, samples them, and
+the sampled tokens are gathered over the data group, so that every
+rank's scheduler advances alike; otherwise every data rank decodes every
+slot.  Prefill runs the TP ``forward`` on every rank, replicated over
+"data": each rank writes its kv heads of the prompt into its pools, and
+the first token is sampled from the gathered logits.  A rank's pools
+receive the decode writes of its own slots only, so the copies on the
+data ranks differ, as the reference's do.
 """
 from __future__ import annotations
 
@@ -34,6 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, random, resolve_device
+from repro_torch.dist import collectives as cl
+from repro_torch.dist import sharding as sh
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import cache as pc
@@ -116,10 +136,11 @@ class ServeEngine:
     """See module docstring.  ``submit`` + ``step`` for streaming use,
     ``run`` to drain a batch of prompts.  ``device=None`` serves on the
     CUDA card and raises without one; ``device="cpu"`` runs the plain
-    torch path on the host."""
+    torch path on the host.  ``params`` are whole leaves, or with a
+    ``mesh`` this rank's TP pieces of them."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
-                 settings: ServeSettings = ServeSettings(),
+                 settings: ServeSettings = ServeSettings(), mesh=None,
                  device: DeviceLike = None):
         if cfg.family not in tr.paged_families():
             raise ValueError(
@@ -128,18 +149,47 @@ class ServeEngine:
                 f"transformer.decode_step or sampling.beam_search)")
         self.cfg = cfg
         self.settings = settings
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.window = (settings.window if settings.window is not None
                        else cfg.sliding_window)
-        # the meshless engine always runs the kernel unless told "naive"
+        C, P = settings.max_concurrency, settings.max_pages
+        # the kernel runs meshless, in the manual body and, unlike the
+        # reference's GSPMD fallback, in the mesh fallback too
         self._use_kernel = settings.decode_kernel != "naive"
+        self._manual = False
+        self._tp_plan = None
+        self._tp = None
+        self._slots = range(C)
+        self._data_group = None
+        kv_heads = None
+        if mesh is not None:
+            if sh.pipe_size(mesh) > 1:
+                raise ValueError(
+                    "ServeEngine serves over a (\"data\", \"model\") mesh; "
+                    "a pipe axis splits the layers, which a decode step "
+                    "runs all of")
+            model = sh.model_size(mesh)
+            self._tp_plan = dataclasses.replace(
+                tr.tp_plan(cfg, model), seq=False, seq_ce=False, ctx=1)
+            n_client = sh.client_count(mesh)
+            self._manual = C % n_client == 0
+            self._slots = sh.serve_slots(C, mesh)
+            if self._manual and n_client > 1:
+                self._data_group = mesh.get_group("data")
+            midx = sh.axis_rank(mesh, "model")
+            if self._tp_plan.active:
+                self._tp = tr.TPRuntime(mesh.get_group("model"), model,
+                                        midx, self._tp_plan)
+            params = sh.tp_piece(params, cfg, model, midx)
+            kv_heads = len(sh.paged_pool_heads(cfg, self._tp_plan, model,
+                                               midx))
         self.params = _to_device(params, self.device)
         self.pools = tr.init_paged_pools(
             cfg, settings.num_blocks, settings.block_size,
-            tr.DTYPES[settings.cache_dtype], self.device)
+            tr.DTYPES[settings.cache_dtype], self.device, kv_heads)
         self.allocator = pc.BlockAllocator(settings.num_blocks,
                                            settings.block_size)
-        C, P = settings.max_concurrency, settings.max_pages
         self.tables = np.zeros((C, P), np.int32)       # scratch block 0
         self.slots: List[Optional[Request]] = [None] * C
         self.waiting: Deque[Request] = collections.deque()
@@ -266,15 +316,16 @@ class ServeEngine:
         pages[:n_pages] = blocks
         logits, caches, _ = tr.forward(self.params, self.cfg,
                                        self._tensor(toks), mode="prefill",
-                                       window=self.window)
+                                       window=self.window, tp=self._tp)
         pc.write_prefill(self.pools, caches["kv"]["k"][:, 0],
                          caches["kv"]["v"][:, 0], self._tensor(pages),
                          s.block_size)
         # the first token comes from the last real position, not from the
         # bucket's zero-padded tail
-        last = len(prefix) - 1
-        first = self._sample(logits[0, last][None], [r],
-                             [len(r.generated)])[0]
+        last = logits[0, len(prefix) - 1][None]
+        if self._tp is not None and self._tp_plan.vocab:
+            last = cl.all_gather(last, self._tp.group, 1)
+        first = self._sample(last, [r], [len(r.generated)])[0]
         r.generated.append(int(first))
         if r.first_token_t is None:
             r.first_token_t = time.monotonic()
@@ -300,9 +351,15 @@ class ServeEngine:
         tables, ctxs, toks, indices = self._decode_batch()
         logits, self.pools = tr.paged_decode_step(
             self.params, self.cfg, self.pools, tables, ctxs, toks,
-            window=self.window, use_kernel=self._use_kernel)
+            window=self.window, use_kernel=self._use_kernel, tp=self._tp)
         self._decode_steps += 1
-        nxt = self._sample(logits[:, 0], self.slots, indices)
+        mine = self._slots
+        nxt = self._sample(logits[:, 0], self.slots[mine.start:mine.stop],
+                           indices)
+        if self._data_group is not None:
+            # every rank's scheduler takes every slot's token
+            nxt = cl.all_gather(torch.from_numpy(nxt), self._data_group,
+                                0).numpy()
         now = time.monotonic()
         for r in active:
             r.generated.append(int(nxt[r.slot]))
@@ -314,9 +371,10 @@ class ServeEngine:
         return finished
 
     def _decode_batch(self):
-        """The batched decode step's inputs over all slots, on the device:
-        (tables, ctxs, toks, token indices).  Inactive slots decode token
-        0 at ctx 0 through an all-scratch table."""
+        """The batched decode step's inputs over this rank's slots (all of
+        them meshless), on the device: (tables, ctxs, toks, token
+        indices).  Inactive slots decode token 0 at ctx 0 through an
+        all-scratch table."""
         C = self.settings.max_concurrency
         toks = np.zeros((C, 1), np.int64)
         ctxs = np.zeros((C,), np.int32)
@@ -325,8 +383,9 @@ class ServeEngine:
             toks[r.slot, 0] = r.generated[-1]
             ctxs[r.slot] = self._ctx_len(r)
             indices[r.slot] = len(r.generated)
-        return (self._tensor(self.tables), self._tensor(ctxs),
-                self._tensor(toks), indices)
+        mine = slice(self._slots.start, self._slots.stop)
+        return (self._tensor(self.tables[mine]), self._tensor(ctxs[mine]),
+                self._tensor(toks[mine]), indices[mine])
 
     def _schedule(self) -> List[RequestOutput]:
         """Evict, admit and grow: afterwards every active request owns the
@@ -405,20 +464,24 @@ class ServeEngine:
 
     @classmethod
     def from_checkpoint(cls, path, cfg: ModelConfig,
-                        settings: ServeSettings = ServeSettings(),
+                        settings: ServeSettings = ServeSettings(), mesh=None,
                         device: DeviceLike = None) -> "ServeEngine":
         """Serve a ``launch/train.py --save`` artifact (a sharded msgpack
         directory, whatever (data, pipe, model) mesh wrote it, or a
-        single-file checkpoint): the store->use handoff.  Its whole
-        leaves are restored against the config's parameter shapes, in the
-        dtype they were saved in, straight onto ``device``."""
+        single-file checkpoint): the store->use handoff, in the dtype the
+        leaves were saved in, straight onto ``device``.  Meshless it
+        restores whole leaves; with a ``mesh`` only this rank's TP pieces
+        (``dist/sharding.tp_cuts``), so no rank holds the whole model."""
         from repro_torch.checkpoint import msgpack_ckpt as ck
-        from repro_torch.dist.sharding import shape_tree
-        target = shape_tree(cfg, lambda shape: torch.empty(shape,
-                                                           device="meta"))
+        target = sh.shape_tree(cfg, lambda shape: torch.empty(shape,
+                                                              device="meta"))
+        cuts = None
+        if mesh is not None:
+            cuts = sh.tp_cuts(cfg, sh.model_size(mesh),
+                              sh.axis_rank(mesh, "model"))
         device = resolve_device(device)
-        params = ck.restore_any(path, target, device=device)
-        return cls(cfg, params, settings, device=device)
+        params = ck.restore_any(path, target, cuts=cuts, device=device)
+        return cls(cfg, params, settings, mesh=mesh, device=device)
 
 
 def _to_device(tree, device: torch.device):

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro import configs as ref_configs  # noqa: E402
 from repro.kernels import common as ref_common  # noqa: E402
 from repro.models import transformer as ref_tr  # noqa: E402

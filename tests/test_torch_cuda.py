@@ -63,6 +63,11 @@ def test_no_kernel_for_other_devices():
     (4, 4, 256, None, torch.float32, torch.float32),
     (8, 1, 8, 5, torch.float32, torch.float32),
     (24, 2, 128, None, torch.bfloat16, torch.bfloat16),  # > 48 KB smem
+    # the local heads of a rank at model 2: eris-gptneo-1.3b, qwen2-0.5b
+    (8, 8, 128, None, torch.float32, torch.float32),
+    (8, 8, 128, None, torch.bfloat16, torch.bfloat16),
+    (7, 1, 64, None, torch.float32, torch.float32),
+    (7, 1, 64, None, torch.bfloat16, torch.bfloat16),
 ])
 def test_cuda_kernel_matches_plain_version(cuda, H, KV, hd, window, qdt,
                                            kvdt):

@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro import data as ref_data  # noqa: E402
 from repro.core import fl as ref_fl  # noqa: E402
 from repro_torch import data, random  # noqa: E402

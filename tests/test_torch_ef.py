@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.core import compressors as ref_comp  # noqa: E402
 from repro.core import dsc as ref_dsc  # noqa: E402
 from repro.core import error_feedback as ref_ef  # noqa: E402

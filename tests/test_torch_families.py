@@ -29,6 +29,7 @@ from jax.flatten_util import ravel_pytree
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.core import fl as ref_fl  # noqa: E402
 from repro.core.compressors import RandP as RefRandP  # noqa: E402

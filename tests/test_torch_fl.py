@@ -1,8 +1,10 @@
 """The port's FL round against the reference, on the CPU: the flat-vector
-math (Theorem B.1, the compressors' constants, masks, server optimizers),
-the LM loss and its gradients, the parameter flattening order, and whole
-``FLRun`` trajectories, each side drawing its own keys from the same
-seed (the port's threefry stream is jax's).
+math (Theorem B.1, the compressors' constants, masks, server optimizers)
+and whole ``FLRun`` trajectories, each side drawing its own keys from the
+same seed (the port's threefry stream is jax's).  The LM loss, its
+gradients and the flattening order are ``tests/test_torch_fl_grads.py``;
+the smoke model's rounds with flash attention,
+``tests/test_torch_fl_flash.py`` and ``tests/test_torch_fl_flash_dsc.py``.
 
 Trajectories are held to 1e-5 relative norm, not to bits: the two
 frameworks' gradients differ in the last bits, and the streamed client
@@ -15,11 +17,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.flatten_util import ravel_pytree
 
 torch = pytest.importorskip("torch")
 
-from repro.configs import get_config as ref_get_config  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.core import baselines as ref_bl  # noqa: E402
 from repro.core import dsc as ref_dsc  # noqa: E402
 from repro.core import fl as ref_fl  # noqa: E402
@@ -28,18 +29,13 @@ from repro.core import server_opt as ref_so  # noqa: E402
 from repro.core.compressors import Identity as RefIdentity  # noqa: E402
 from repro.core.compressors import Int8RoundTrip as RefInt8RoundTrip  # noqa: E402
 from repro.core.compressors import RandP as RefRandP  # noqa: E402
-from repro.core.compressors import TopK as RefTopK  # noqa: E402
 from repro.core.pipeline import split_round_keys  # noqa: E402
-from repro.models import transformer as ref_tr  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import params_from_jax, ravel_params  # noqa: E402
 from repro_torch import random  # noqa: E402
 from repro_torch.core import dsc, fl, fsa, masks, pipeline  # noqa: E402
 from repro_torch.core import server_opt  # noqa: E402
 from repro_torch.core.compressors import (Identity, Int8RoundTrip,  # noqa: E402
                                           RandP, TopK)
 from repro_torch.launch import fl_train  # noqa: E402
-from repro_torch.models import transformer as tr  # noqa: E402
 
 DIM, HID, CLASSES, K, S = 8, 16, 3, 3, 16
 SMOKE_N = 1_443_072        # eris-gptneo-1.3b's smoke variant's parameters
@@ -361,191 +357,6 @@ def test_flrun_round_keys_and_kernel_seeds_equal_reference(flag, monkeypatch):
             np.testing.assert_array_equal(got.numpy(), sub)
     finally:
         jax.config.update("jax_threefry_partitionable", old)
-
-
-# ---------------------------------------------------- model, flattening
-def _smoke_pair(dtype="float32", flash=False, arch="eris-gptneo-1.3b"):
-    ref_cfg = dataclasses.replace(ref_get_config(arch).smoke(),
-                                  flash_attention=flash, dtype=dtype)
-    cfg = dataclasses.replace(get_config(arch).smoke(),
-                              flash_attention=flash, dtype=dtype)
-    p = ref_tr.init_params(jax.random.PRNGKey(0), ref_cfg)
-    return ref_cfg, cfg, p, params_from_jax(jax.tree.map(np.asarray, p),
-                                            "cpu")
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ravel_params_order_equals_ravel_pytree(dtype):
-    _, _, p, pt = _smoke_pair(dtype)
-    want, _ = ravel_pytree(p)
-    flat, unravel = ravel_params(pt)
-    assert flat.dtype == getattr(torch, dtype) and flat.numel() == 1_443_072
-    np.testing.assert_array_equal(flat.float().numpy(),
-                                  np.asarray(want.astype(jnp.float32)))
-    # unravel casts each leaf back to its own dtype, as JAX's does
-    back = unravel(flat.float())
-    assert back["blocks"]["wq"].dtype == getattr(torch, dtype)
-    assert torch.equal(back["embed"], pt["embed"])
-
-
-# the zoo's dense and audio members: eris-gptneo-1.3b flash off and on,
-# the others flash off but starcoder2-3b (flash is held in its own tests,
-# and the Pallas kernels' interpret mode is slow)
-ZOO_GRAD_CASES = [("eris-gptneo-1.3b", False), ("eris-gptneo-1.3b", True),
-                  ("qwen3-32b", False), ("musicgen-medium", False),
-                  ("starcoder2-3b", True), ("starcoder2-15b", False)]
-
-
-@pytest.mark.parametrize(
-    "arch,flash", ZOO_GRAD_CASES,
-    ids=[str(f) if a == "eris-gptneo-1.3b" else f"{a}-{f}"
-         for a, f in ZOO_GRAD_CASES])
-def test_loss_and_every_grad_match_reference(arch, flash):
-    """A zoo member's smoke variant in f32, flash attention off or on
-    on both sides (on: the reference's Pallas kernels in interpret mode,
-    the port's Function through its plain versions): the loss and the
-    gradient of every leaf within 1e-5 relative norm, with and without a
-    loss mask."""
-    ref_cfg, cfg, p, pt = _smoke_pair(flash=flash, arch=arch)
-    rng = np.random.default_rng(6)
-    toks = rng.integers(0, cfg.vocab, size=(2, 16)).astype(np.int32)
-    mask = (rng.random((2, 16)) < 0.7).astype(np.float32)
-    for use_mask in (False, True):
-        batch = {"tokens": jnp.asarray(toks)}
-        tbatch = {"tokens": torch.from_numpy(toks)}
-        if use_mask:
-            batch["loss_mask"] = jnp.asarray(mask)
-            tbatch["loss_mask"] = torch.from_numpy(mask)
-        want_l, want_g = jax.value_and_grad(
-            lambda q: ref_tr.loss_fn(q, ref_cfg, batch))(p)
-        leaves = {k: v.requires_grad_() for k, v in
-                  [(k, t.clone()) for k, t in _flat(pt)]}
-        loss = tr.loss_fn(_unflat(leaves), cfg, tbatch)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        assert abs(float(loss.detach()) - float(want_l)) < \
-            1e-5 * abs(float(want_l))
-        ref_leaves = dict(_flat(want_g))
-        for (name, _), g in zip(leaves.items(), grads):
-            assert _rel(g.numpy(), ref_leaves[name]) < 1e-5, name
-
-
-def _flat(tree, prefix=""):
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            yield from _flat(tree[k], prefix + k + "/")
-        else:
-            yield prefix + k, tree[k]
-
-
-def _unflat(leaves):
-    out = {}
-    for name, t in leaves.items():
-        node = out
-        *path, last = name.split("/")
-        for part in path:
-            node = node.setdefault(part, {})
-        node[last] = t
-    return out
-
-
-def test_flash_attention_training_runs_the_flash_function_and_prefill_does_not(
-        monkeypatch):
-    """With cfg.flash_attention, the training shapes the reference sends
-    through its Pallas flash kernels go through the port's flash Function:
-    on the CPU its forward and both backward plain versions run once per
-    layer, and the chunked attention never does.  Prefill and a shape the
-    128-blocks do not tile take the chunked attention, as the reference
-    routes them."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import layers
-    _, cfg, _, pt = _smoke_pair(flash=True)
-    calls = {"flash_fwd_ref": 0, "flash_dq_ref": 0, "flash_dkv_ref": 0,
-             "causal_attention": 0}
-
-    def spy(module, name):
-        fn = getattr(module, name)
-
-        def counted(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        monkeypatch.setattr(module, name, counted)
-
-    for name in ("flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref"):
-        spy(fa, name)
-    spy(layers, "causal_attention")
-    leaves = {n: t.clone().requires_grad_() for n, t in _flat(pt)}
-    toks = torch.zeros(2, 16, dtype=torch.int32)
-    loss = tr.loss_fn(_unflat(leaves), cfg, {"tokens": toks})
-    torch.autograd.grad(loss, list(leaves.values()))
-    L = cfg.n_layers
-    assert calls == {"flash_fwd_ref": L, "flash_dq_ref": L,
-                     "flash_dkv_ref": L, "causal_attention": 0}
-    assert tr.uses_flash_kernel(cfg, 16) and not tr.uses_flash_kernel(cfg, 192)
-    logits, caches, _ = tr.forward(pt, cfg, toks, "prefill")
-    assert logits.shape == (2, 16, cfg.vocab) and caches is not None
-    assert not logits.requires_grad
-    tr.loss_fn(pt, cfg, {"tokens": torch.zeros(1, 192, dtype=torch.int32)})
-    assert calls["causal_attention"] == 2 * L
-    assert calls["flash_fwd_ref"] == L
-
-
-# the round on the smoke model with flash on both sides, each run keyed
-# by its own seed: DSC alone, participation, error feedback and fresh
-# masks hold the reference to 1e-5 like the MLP trajectories; on the int8
-# wire a code flips where a draw falls within an ulp of its fraction, so
-# two gradients that differ in their last bits move x by a quantization
-# step here and there (1e-4, as the card-vs-host round in
-# test_torch_cuda.py).  (FLConfig fields, compressor, tolerance)
-FLASH_ROUNDS = {
-    "dsc-pallas": (dict(use_dsc=True, compress_impl="pallas"), "rand_p",
-                   1e-5),
-    "dsc-int8-fused": (dict(use_dsc=True, int8_wire=True,
-                            compress_impl="fused"), "rand_p", 1e-4),
-    "dsc-jnp": (dict(use_dsc=True), "rand_p", 1e-5),
-    "dsc-jnp-int8": (dict(use_dsc=True, int8_wire=True), "rand_p", 1e-4),
-    "participation": (dict(participation=0.5, K=3), "identity", 1e-5),
-    "ef-topk": (dict(use_ef=True), "top_k", 1e-5),
-    "fresh-masks-random": (dict(fresh_masks=True, mask_scheme="random"),
-                           "identity", 1e-5),
-}
-
-
-def _compressors(name):
-    """(reference's, port's) compressor of a FLASH_ROUNDS case."""
-    if name == "rand_p":
-        return RefRandP(p=0.25), RandP(p=0.25)
-    if name == "top_k":
-        return RefTopK(k=SMOKE_N // 10), TopK(k=SMOKE_N // 10)
-    return RefIdentity(), Identity()
-
-
-@pytest.mark.parametrize("case", sorted(FLASH_ROUNDS))
-def test_flrun_with_flash_tracks_reference_on_the_smoke_model(case):
-    """Two eris rounds (K = 2 unless the case says, A = 8, 2 x 16 tokens a
-    client) of eris-gptneo-1.3b's smoke variant with flash_attention on
-    both sides, each run keyed by its own seed: no seed is handed over."""
-    fields, comp, tol = FLASH_ROUNDS[case]
-    ref_comp, port_comp = _compressors(comp)
-    ref_cfg, cfg, p, pt = _smoke_pair(flash=True)
-    kw = dict(dict(method="eris", K=2, A=8, lr=0.1), **fields)
-    ref_run = ref_fl.FLRun(ref_fl.FLConfig(**kw, compressor=ref_comp), p,
-                           lambda q, b: ref_tr.loss_fn(q, ref_cfg,
-                                                       {"tokens": b}))
-    run = fl.FLRun(fl.FLConfig(**kw, compressor=port_comp), pt,
-                   lambda q, b: tr.loss_fn(q, cfg, {"tokens": b}),
-                   device="cpu")
-    toks = np.random.default_rng(7).integers(
-        0, cfg.vocab, size=(kw["K"], 2, 16)).astype(np.int32)
-    dropped = 0
-    for t in range(2):
-        ref_run.step(jnp.asarray(toks))
-        run.step(torch.from_numpy(toks))
-        assert _rel(run.x.numpy(), np.asarray(ref_run.x)) < tol, t
-        w = pipeline.participation_weights(run.keys.part, kw["K"],
-                                           run.cfg.participation)
-        dropped += 0 if w is None else int((w == 0).sum())
-    # the participation case drops a client in one of its rounds
-    assert (dropped > 0) == (case == "participation")
 
 
 @pytest.mark.parametrize("p,int8,chunk", [(0.25, False, None),

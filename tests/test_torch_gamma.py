@@ -30,6 +30,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from jax._src import prng as jax_prng  # noqa: E402
 
 from repro_torch import random  # noqa: E402

@@ -17,6 +17,7 @@ from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.kernels import paged_attention as ref_pa  # noqa: E402
 from repro.models import layers as ref_L  # noqa: E402

@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 dist = pytest.importorskip("torch.distributed")
 
+from torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from repro.checkpoint import msgpack_ckpt as ref_ck  # noqa: E402

@@ -45,6 +45,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -27,6 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.core import masks as ref_masks  # noqa: E402
 from repro.core import privacy as ref_privacy  # noqa: E402
 from repro.privacy import harness as ref_harness  # noqa: E402

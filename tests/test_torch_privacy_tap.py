@@ -41,6 +41,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from conftest import SUBPROC_ENV  # noqa: E402
 from repro.privacy import views as ref_views  # noqa: E402
 from repro_torch.core.compressors import RandP  # noqa: E402

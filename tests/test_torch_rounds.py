@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.core import baselines as ref_bl  # noqa: E402
 from repro.core import eris as ref_eris  # noqa: E402
 from repro.core import fl as ref_fl  # noqa: E402

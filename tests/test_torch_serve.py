@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.models import transformer as ref_tr  # noqa: E402
 from repro.serve import ServeEngine as RefServeEngine  # noqa: E402

@@ -29,6 +29,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.models import ssm as ref_ssm  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 

@@ -37,6 +37,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -243,11 +244,12 @@ COMMON = textwrap.dedent("""
 """)
 
 
-def _inputs() -> dict:
-    """Every case's numpy params (in the reference's init scales), tokens
-    and loss mask, under "name/param/path", "name/tokens", "name/mask"."""
+def _inputs(cases) -> dict:
+    """Every case's numpy params (in the reference's init scales), tokens,
+    loss mask and a vlm's image embeddings, under "name/param/path",
+    "name/tokens", "name/mask", "name/fe"."""
     out = {}
-    for k, (name, tp, arch, over, mask) in enumerate(CASES):
+    for k, (name, tp, arch, over, mask) in enumerate(cases):
         cfg = dataclasses.replace(get_config(arch).smoke(), **over)
         rng = np.random.default_rng(1000 + k)
         for path, shape in sh.spec_items(cfg):
@@ -265,6 +267,10 @@ def _inputs() -> dict:
         if mask:
             out[f"{name}/mask"] = (rng.random((B, S)) > 0.3).astype(
                 np.float32)
+        if cfg.frontend == "vlm":
+            out[f"{name}/fe"] = rng.standard_normal(
+                (B, cfg.n_frontend_tokens, cfg.d_frontend)).astype(
+                    np.float32)
     return out
 
 REF_SCRIPT = COMMON + textwrap.dedent("""
@@ -339,6 +345,8 @@ REF_SCRIPT = COMMON + textwrap.dedent("""
         batch = {"tokens": jnp.asarray(raw[name + "/tokens"])}
         if mask:
             batch["loss_mask"] = jnp.asarray(raw[name + "/mask"])
+        if name + "/fe" in raw.files:
+            batch["frontend_embeds"] = jnp.asarray(raw[name + "/fe"])
         rep_loss, rep_grads = jax.jit(jax.value_and_grad(
             lambda p: tr.loss_fn(p, cfg, batch)))(params)
         mesh = Mesh(np.array(jax.devices()[:tp]), ("model",))
@@ -367,8 +375,8 @@ REF_SCRIPT = COMMON + textwrap.dedent("""
             out[f"{name}/rep_g{i}"] = np.asarray(r)
 
     # part k of the reference's work: every parts-th case, and the
-    # conjugates in the last part
-    if part == parts - 1:
+    # conjugates (where the run takes them) in the last part
+    if part == parts - 1 and spec["conj"]:
         for tp in (2, 4):
             conjugates(tp)
     for case in spec["cases"][part::parts]:
@@ -441,6 +449,8 @@ PORT_WORKER = COMMON + textwrap.dedent("""
         batch = {"tokens": torch.from_numpy(raw[name + "/tokens"])}
         if mask:
             batch["loss_mask"] = torch.from_numpy(raw[name + "/mask"])
+        if name + "/fe" in raw.files:
+            batch["frontend_embeds"] = torch.from_numpy(raw[name + "/fe"])
         specs = sh.tp_specs(cfg, tp)
         rt = sp.TPRuntime(groups[tp], tp, rank % tp, sp.build_plan(cfg, tp))
         local = tree_map(lambda x, s: sh.tp_shard(x, s, tp, rank % tp)
@@ -452,8 +462,9 @@ PORT_WORKER = COMMON + textwrap.dedent("""
         for i, g in enumerate(grads):
             out[f"{name}/g{i}"] = g.numpy()
 
-    for tp in (2, 4):
-        conjugates(tp)
+    if spec["conj"]:
+        for tp in (2, 4):
+            conjugates(tp)
     for case in spec["cases"]:
         run_case(*case)
     np.savez(os.path.join(work, f"port_{rank}.npz"), **out)
@@ -461,15 +472,16 @@ PORT_WORKER = COMMON + textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def launch(tmp_path_factory, cases, conj: bool):
     """The reference's subprocesses (its work cut in ``REF_PARTS``, whose
     compiles take most of the time) and the port's four-rank launch, side
-    by side, on the same numpy inputs.  Returns (the reference's arrays,
+    by side, on the same numpy inputs: ``cases``' losses and gradients,
+    and with ``conj`` the conjugates.  Returns (the reference's arrays,
     the four ranks' arrays)."""
     work = tmp_path_factory.mktemp("tp")
-    (work / "spec.json").write_text(json.dumps({"cases": CASES}))
-    np.savez(work / "inputs.npz", **_inputs())
+    (work / "spec.json").write_text(json.dumps({"cases": cases,
+                                                "conj": conj}))
+    np.savez(work / "inputs.npz", **_inputs(cases))
     (work / "worker.py").write_text(PORT_WORKER)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = [
@@ -496,6 +508,12 @@ def runs(tmp_path_factory):
     for part in range(REF_PARTS):
         ref.update(np.load(work / f"ref{part}.npz"))
     return ref, [dict(np.load(work / f"port_{r}.npz")) for r in range(4)]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The reference's twelve cases and the conjugates, both packages."""
+    return launch(tmp_path_factory, CASES, conj=True)
 
 
 CONJ_TOL = {"ring_attn": 2e-6, "ring_attn_window": 2e-6,
@@ -535,10 +553,7 @@ def _grad_err(got, want):
                  / max(np.max(np.abs(want)), 1e-4))
 
 
-@pytest.mark.parametrize("name,tp,arch,over,mask", CASES,
-                         ids=[c[0] for c in CASES])
-def test_tp_loss_fn_matches_the_references(runs, name, tp, arch, over,
-                                           mask):
+def check_case(runs, name, tp, arch, over):
     """The port's TP loss and gradients (each rank's shards merged,
     partial leaves all-reduced) against the reference's TP loss_fn and
     its replicated one: loss within ``LOSS_TOL``, each leaf within
@@ -567,3 +582,11 @@ def test_tp_loss_fn_matches_the_references(runs, name, tp, arch, over,
             assert got.shape == want.shape, (name, i)
             err = _grad_err(got, want)
             assert err <= GRAD_TOL, (name, kind, i, err)
+
+
+@pytest.mark.parametrize("name,tp,arch,over,mask", CASES,
+                         ids=[c[0] for c in CASES])
+def test_tp_loss_fn_matches_the_references(runs, name, tp, arch, over,
+                                           mask):
+    """The reference's twelve cases (:func:`check_case`)."""
+    check_case(runs, name, tp, arch, over)

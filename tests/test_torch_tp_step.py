@@ -29,6 +29,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from conftest import SUBPROC_ENV  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import tree_leaves  # noqa: E402

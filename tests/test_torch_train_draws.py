@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.core import secure_agg as ref_sa  # noqa: E402
 from repro.core.eris import ROLE_SALTS as REF_SALTS  # noqa: E402
 from repro.core.pipeline import ARRIVAL_SALT as REF_ARRIVAL  # noqa: E402

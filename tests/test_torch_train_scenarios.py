@@ -10,9 +10,12 @@ forced host devices) and on the port's (four gloo ranks), with
 the params' error as a share of the reference's motion, with the planted
 fault (one rank's rows left out) beyond each row's tolerance.
 ``none+none`` and ``int8+none`` are that file's ``fsa_sgd`` and ``int8``
-rows and are not run again.  The same launch runs the port's FedBuff
-step alone: against the port's ``eris_async`` simulator, and with
-trivial arrivals and cadence 1 against the synchronous step, bit for bit.
+rows and are not run again.  The cells are cut over two launches: the
+wire cells (none, int8, dsc_int8) here, the LDP and secure-aggregation
+cells in ``tests/test_torch_train_scenarios_ldp.py``.  This file's launch
+also runs the port's FedBuff step alone: against the port's
+``eris_async`` simulator, and with trivial arrivals and cadence 1
+against the synchronous step, bit for bit.
 """
 import importlib.util
 import json
@@ -25,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from conftest import SUBPROC_ENV  # noqa: E402
 from repro.core.rounds import scenarios as ref_scenarios  # noqa: E402
 from repro_torch import random  # noqa: E402
@@ -80,6 +84,10 @@ TOLERANCES = {
 }
 CELLS = [c.name for c in ref_scenarios.scenario_matrix()
          if c.name not in ALREADY_RUN]
+# the cells this file runs; the LDP and secure-aggregation ones are
+# tests/test_torch_train_scenarios_ldp.py's, one launch each
+LDP_CELLS = [c for c in CELLS if c.startswith(("ldp", "secure_agg"))]
+WIRE_CELLS = [c for c in CELLS if c not in LDP_CELLS]
 # the port alone: its FedBuff step on the int8 wire with trivial arrivals,
 # cadence 2 over four steps against its simulator, and cadence 1 against
 # the synchronous step
@@ -95,22 +103,22 @@ PORT_ONLY = [
 ]
 
 
-def _rows():
+def _rows(cells):
     kw = _dist_settings_kw()
     return [(name, "float32", ["sgd", LR], kw(ref_scenarios.get(name)))
-            for name in CELLS]
+            for name in cells]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The reference's and the port's four-rank launches, side by side.
-    Returns (the reference's arrays, the port's ranks' arrays)."""
+def launch(tmp_path_factory, cells, port_only):
+    """The reference's and the port's four-rank launches, side by side,
+    of ``cells`` (and the port's own ``port_only`` rows).  Returns (the
+    reference's arrays, the port's ranks' arrays)."""
     work = tmp_path_factory.mktemp("scenarios")
     params, toks = _inputs()
     np.savez(work / "inputs.npz", tokens=toks, **params)
     (work / "configs.json").write_text(json.dumps(
-        {str(A): _rows(), "steps": STEPS, "ckpt": None,
-         "port_only": {str(A): PORT_ONLY},
+        {str(A): _rows(cells), "steps": STEPS, "ckpt": None,
+         "port_only": {str(A): port_only},
          "steps_of": {"async_sim": ASYNC_STEPS}, "traj": ["async_sim"]}))
     (work / "worker.py").write_text(PORT_WORKER)
     procs = [
@@ -137,6 +145,13 @@ def runs(tmp_path_factory):
             [dict(np.load(work / f"port{A}_{r}.npz")) for r in range(A)])
 
 
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The wire cells (none, int8, dsc_int8) and the port-only FedBuff
+    rows."""
+    return launch(tmp_path_factory, WIRE_CELLS, PORT_ONLY)
+
+
 def test_the_draws_exercise_every_failure_and_arrival_path():
     """At four ranks and keys ``PRNGKey(0..2)`` the scenario pack's failure
     draws kill aggregators 2 and 3, then 2, then 1 and 3, and one to
@@ -161,15 +176,14 @@ def test_the_draws_exercise_every_failure_and_arrival_path():
     assert dropped[0] == [0, 2], dropped
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_scenario_cell_matches_reference_step(runs, name):
+def check_cell(runs, name):
     """Params, losses and grad norms after three steps within the cell's
     tolerance of the reference's, the planted fault beyond it; the
     FedBuff buffer (u, w, t) of the ``client_drop`` cells too; losses and
     grad norms equal on every rank."""
     ref, ranks = runs
     tol, metric_tol = TOLERANCES[name]
-    fields = {n: f for n, _, _, f in _rows()}[name]
+    fields = {n: f for n, _, _, f in _rows([name])}[name]
     dims = _dims(fields)
     want = [ref[f"{name}/p{i}"] for i in range(len(dims))]
     got = _port_params(ranks, name, fields)
@@ -196,6 +210,11 @@ def test_scenario_cell_matches_reference_step(runs, name):
             np.testing.assert_array_equal(
                 _assemble(ranks, f"{name}/buf_u{i}", d),
                 ref[f"{name}/buf_u{i}"])
+
+
+@pytest.mark.parametrize("name", WIRE_CELLS)
+def test_scenario_cell_matches_reference_step(runs, name):
+    check_cell(runs, name)
 
 
 def _flat(ranks, name, fields, step=None):

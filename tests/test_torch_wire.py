@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_thread  # noqa: E402,F401
 from repro.core import dsc as ref_dsc  # noqa: E402
 from repro.core.compressors import Int8RoundTrip as RefInt8RoundTrip  # noqa: E402
 from repro.core.compressors import RandP as RefRandP  # noqa: E402
