@@ -13,13 +13,14 @@ hymba-1.5b trained, beam-searched and in ERIS rounds, internvl2-26b at
 reduced depth), the model axis (tensor, context and expert
 parallelism: ranks sharing the card over gloo), and the pipe axis (the
 1F1B wavefront over gloo ranks, its composite checkpoint served through
-``ServeEngine.from_checkpoint``), and serving over a (data, model) mesh
-of gloo ranks, on one NVIDIA card.
+``ServeEngine.from_checkpoint``), serving over a (data, model) mesh
+of gloo ranks, and the account of the step against its dry run on the
+meta device, on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--only 16 17 18]
+    python3 chip_smoke.py [--seed 0] [--only 16 17 18 19]
 
 ``--only`` runs the device, the build and the named multi-rank phases
-alone, and prints no result line.
+(and the account) alone, and prints no result line.
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
@@ -282,7 +283,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     256 (ring attention over its 25 heads, the channel-sharded mamba
     head), with the same gates; then three steps of the distributed
     step at (data 1, model 2), phase 11's DSC fused int8 settings, adam
-    lr 1e-5: losses finite and falling, one ``dsc_quantize`` and one
+    lr 1e-5, the first under an account (phase 19): losses finite and
+    falling, one ``dsc_quantize`` and one
     ``dequantize`` a leaf a step, n_layers launches of each flash kernel
     a step.  (b) four ranks: qwen2-0.5b at full width at tp = 4 (ring
     attention for its 2 kv heads, the vocab-parallel CE, the FFN
@@ -333,7 +335,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     requests; tokens equal to phase 17's meshless ``from_checkpoint``),
     or, under ``--only 18``, from a smoke checkpoint saved there.  Every
     rank's paged launches join the kernels line.
-19. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+19. the account (``launch/accounting.py``): (a) on a one-rank NCCL
+    group, phase 11's eris-gptneo-1.3b step (full width, 8 x 64 tokens,
+    adam) in its (c) int8 and (b) DSC fused int8 configurations from
+    fresh params, one step each under an ``Account`` on the card, then
+    the same step on meta twins of its inputs under another: the flops,
+    every kernel's launches and declared work and the argument bytes
+    equal, the traffic within ``ACCOUNT_TRAFFIC_TOL``, the meta peak
+    over the arguments within 20% of the card's ``max_memory_allocated``
+    rise over the step; (b) rank 0's account of phase 16 (a)'s first
+    step at (data 1, model 2) over gloo against that step's dry run at a
+    fake world of 2 in a subprocess: the collective records equal per
+    axis, kind and dtype in bytes and counts, the flops equal, the
+    card's host staging reported apart.  Prints both records' flops,
+    per-axis bytes, peak and the card's step ms.
+20. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -341,6 +357,7 @@ Builds go to ``build/kernels/`` (listed in .gitignore).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -388,6 +405,7 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import ref as wire_ref  # noqa: E402
 from repro_torch.launch import fl_train  # noqa: E402
+from repro_torch.launch.accounting import Account  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
@@ -4032,19 +4050,24 @@ def _tp_step(dev, seed, rank) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _set_round_launches(0)
     losses, ms = [], []
+    # step 1 runs under an account (phase 19 holds it to its dry run)
+    acc = Account(mesh, dev, inputs=(params, state, dsc_ref, toks))
     for i in range(TP_STEPS):
         start, end = _event_pair()
-        start.record()
-        params, state, dsc_ref, m = step(params, state, dsc_ref,
-                                         {"tokens": toks}, random.PRNGKey(i))
-        end.record()
+        with acc if i == 0 else contextlib.nullcontext():
+            start.record()
+            params, state, dsc_ref, m = step(params, state, dsc_ref,
+                                             {"tokens": toks},
+                                             random.PRNGKey(i))
+            end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
         losses.append(float(m["loss"]))
     launches = {k: fn.launches for k, fn in ROUND.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"  rank {rank}: step {name} at (data 1, model 2), adam lr "
-          f"{TP_STEP_LR}: losses {losses}, ms {[round(x, 1) for x in ms]}, "
+          f"{TP_STEP_LR}: losses {losses}, ms {[round(x, 1) for x in ms]} "
+          f"(step 1 under the account), "
           f"launches {launches}, peak {peak:.2f} GB (this rank)",
           flush=True)
     check(all(math.isfinite(x) for x in losses) and
@@ -4059,7 +4082,8 @@ def _tp_step(dev, seed, rank) -> dict:
               f"TP step: {k} launched {launches[k]}, want "
               f"{cfg.n_layers} a step")
     del params, state, dsc_ref
-    return dict(losses=losses, ms=ms, peak_gb=peak, launches=launches)
+    return dict(losses=losses, ms=ms, peak_gb=peak, launches=launches,
+                account=acc.record())
 
 
 def _smoke_run(d, seed, mesh, settings) -> tuple:
@@ -4141,13 +4165,13 @@ def _tp_rank(rank: int, world: int, port: int, part: str, seed: int,
     res = {"backend": str(dist.get_backend()), "cases": {}}
     try:
         world_group = dist.group.WORLD
-        cases = TP_PARITY_A if part == "a" else TP_PARITY_B
+        cases = {"a": TP_PARITY_A, "b": TP_PARITY_B, "step": ()}[part]
         for arch, layers, tokens, tp in cases:
             res["cases"][arch] = _tp_parity(dev, seed, rank, arch, layers,
                                             tokens, tp, world_group)
             gc.collect()
             torch.cuda.empty_cache()
-        if part == "a":
+        if part in ("a", "step"):
             res["step"] = _tp_step(dev, seed, rank)
         else:
             res["smoke"] = _tp_smoke(dev, seed, rank)
@@ -4158,11 +4182,11 @@ def _tp_rank(rank: int, world: int, port: int, part: str, seed: int,
     pathlib.Path(out_dir, f"{part}{rank}.json").write_text(json.dumps(res))
 
 
-def model_axis_phase(dev, seed) -> dict:
+def model_axis_phase(dev, seed) -> tuple:
     """Phase 16: (a) two ranks, (b) four, each a ``torch.multiprocessing``
     launch of processes on cuda:0 over gloo groups.  Returns the main
     path's launches (the TP gradients and steps of (a), summed over
-    ranks)."""
+    ranks) and rank 0's account of (a)'s first step."""
     import tempfile
     import torch.multiprocessing as mp
     from repro_torch.launch import mesh as mesh_lib
@@ -4193,7 +4217,22 @@ def model_axis_phase(dev, seed) -> dict:
                         totals[k] += n
                 for k, n in r.get("step", {}).get("launches", {}).items():
                     totals[k] += n
-    return totals
+            if part == "a":
+                account = ranks[0]["step"]["account"]
+    return totals, account
+
+
+def _tp_step_account(dev, seed) -> dict:
+    """Rank 0's account of phase 16 (a)'s first step, from a two-rank
+    launch of that step alone (``--only 19`` without 16)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.launch import mesh as mesh_lib
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        mp.spawn(_tp_rank, args=(2, mesh_lib.free_port(), "step", seed,
+                                 out), nprocs=2, join=True)
+        return json.loads(pathlib.Path(out, "step0.json").read_text())[
+            "step"]["account"]
 
 
 # ------------------------------------------------------------------ phase 17
@@ -5024,10 +5063,198 @@ def serve_mesh_phase(dev, seed, out, served) -> tuple:
     return launches, timing
 
 
+# ------------------------------------------------------------------ phase 19
+# The account (launch/accounting.py): the card's step counted as it runs
+# against the same step's dry run on the meta device.  (a) one rank over
+# NCCL, phase 11's eris-gptneo-1.3b step at full width (8 x 64 tokens,
+# adam at phase 11's lr) in configurations (c) int8 and (b) DSC fused
+# int8, each from fresh params: flops, every kernel's launches and
+# declared work, and the arguments equal; the traffic within
+# ACCOUNT_TRAFFIC_TOL (the ops that branch on the device: the flash
+# backward lays a do that is off 16 bytes out afresh on the card only);
+# the meta peak over the arguments within ACCOUNT_PEAK_TOL of the card's
+# max_memory_allocated rise over the step (the allocator rounds each block
+# up to 512 bytes).  (b) rank 0's account of phase 16 (a)'s first step at
+# (data 1, model 2) over gloo against the dry run of that step at a fake
+# world of 2 in a subprocess: the collective records equal per axis, kind
+# and dtype, in bytes and counts, the flops equal, the host staging (the
+# card's gloo copies) reported apart.
+ACCOUNT_CONFIGS = (TRAIN_CONFIGS[2], TRAIN_CONFIGS[1])
+ACCOUNT_TRAFFIC_TOL = 1e-3
+ACCOUNT_PEAK_TOL = 0.2
+
+_TP_DRYRUN = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch import random
+from repro_torch.configs import get_config
+from repro_torch.launch import mesh as mesh_lib, train
+from repro_torch.launch.accounting import Account
+from repro_torch.optim import adam
+spec = json.loads(sys.argv[2])
+mesh_lib.init_dryrun_group(2)
+mesh = mesh_lib.make_host_mesh(data=1, model=2, device="cpu")
+cfg = get_config(spec["arch"])
+settings = train.TrainSettings(**spec["fields"])
+opt = adam(spec["lr"])
+step = train.make_train_step(cfg, mesh, opt, settings, device="meta")
+state = train.abstract_train_state(cfg, mesh, opt, settings)
+toks = torch.empty(spec["tokens"], dtype=torch.int32, device="meta")
+with Account(mesh, "meta", inputs=(*state, toks)) as acc:
+    step(*state, {"tokens": toks}, random.PRNGKey(0))
+print("DRYRUN" + json.dumps(acc.record()))
+"""
+
+
+def _meta_twin(tree):
+    """``tree`` with every CUDA tensor replaced by a meta tensor of its
+    shape, dtype and strides, and the host ones copied."""
+    import torch.utils._pytree as pytree
+    return pytree.tree_map(
+        lambda t: (torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device="meta") if t.is_cuda
+                   else t.clone()), tree)
+
+
+def _headline(rec: dict) -> str:
+    cb = rec["collective_bytes"]
+    return (f"flops {rec['flops']:.6e}, traffic {rec['traffic_bytes']:.6e} "
+            f"B, peak {rec['peak_bytes']} B over arguments "
+            f"{rec['argument_bytes']} B, staging {rec['staging_bytes']} B, "
+            f"collectives by axis {json.dumps(cb['axes'])}, kernels "
+            f"{json.dumps(rec['kernels'])}")
+
+
+def _account_card(dev, seed, cfg, mesh, toks, name, fields) -> dict:
+    """One step of a phase 11 configuration on the card under an account,
+    then the same step on meta twins of its inputs; the gates."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adam
+    _expect_free_card(f"before the account of {name}")
+    settings = train.TrainSettings(**fields)
+    opt = adam(TRAIN_LR)
+    step = train.make_train_step(cfg, mesh, opt, settings, device=dev)
+    params = train.store_params(tr.init_params(cfg, seed=seed, device=dev),
+                                cfg, mesh, settings)
+    inputs = [params, opt.init(params),
+              train.init_dsc_state(cfg, mesh, settings, device=dev),
+              {"tokens": toks}]
+    twins = _meta_twin(inputs)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _set_round_launches(0)                        # the main path starts
+    start, end = _event_pair()
+    with Account(mesh, dev, inputs=inputs) as card:
+        start.record()
+        out = step(*inputs, random.PRNGKey(0))
+        end.record()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in ROUND.items()}  # it ended
+    rise = torch.cuda.max_memory_allocated() - base
+    ms = start.elapsed_time(end)
+    loss = float(out[3]["loss"])
+    check(math.isfinite(loss), f"account {name}: loss {loss}")
+    del out, inputs
+    meta_step = train.make_train_step(cfg, mesh, opt, settings,
+                                      device="meta")
+    with Account(mesh, "meta", inputs=twins) as meta:
+        meta_step(*twins, random.PRNGKey(0))
+    c, m = card.record(), meta.record()
+    temp = m["peak_bytes"] - m["argument_bytes"]
+    print(f"  {name}: card step {ms:.1f} ms (the account's own cost "
+          f"included), loss {loss:.4f}, max_memory_allocated rise {rise} B"
+          f"\n    card: {_headline(c)}\n    meta: {_headline(m)}",
+          flush=True)
+    check(c["flops"] == m["flops"], f"account {name}: flops card "
+          f"{c['flops']} vs meta {m['flops']}")
+    check(c["kernels"] == m["kernels"], f"account {name}: kernels card "
+          f"{c['kernels']} vs meta {m['kernels']}")
+    check(all(launches[k] == v["launches"] for k, v in c["kernels"].items())
+          and sum(launches.values()) == sum(v["launches"] for v in
+                                            c["kernels"].values()),
+          f"account {name}: launches {launches} vs declarations "
+          f"{c['kernels']}")
+    check(c["argument_bytes"] == m["argument_bytes"],
+          f"account {name}: arguments card {c['argument_bytes']} vs meta "
+          f"{m['argument_bytes']}")
+    gap = abs(c["traffic_bytes"] - m["traffic_bytes"]) / c["traffic_bytes"]
+    check(gap <= ACCOUNT_TRAFFIC_TOL, f"account {name}: traffic card "
+          f"{c['traffic_bytes']} vs meta {m['traffic_bytes']}")
+    check(abs(temp - rise) <= ACCOUNT_PEAK_TOL * rise,
+          f"account {name}: meta peak over the arguments {temp} B vs the "
+          f"card's rise {rise} B")
+    check(c["staging_bytes"] == m["staging_bytes"] == 0,
+          f"account {name}: staging on one NCCL rank")
+    return dict(card=c, meta=m, ms=ms, rise=rise, launches=launches,
+                traffic_gap=gap, peak_ratio=temp / rise)
+
+
+def account_phase(dev, seed, tp_account) -> dict:
+    """Phase 19: (a) phase 11's step, card against meta, (b) phase 16's
+    model-axis step, rank 0 against a fake world of 2.  Returns the main
+    path's launches ((a)'s steps)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    totals = {name: 0 for name in ROUND}
+    results = {}
+    mesh_lib.init_process_group(dev)
+    try:
+        mesh = mesh_lib.make_host_mesh(device=dev)
+        cfg = get_config("eris-gptneo-1.3b")
+        toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
+                                cfg.vocab, device=dev)[0]
+        for name, fields, _ in ACCOUNT_CONFIGS:
+            results[name] = _account_card(dev, seed, cfg, mesh, toks, name,
+                                          fields)
+            for k, n in results[name]["launches"].items():
+                totals[k] += n
+        del toks
+    finally:
+        dist.destroy_process_group()
+    _expect_free_card("after the account's steps")
+    if tp_account is None:
+        tp_account = _tp_step_account(dev, seed)
+    name, fields, _ = TP_STEP_CONFIG
+    spec = dict(arch="eris-gptneo-1.3b", fields=fields, lr=TP_STEP_LR,
+                tokens=[TRAIN_BATCH, TRAIN_SEQ])
+    r = subprocess.run([sys.executable, "-c", _TP_DRYRUN,
+                        str(ROOT / "src"), json.dumps(spec)],
+                       capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"the model-axis dry run failed: "
+          f"{r.stderr[-2000:]}")
+    meta = json.loads([ln for ln in r.stdout.splitlines()
+                       if ln.startswith("DRYRUN")][-1][len("DRYRUN"):])
+    print(f"  (b) {name} at (data 1, model 2), rank 0 over gloo:\n"
+          f"    card: {_headline(tp_account)}\n"
+          f"    meta: {_headline(meta)}", flush=True)
+    cb, mb = tp_account["collective_bytes"], meta["collective_bytes"]
+    for key in ("axes", "axis_counts", "axis_dtypes", "counts", "dtypes"):
+        check(cb[key] == mb[key], f"model-axis account: {key} card "
+              f"{cb[key]} vs meta {mb[key]}")
+    check(set(cb["axes"]) == {"model"}, f"collectives off the model axis: "
+          f"{cb['axes']}")
+    check(tp_account["flops"] == meta["flops"], f"model-axis account: "
+          f"flops card {tp_account['flops']} vs meta {meta['flops']}")
+    check(meta["staging_bytes"] == 0 < tp_account["staging_bytes"],
+          f"staging: card {tp_account['staging_bytes']}, meta "
+          f"{meta['staging_bytes']}")
+    results["model axis"] = dict(card=tp_account, meta=meta)
+    print("account " + json.dumps({k: {kk: vv for kk, vv in v.items()
+                                       if kk not in ("card", "meta")}
+                                   for k, v in results.items()}),
+          flush=True)
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", type=int, nargs="+", choices=(16, 17, 18),
+    ap.add_argument("--only", type=int, nargs="+",
+                    choices=(16, 17, 18, 19),
                     help="after the device and the build, run only these "
                          "multi-rank phases, and print no result (a "
                          "partial run: the kernels line needs every phase)")
@@ -5037,18 +5264,21 @@ def main() -> None:
     build_phase()
     if args.only:
         import tempfile
-        served = None
+        served = tp_account = None
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
             for n in sorted(args.only):
                 if n == 16:
                     phase("16 the model axis")
-                    model_axis_phase(dev, args.seed)
+                    tp_account = model_axis_phase(dev, args.seed)[1]
                 elif n == 17:
                     phase("17 the pipe axis")
                     served = pipe_axis_phase(dev, args.seed, out)[2]
-                else:
+                elif n == 18:
                     phase("18 serving over a mesh")
                     serve_mesh_phase(dev, args.seed, out, served)
+                else:
+                    phase("19 the account")
+                    account_phase(dev, args.seed, tp_account)
         phase(None)
         print(f"phase seconds {json.dumps(PHASE_SECONDS)}")
         print(f"partial run of phases {args.only}: no result line")
@@ -5140,7 +5370,7 @@ def main() -> None:
 
     phase("16 the model axis: eris-gptneo-1.3b at tp = 2, olmoe-1b-7b, "
           "hymba-1.5b and qwen2-0.5b, ranks on one card over gloo")
-    tp_launches = model_axis_phase(dev, args.seed)
+    tp_launches, tp_account = model_axis_phase(dev, args.seed)
     for name in round_launches:
         round_launches[name] += tp_launches[name]
 
@@ -5163,7 +5393,12 @@ def main() -> None:
                                                    served)
         launches += mesh_paged
 
-    phase("19 result")
+    phase("19 the account: the card's step against its dry run on meta")
+    account_launches = account_phase(dev, args.seed, tp_account)
+    for name in round_launches:
+        round_launches[name] += account_launches[name]
+
+    phase("20 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -12,11 +12,18 @@ buffers: each collective copies its operand to the host, runs there, and
 copies the result back.  That is how several ranks share one card, which
 NCCL refuses; its times are host staging, not the card's links.  NCCL
 groups and CPU tensors run the collective in place.
+
+Each collective reports itself to an active ``launch.accounting.Account``
+(kind, payload, dtype, group); with none active that costs one check.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch import accounting
 
 
 def host_staged(x: torch.Tensor, group) -> bool:
@@ -43,6 +50,23 @@ def _wire(x: torch.Tensor, group) -> torch.Tensor:
     return x.detach().to("cpu") if host_staged(x, group) else x.detach()
 
 
+def _counted(kind: str):
+    """Reports each call over a group of more than one rank to the active
+    account as one ``kind`` collective (the reference's HLO op name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def counted(x, group, *args, **kwargs):
+            acc = accounting.active()
+            if acc is None or _alone(group):
+                return fn(x, group, *args, **kwargs)
+            first = x[0] if isinstance(x, (list, tuple)) else x
+            return acc.collective(kind, group, x, host_staged(first, group),
+                                  lambda: fn(x, group, *args, **kwargs))
+        return counted
+    return wrap
+
+
+@_counted("all-reduce")
 def all_reduce(x: torch.Tensor, group,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``psum`` (``op`` SUM) or ``pmax`` (MAX) over the group."""
@@ -55,6 +79,7 @@ def all_reduce(x: torch.Tensor, group,
     return y.to(x.device)
 
 
+@_counted("all-gather")
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
     if _alone(group):
@@ -68,6 +93,7 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.to(x.device)
 
 
+@_counted("reduce-scatter")
 def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """This rank's ``dim``-chunk of the sum of every rank's ``x``."""
     if _alone(group):
@@ -80,6 +106,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.to(x.device)
 
 
+@_counted("all-to-all")
 def all_to_all(x: torch.Tensor, group, split_axis: int = 0,
                concat_axis: int = 0) -> torch.Tensor:
     """``x`` cut into group-size chunks along ``split_axis``, chunk j to
@@ -100,6 +127,7 @@ def all_to_all(x: torch.Tensor, group, split_axis: int = 0,
     return torch.cat(recv.unbind(0), concat_axis).to(x.device)
 
 
+@_counted("collective-permute")
 def ring_shift(xs: list, group, shift: int = 1) -> list:
     """``ppermute`` of each tensor in ``xs`` by ``shift`` places around
     the group's ring: rank i sends to rank i + shift and receives from

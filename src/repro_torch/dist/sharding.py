@@ -1,7 +1,8 @@
 """Sharding policy of the distributed FSA step (``repro/dist/sharding.py``,
 Section 3.2.1 on a process group), on the data, pipe and model axes.
 
-Every rank of the mesh's ``"data"`` axis is one FSA *aggregator*: it
+Every rank of the mesh's client axes (``"data"``, and ``"pod"`` on the
+multi-pod production mesh) is one FSA *aggregator*: it
 owns a disjoint segment of each parameter (the "store" layout), receives
 exactly that segment of every client update through the reduce-scatter
 (Eq. 2), and runs the shard-local optimizer on it.
@@ -50,12 +51,48 @@ FLOAT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
 
 # ------------------------------------------------------------------ axes
+def client_axes(mesh: Union[int, Any]) -> Tuple[str, ...]:
+    """Mesh axes enumerating FSA aggregators: every axis but the
+    intra-model "model" and "pipe" axes (("pod", "data") on the
+    multi-pod production mesh, ("data",) on the host meshes)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ("data",))
+    return tuple(a for a in names if a not in ("model", "pipe"))
+
+
 def client_count(mesh: Union[int, Any]) -> int:
-    """Aggregators on the mesh: the size of its ``"data"`` axis (the
-    port's meshes have no other client axis)."""
+    """Aggregators on the mesh: the product of its client axes' sizes."""
     if isinstance(mesh, int):
         return mesh
-    return int(mesh.size(mesh.mesh_dim_names.index("data")))
+    return math.prod(axis_size(mesh, a) for a in client_axes(mesh))
+
+
+_FLAT_GROUPS: dict = {}     # id(mesh) -> (mesh, this rank's client group)
+
+
+def client_group(mesh):
+    """The process group of this rank's aggregators: the one client
+    axis's group, or over several client axes the group of the ranks that
+    share this rank's model and pipe positions, in the reference's order
+    (the client axes flattened major to minor).  Made once a mesh, every
+    rank making every such group in one order (``dist.new_group``'s
+    rule)."""
+    axes = client_axes(mesh)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    hit = _FLAT_GROUPS.get(id(mesh))
+    if hit is None:
+        names = mesh.mesh_dim_names
+        inner = [n for n in names if n not in axes]
+        ranks = mesh.mesh.permute([names.index(n) for n in (*axes, *inner)])
+        cols = ranks.reshape(client_count(mesh), -1).T.tolist()
+        mine, _ = dist.new_subgroups_by_enumeration(cols)
+        hit = _FLAT_GROUPS[id(mesh)] = (mesh, mine)
+    return hit[1]
+
+
+def client_rank(mesh) -> int:
+    """This rank's aggregator index: its place in :func:`client_group`."""
+    return dist.get_rank(client_group(mesh))
 
 
 def axis_size(mesh: Union[int, Any], name: str) -> int:

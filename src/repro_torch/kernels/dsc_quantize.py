@@ -7,7 +7,10 @@
 :func:`dsc_quantize` launches the hand-written CUDA kernel
 ``csrc/dsc_quantize.cu`` on CUDA tensors; its design and its bound are set
 out in that file.  On CPU tensors it computes
-:func:`~repro_torch.kernels.ref.dsc_quantize_ref`, and only there.
+:func:`~repro_torch.kernels.ref.dsc_quantize_ref`, and only there.  On
+meta tensors it allocates its outputs and launches nothing; on the card
+and on meta it declares its work to an active
+``launch.accounting.Account``.
 ``dsc_quantize.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import accounting
 from repro_torch.kernels.dsc_update import (aligned, check_scalars,
                                             check_vectors)
 from repro_torch.kernels.quantize import padded
@@ -48,7 +52,7 @@ def dsc_quantize(g: torch.Tensor, s: torch.Tensor, seed_mask: int,
             g, s, int(seed_mask), int(seed_round), p=p, gamma=gamma,
             index_base=index_base)
         return q, scales, (s_new if out is None else out.copy_(s_new))
-    if g.device.type != "cuda":
+    if g.device.type not in ("cuda", "meta"):
         raise ValueError(f"dsc_quantize: no kernel for {g.device}")
     check_vectors("dsc_quantize", g, s, out)
     n = g.numel()
@@ -57,6 +61,9 @@ def dsc_quantize(g: torch.Tensor, s: torch.Tensor, seed_mask: int,
     scales = torch.empty(nb, dtype=torch.float32, device=g.device)
     s_out = torch.empty_like(s) if out is None else out
     if nb == 0:
+        return q, scales, s_out
+    accounting.declare("dsc_quantize", (g, s), (q, scales, s_out))
+    if g.device.type == "meta":
         return q, scales, s_out
     with torch.cuda.device(g.device):
         err = _build.bind("dsc_quantize", "dsc_quantize_launch", _ARGS)(

@@ -7,8 +7,10 @@
 ``csrc/dsc_update.cu`` on CUDA tensors; its design and its bound are set
 out in that file.  On CPU tensors it computes
 :func:`~repro_torch.kernels.ref.dsc_update_ref`, and only there: on a CUDA
-tensor it launches the kernel or raises.  ``dsc_update.launches`` counts
-the kernel's launches.
+tensor it launches the kernel or raises.  On meta tensors it allocates its
+outputs and launches nothing; on the card and on meta it declares its
+work to an active ``launch.accounting.Account``.  ``dsc_update.launches``
+counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import accounting
 from repro_torch.kernels.ref import dsc_update_ref
 
 # The reference pads each client row to this many coordinates before the
@@ -83,12 +86,15 @@ def dsc_update(g: torch.Tensor, s: torch.Tensor, seed: int, *, p: float,
         v, s_new = dsc_update_ref(g, s, int(seed), p=p, gamma=gamma,
                                   index_base=index_base)
         return v, (s_new if out is None else out.copy_(s_new))
-    if g.device.type != "cuda":
+    if g.device.type not in ("cuda", "meta"):
         raise ValueError(f"dsc_update: no kernel for {g.device}")
     check_vectors("dsc_update", g, s, out)
     v = torch.empty_like(g)
     s_out = torch.empty_like(s) if out is None else out
     if g.numel() == 0:
+        return v, s_out
+    accounting.declare("dsc_update", (g, s), (v, s_out))
+    if g.device.type == "meta":
         return v, s_out
     with torch.cuda.device(g.device):
         err = _build.bind("dsc_update", "dsc_update_launch", _ARGS)(

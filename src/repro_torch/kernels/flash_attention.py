@@ -12,7 +12,11 @@ from ``csrc/flash_fwd_sm90.cu`` and dq and dk/dv from
 from ``csrc/flash_f32_sm90.cu``.  Their designs and bounds are set out in
 those files.  On CPU tensors they compute the plain versions in
 ``kernels/ref.py``, and only there: on a CUDA tensor they launch a kernel
-or raise.  ``flash_fwd.launches``, ``flash_dq.launches`` and
+or raise.  On meta tensors (the dry run) they allocate their outputs and
+launch nothing.  On the card and on meta each declares its work, the
+plain version's matmul flops at its shapes and its operand and result
+bytes, to an active ``launch.accounting.Account``.
+``flash_fwd.launches``, ``flash_dq.launches`` and
 ``flash_dkv.launches`` count the kernels' launches, their
 ``tensor_core_launches`` the bf16 ones among them and their
 ``f32_tensor_core_launches`` the f32 ones.
@@ -34,6 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import accounting
 from repro_torch.kernels.ref import (FLASH_BLOCK, flash_delta, flash_dkv_ref,
                                      flash_dq_ref, flash_fwd_ref)
 
@@ -84,7 +89,7 @@ def _check(op: str, q, k, v, window, **more) -> None:
         raise ValueError(f"{op}: window must be >= 1, got {window}")
     if q.device.type == "cpu":
         return
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{op}: no kernel for {q.device}")
     for name, t in tensors.items():
         want = torch.float32 if name in ("lse", "delta") else q.dtype
@@ -134,6 +139,15 @@ def group_sum(partial: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return out.copy_(partial.view(B, KV, H // KV, S, d).sum(2))
 
 
+def dense_flops(q, matmuls: int) -> int:
+    """What ``matmuls`` (B, H, S, S, d) products of the plain version
+    count, every tile (masked ones too), as the reference's HLO counts an
+    interpret-mode kernel: the forward has 2 (q k^T, p v), dq 3 (s, do
+    v^T, ds k), dk/dv 4 (s, p^T do, do v^T, ds^T q)."""
+    B, H, S, d = q.shape
+    return 2 * matmuls * B * H * S * S * d
+
+
 def _strides(*tensors) -> ctypes.Array:
     """(b, h, s) element strides of each tensor, as one long long array."""
     flat = [s for t in tensors for s in t.stride()[:3]]
@@ -164,6 +178,9 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None):
     o = torch.empty_like(q)
     lse = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
     if o.numel():
+        accounting.declare("flash_fwd", (q, k, v), (o, lse),
+                           dense_flops(q, 2))
+    if o.numel() and q.device.type == "cuda":
         pointers = [t.data_ptr() for t in (q, k, v, o, lse)]
         strides = _strides(q, k, v, o)
         if bf16:
@@ -190,6 +207,9 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     _check_async_copies("flash_dq", q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     if dq.numel():
+        accounting.declare("flash_dq", (q, k, v, do, lse, delta), (dq,),
+                           dense_flops(q, 3))
+    if dq.numel() and q.device.type == "cuda":
         pointers = [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)]
         strides = _strides(q, k, v, do, dq)
         if bf16:
@@ -224,6 +244,13 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
         if partial:                     # G > 1: per query head, in f32
             outs = torch.empty((2, *q.shape), dtype=torch.float32,
                                device=q.device)
+        accounting.declare("flash_dkv", (q, k, v, do, lse, delta), outs,
+                           dense_flops(q, 4))
+        if q.device.type == "meta":
+            if partial:
+                group_sum(outs[0], dk)
+                group_sum(outs[1], dv)
+            return dk, dv
         pointers = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
         strides = _strides(q, k, v, do, dk, dv)
         if bf16:

@@ -7,7 +7,10 @@ The beyond-paper wire format: 1 byte a coordinate plus one f32 scale per
 :func:`quantize` and :func:`dequantize` launch the hand-written CUDA
 kernels of ``csrc/quantize.cu`` on CUDA tensors; their design and bound
 are set out in that file.  On CPU tensors they compute the plain versions
-in ``kernels/ref.py``, and only there.  ``quantize.launches`` and
+in ``kernels/ref.py``, and only there.  On meta tensors they allocate
+their outputs and launch nothing; on the card and on meta they declare
+their work to an active ``launch.accounting.Account``.
+``quantize.launches`` and
 ``dequantize.launches`` count the kernels' launches.
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import accounting
 from repro_torch.kernels.dsc_update import aligned, check_scalars
 from repro_torch.kernels.ref import QBLOCK, dequantize_ref, quantize_ref
 
@@ -50,7 +54,7 @@ def quantize(x: torch.Tensor, seed: int, *, index_base: int = 0):
     check_scalars("quantize", 1.0, index_base, seed)
     if x.device.type == "cpu":
         return quantize_ref(x, int(seed), index_base=index_base)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"quantize: no kernel for {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quantize: x must be float32 or bfloat16, got "
@@ -63,6 +67,9 @@ def quantize(x: torch.Tensor, seed: int, *, index_base: int = 0):
     q = torch.empty(nb * QBLOCK, dtype=torch.int8, device=x.device)
     scales = torch.empty(nb, dtype=torch.float32, device=x.device)
     if nb == 0:
+        return q, scales
+    accounting.declare("quantize", (x,), (q, scales))
+    if x.device.type == "meta":
         return q, scales
     with torch.cuda.device(x.device):
         err = _build.bind("quantize", "quantize_launch", _QUANT_ARGS)(
@@ -87,18 +94,21 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
                          f"{tuple(scales.shape)}")
     if q.device.type == "cpu":
         return dequantize_ref(q, scales)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"dequantize: no kernel for {q.device}")
     if scales.device != q.device:
         raise ValueError(f"dequantize: scales on {scales.device}, codes on "
                          f"{q.device}")
     if not (q.is_contiguous() and scales.is_contiguous()
-            and q.data_ptr() % 8 == 0):
+            and q.data_ptr() % 8 == 0):  # meta tensors' pointers are 0
         raise ValueError("dequantize: codes must be contiguous and 8-byte "
                          "aligned, scales contiguous")
     out = torch.empty(q.numel(), dtype=torch.float32, device=q.device)
     nb = scales.numel()
     if nb == 0:
+        return out
+    accounting.declare("dequantize", (q, scales), (out,))
+    if q.device.type == "meta":
         return out
     with torch.cuda.device(q.device):
         err = _build.bind("quantize", "dequantize_launch", _DEQUANT_ARGS)(

@@ -14,6 +14,11 @@ mesh=)``).  Ranks that share one card pass ``backend="gloo"``: each
 process then has its own paged-kernel workspace, and the kernel's
 one-stream rule holds in each.
 
+The dry run (``launch/dryrun.py``) poses as one rank of the reference's
+256- or 512-device production mesh: :func:`init_dryrun_group` makes a
+fake world of that many ranks in one process, and
+:func:`make_production_mesh` lays the reference's axes over it.
+
 Defined as functions, so importing this module touches no process group.
 """
 from __future__ import annotations
@@ -71,14 +76,46 @@ def init_process_group(device: DeviceLike = None,
     return device
 
 
+def init_dryrun_group(world: int, rank: int = 0) -> None:
+    """Make this process rank ``rank`` of a fake world of ``world`` ranks
+    (torch's fake process group): its collectives move nothing and
+    return tensors of the right shape, so one process can run one rank's
+    step of a 256- or 512-rank mesh on the meta device, as the
+    reference's dry run lowers for 512 forced host devices.  Both the
+    cpu and the meta device map to the fake backend: ``ring_shift``'s
+    point-to-point batch asks for the meta tensors' backend."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(),
+                            rank=rank, world_size=world)
+
+
 def make_production_mesh(*, multi_pod: bool = False, pipe: int = 1):
-    """The reference's 256/512-device TPU production mesh, which only its
-    ahead-of-time lowering (``launch/dryrun.py``) builds: ROADMAP queue
-    1.12, with the lowering."""
-    raise NotImplementedError(
-        "make_production_mesh: the 256/512-device production mesh serves "
-        "the reference's lowering for accounting, not ported yet: ROADMAP "
-        "queue 1.12")
+    """The reference's 512-device (2 pods) / 256-device production mesh.
+    ``pipe`` carves pipeline stages out of the DATA dimension (16 % pipe
+    == 0) so 'model' stays minor-most, and the client axes ("pod",
+    "data") keep the major ranks.  Needs an initialised group of exactly
+    that many ranks (:func:`init_dryrun_group` for the dry run)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if pipe < 1 or 16 % pipe != 0:
+        raise ValueError(f"pipe={pipe} must divide the 16-wide data dim")
+    if pipe == 1:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    else:
+        shape = ((2, 16 // pipe, pipe, 16) if multi_pod
+                 else (16 // pipe, pipe, 16))
+        axes = (("pod", "data", "pipe", "model") if multi_pod
+                else ("data", "pipe", "model"))
+    want = 512 if multi_pod else 256
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != want:
+        raise RuntimeError(
+            f"make_production_mesh: the {'x'.join(map(str, shape))} mesh "
+            f"needs a process group of {want} ranks, "
+            + ("none is initialised" if have is None else f"not {have}")
+            + "; call launch.mesh.init_dryrun_group"
+            f"({want}) for a dry run")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(data: int | None = None, model: int = 1, pipe: int = 1,

@@ -18,9 +18,11 @@ init_process_group`` and ``make_host_mesh(data, model)``, then
 ``ServeEngine(cfg, params, settings, mesh=mesh)`` or
 ``ServeEngine.from_checkpoint(path, cfg, settings, mesh=mesh)``.
 
-The reference's ``lower_step`` lowers the decode step ahead of time for
-the dry run's HLO accounting (``launch/dryrun.py``, ``launch/shapes.py``):
-it belongs to ROADMAP queue 1.12, with those files.
+The reference's ``lower_step`` lowers the prefill and decode steps under
+GSPMD for the dry run's accounting; the port's dry run
+(``launch/dryrun.py``) accounts the training shapes, and :func:`lower_step`
+raises until the serving half of ROADMAP queue 1.12 decides which of the
+port's serving programs the serving shapes account.
 """
 from __future__ import annotations
 
@@ -35,6 +37,15 @@ from repro_torch.models import transformer as tr
 from repro_torch.serve import (BlockAllocator, BlockBudgetExceeded,  # noqa: F401
                                Request, RequestOutput, SamplingParams,
                                ServeEngine, ServeSettings, pages_for)
+
+def lower_step(cfg, mesh, shape_name: str,
+               settings: ServeSettings = ServeSettings()):
+    """The reference's prefill/decode lowering for the dry run: not ported
+    yet (ROADMAP queue 1.12, the serving half)."""
+    raise NotImplementedError(
+        f"lower_step({shape_name!r}): the serving shapes' dry run is the "
+        f"serving half of ROADMAP queue 1.12, not ported yet")
+
 
 # every third request samples, the rest are greedy (examples/serve_batched.py)
 SAMPLED = SamplingParams(temperature=0.8, top_k=20, top_p=0.95)

@@ -86,8 +86,8 @@ each bucket over those groups, so a leaf replicated over pipe counts
 once.  Adam's state, the DSC shifts and the FedBuff buffer mirror the
 store pieces, so they follow the cut.  Without a pipe axis
 ``microbatches`` is ignored, as the reference's inactive plan ignores
-it.  The lowering for accounting (1.12) raises ``NotImplementedError``
-naming its ROADMAP queue.
+it.  :func:`lower_train_step` makes the step on the meta device for the
+dry run's account (``launch/dryrun.py``).
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --smoke --steps 4 [--dsc] [--int8-wire] \\
@@ -200,12 +200,30 @@ def cohort_batch(batch, key: torch.Tensor, population: int, n_client: int):
     return cs.gather(split_round_keys(key), batch)
 
 
-def lower_train_step(*args, **kwargs):
-    """The reference lowers the step to HLO for its byte accounting; the
-    port's accounting is ROADMAP queue 1.12."""
-    raise NotImplementedError(
-        "lower_train_step: lowering the step for accounting is not ported "
-        "yet (it parses XLA HLO): ROADMAP queue 1.12")
+def lower_train_step(cfg: ModelConfig, mesh, shape_name: str = "train_4k",
+                     settings: TrainSettings = TrainSettings(),
+                     opt: Optional[Optimizer] = None):
+    """This rank's train step for (cfg, mesh, shape) on the meta device,
+    and its inputs: the port's counterpart of the reference's
+    ``jit(...).lower()``, run under ``launch.accounting.Account`` by the
+    dry run (``launch/dryrun.py``).  Returns ``(step, (params_stored,
+    opt_state, dsc_ref, batch, key))``: the state is
+    :func:`abstract_train_state`'s, the batch ``shapes.input_specs``' (the
+    global batch, meta), and the key a uint32 (2,) host key (the port's
+    keys live on the host, where the step folds them).  ``opt`` defaults
+    to the reference's ``adam(3e-4)``."""
+    from repro_torch.launch import shapes as shp
+    from repro_torch.optim import adam
+    if shp.SHAPES[shape_name].kind != "train":
+        raise ValueError(f"lower_train_step: {shape_name} is a serving "
+                         f"shape, not a training one")
+    opt = opt or adam(3e-4)
+    step = make_train_step(cfg, mesh, opt, settings, device="meta")
+    params, opt_state, dsc_ref = abstract_train_state(cfg, mesh, opt,
+                                                      settings)
+    batch = shp.input_specs(cfg, shape_name)
+    key = torch.zeros((2,), dtype=torch.uint32)
+    return step, (params, opt_state, dsc_ref, batch, key)
 
 
 def _validate(settings: TrainSettings, cfg: Optional[ModelConfig] = None,
@@ -289,18 +307,13 @@ def _scatter_dims(cfg: ModelConfig, mesh, settings: TrainSettings) -> dict:
     return dims if settings.fsa else tree_map(lambda d: -1, dims)
 
 
-def _rank(mesh) -> int:
-    """This rank's place on the data axis: its aggregator index."""
-    return dist.get_rank(mesh.get_group("data"))
-
-
 def store_cuts(cfg: ModelConfig, mesh,
                settings: TrainSettings = TrainSettings()) -> list:
     """Each leaf's chain of cuts to this rank's store piece, in flatten
     order (``sharding.composite_box``): its stage's rows on the pipe axis,
     its model position's TP shard, then its aggregator's segment at the
     scatter dim (none with ``fsa=False``), each ``(dim, parts, index)``."""
-    n_client, aidx = sh.client_count(mesh), _rank(mesh)
+    n_client, aidx = sh.client_count(mesh), sh.client_rank(mesh)
     tp, midx = sh.axis_size(mesh, "model"), sh.axis_rank(mesh, "model")
     pp, pidx = sh.axis_size(mesh, "pipe"), sh.axis_rank(mesh, "pipe")
     return [((pd, pp, pidx), (s.dim, tp, midx), (d, n_client, aidx))
@@ -363,12 +376,11 @@ def _dsc_tree(full: dict, stored: dict, settings: TrainSettings, device):
                     p.shape, dtype=sdt, device=device), stored)}
     if not settings.async_buffer:
         return tree
-    host = "meta" if str(device) == "meta" else "cpu"
     return {"dsc": tree, "buffer": {
         "u": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                             device=device), stored),
-        "w": torch.zeros((), dtype=torch.float32, device=host),
-        "t": torch.zeros((), dtype=torch.int32, device=host)}}
+        "w": torch.zeros((), dtype=torch.float32),
+        "t": torch.zeros((), dtype=torch.int32)}}
 
 
 def init_dsc_state(cfg: ModelConfig, mesh, settings: TrainSettings,
@@ -378,7 +390,7 @@ def init_dsc_state(cfg: ModelConfig, mesh, settings: TrainSettings,
     unless the caller asks for the CPU)."""
     device = resolve_device(device)
     n_client = sh.client_count(mesh)
-    aidx = _rank(mesh)
+    aidx = sh.client_rank(mesh)
     dims = _scatter_dims(cfg, mesh, settings)
     full = sh.local_shape_tree(cfg, mesh, lambda shape: torch.empty(
         shape, device="meta"))
@@ -548,15 +560,16 @@ def fused_payload(g: torch.Tensor, s: torch.Tensor, dim: int, n_client: int,
 
 
 class _Wire:
-    """The collectives of one step over the mesh's ``"data"`` group
-    (``dist.collectives``: the list forms of all-gather and
-    reduce-scatter, which both torch versions the port runs on have, where
-    torch 2.13 deprecates ``reduce_scatter_tensor`` and
-    ``all_gather_into_tensor``; through host buffers on a gloo group of
-    the card)."""
+    """The collectives of one step over the mesh's client group, the
+    ``"data"`` axis's or, on the multi-pod mesh, the flattened ``("pod",
+    "data")`` group of ``sharding.client_group`` (``dist.collectives``:
+    the list forms of all-gather and reduce-scatter, which both torch
+    versions the port runs on have, where torch 2.13 deprecates
+    ``reduce_scatter_tensor`` and ``all_gather_into_tensor``; through host
+    buffers on a gloo group of the card)."""
 
     def __init__(self, mesh):
-        self.group = mesh.get_group("data")
+        self.group = sh.client_group(mesh)
         self.n = sh.client_count(mesh)
         self.aidx = dist.get_rank(self.group)
 
@@ -761,6 +774,8 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optimizer,
         gn2 = torch.zeros((), dtype=torch.float32, device=device)
         for g in grads:
             gn2 = gn2 + random.reduce_sum(torch.square(g.float()).view(-1))
+        if gn2.is_meta:
+            return 1.0      # the dry run: no values; the ops are the same
         gn = np.maximum(np.sqrt(np.float32(float(gn2))), np.float32(1e-12))
         return float(np.minimum(np.float32(1.0), np.float32(ldp.clip) / gn))
 

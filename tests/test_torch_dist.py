@@ -41,7 +41,9 @@ from repro_torch.convert import (params_from_jax, tree_leaves,  # noqa: E402
 from repro_torch.core.compressors import RandP  # noqa: E402
 from repro_torch.core.pipeline import DSCCompress  # noqa: E402
 from repro_torch.dist import sharding as sh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib  # noqa: E402
@@ -346,10 +348,30 @@ def test_make_host_mesh(group, monkeypatch):
                     (("cpu", (2, 2, 1)), three), (("cpu", (1, 2, 2)), three)]
 
 
+def test_production_mesh_needs_its_world(monkeypatch):
+    """The reference's pipe validation word for word; without a group of
+    256 (512 multi-pod) ranks the production mesh raises, never a smaller
+    mesh in its place."""
+    for pipe in (0, 3):
+        with pytest.raises(ValueError) as ref_err:
+            ref_mesh.make_production_mesh(pipe=pipe)
+        with pytest.raises(ValueError) as err:
+            mesh_lib.make_production_mesh(pipe=pipe)
+        assert str(err.value) == str(ref_err.value)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    with pytest.raises(RuntimeError, match="256 ranks, none is"):
+        mesh_lib.make_production_mesh()
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 256)
+    with pytest.raises(RuntimeError, match="512 ranks, not 256"):
+        mesh_lib.make_production_mesh(multi_pod=True, pipe=4)
+
+
 UNPORTED_CALLS = [
-    ("lower_train_step", lambda: train.lower_train_step(None, None), "1.12"),
-    ("make_production_mesh", lambda: mesh_lib.make_production_mesh(),
-     "1.12"),
+    ("serve_lower_step",
+     lambda: serve_lib.lower_step(None, None, "decode_32k"), "1.12"),
+    ("run_one_serving_shape",
+     lambda: dryrun.run_one("qwen2-0.5b", "prefill_32k", False), "1.12"),
 ]
 
 

@@ -181,8 +181,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fa.flash_attention(tq, tk, tv, causal=False, window=8)
     with pytest.raises(ValueError, match="is on meta"):
         fa.flash_fwd(tq, tk.to("meta"), tv)
-    with pytest.raises(ValueError, match="no kernel for meta"):
-        fa.flash_fwd(tq.to("meta"), tk.to("meta"), tv.to("meta"))
+    # meta tensors (the dry run): the card's checks, then the outputs
+    # allocated there and no kernel launched
+    meta = [t.to("meta") for t in (tq, tk, tv)]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(*[t.double() for t in meta])
+    launched = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(*meta)
+    assert (o.device.type, lse.device.type) == ("meta", "meta")
+    assert o.shape == tq.shape and lse.shape == (tq.shape[0] * tq.shape[1],
+                                                 tq.shape[2])
+    assert fa.flash_fwd.launches == launched
     with pytest.raises(ValueError, match="do not fit"):
         fa.flash_fwd(tq, tk[:, :3], tv[:, :3])
 

@@ -228,17 +228,26 @@ def test_wire_constants_equal_reference():
 
 
 def test_wrappers_have_no_kernel_for_other_devices():
-    """Neither the plain version nor a kernel: a meta tensor raises."""
-    g = torch.zeros(1024, device="meta")
-    with pytest.raises(ValueError, match="no kernel for meta"):
-        ops.dsc_update(g, g, 1, p=0.5, gamma=0.1)
-    with pytest.raises(ValueError, match="no kernel for meta"):
-        ops.quantize(g, 1)
-    with pytest.raises(ValueError, match="no kernel for meta"):
-        ops.dsc_quantize(g, g, 1, 2, p=0.5, gamma=0.1)
-    with pytest.raises(ValueError, match="no kernel for meta"):
-        ops.dequantize(torch.zeros(256, dtype=torch.int8, device="meta"),
-                       torch.zeros(1, device="meta"))
+    """Neither the plain version nor a kernel on a meta tensor (the dry
+    run): the card's checks, then the outputs allocated on meta, shaped
+    as the kernels' are, and no launch counted."""
+    g = torch.zeros(1000, device="meta")
+    launched = [f.launches for f in (du.dsc_update, qz.quantize,
+                                     qz.dequantize, dq.dsc_quantize)]
+    with pytest.raises(TypeError, match="float32"):
+        ops.dsc_quantize(g, g.double(), 1, 2, p=0.5, gamma=0.1)
+    v, s = ops.dsc_update(g, g, 1, p=0.5, gamma=0.1)
+    q, sc = ops.quantize(g, 1)
+    q2, sc2, s2 = ops.dsc_quantize(g, g, 1, 2, p=0.5, gamma=0.1)
+    x = ops.dequantize(q, sc)
+    assert [(t.device.type, tuple(t.shape), t.dtype) for t in
+            (v, s, q, sc, q2, sc2, s2, x)] == [
+        ("meta", (1000,), torch.float32), ("meta", (1000,), torch.float32),
+        ("meta", (1024,), torch.int8), ("meta", (4,), torch.float32),
+        ("meta", (1024,), torch.int8), ("meta", (4,), torch.float32),
+        ("meta", (1000,), torch.float32), ("meta", (1024,), torch.float32)]
+    assert [f.launches for f in (du.dsc_update, qz.quantize, qz.dequantize,
+                                 dq.dsc_quantize)] == launched
 
 
 def test_wrappers_check_their_inputs():
