@@ -14,10 +14,10 @@ reduced depth), the model axis (tensor, context and expert
 parallelism: ranks sharing the card over gloo), and the pipe axis (the
 1F1B wavefront over gloo ranks, its composite checkpoint served through
 ``ServeEngine.from_checkpoint``), serving over a (data, model) mesh
-of gloo ranks, and the account of the step against its dry run on the
-meta device, on one NVIDIA card.
+of gloo ranks, and the account of the step and of the serving programs
+against their dry runs on the meta device, on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--only 16 17 18 19]
+    python3 chip_smoke.py [--seed 0] [--only 16 17 18 19 20]
 
 ``--only`` runs the device, the build and the named multi-rank phases
 (and the account) alone, and prints no result line.
@@ -128,47 +128,48 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 11. the distributed FSA step (``launch/train.py``) over a one-rank
     ``cpu:gloo,cuda:nccl`` group on a loopback port (a failure to
     initialise NCCL fails the run): eris-gptneo-1.3b at full width (bf16
-    params from ``--seed``), the reference CLI's settings (adam lr 1e-2,
-    8 x 64 tokens from ``lm_token_batches(PRNGKey(0))``, keys
+    params from ``--seed``), the reference CLI's settings (adam lr 1e-2, 8
+    x 64 tokens from ``lm_token_batches(PRNGKey(0))``, keys
     ``PRNGKey(i)``, ``grad_dtype="float32"``), three steps in each of (a)
     FSA on the f32 wire, (b) DSC on the int8 wire through the fused
     kernel, (c) the int8 wire, (d) DSC alone (threefry RandP), (e) (a) on
-    the default bf16 wire; then each at adam lr 1e-5, where the loss
-    must fall at every step (at lr 1e-2 the full-width loss rises: a
-    first step of ~1e-2 a weight is half the init's std).  The host's
-    plain path (gloo, no kernels) takes (a)'s step 1 from the card's
-    params and must land on the card's loss, grad_norm and raised loss
-    after the update (within 5e-2), so the rise is the configuration's
-    and not the card path's.  Asserts
-    finite loss and grad_norm every step, f32 params after each adam
-    step (the reference's promotion), peak memory under 80 GB, and each
-    kernel's launches a step (the fused path: one ``dsc_quantize`` and
-    one ``dequantize`` a leaf; the int8 wire: one ``quantize`` and one
-    ``dequantize`` a leaf; n_layers of each flash kernel, on the bf16
-    tensor-core kernels while the params are bf16, and of the forward and
-    dk/dv on the f32 ones once they are f32).  Prints each step's ms split into
-    gather, gradient, wire (with the Eq. 4 compensation) and optimizer,
-    the peak, and ``mesh_wire_bytes`` at n_client 1, 4 and 8 (computed).
-    Then the scenario and async knobs at full width, three sgd steps at lr
-    0.1 each (bf16 params stay bf16): (f) the cell ``ldp_int8+agg_fail``
-    (LDP eps 8 on the int8 wire, aggregator dropout 0.25, link failure
-    0.1), (g) the FedBuff buffer on the int8 wire (cadence 2, client
-    dropout 0.25, delay_max 2), (h) ``dsc_int8+agg_fail`` (DSC p 0.5 on
-    the fused int8 wire), (i) ``secure_agg+none`` (the f32 wire); each
-    step holds or moves as the step's own draws say, asserted (a dead link
-    leaves (f)'s params and (h)'s s_agg as they were, bit for bit; (g)
-    holds its params at the rounds the cadence skips, with grad_norm 0;
-    (i)'s mask row at n_client 1 is zero), with the launches (one
-    ``quantize`` and one ``dequantize`` a leaf in (f) and (g), one
-    ``dsc_quantize`` and one ``dequantize`` in (h), none in (i)) and the
-    split (with LDP's part).  Then the n_client = 4 draws no single rank
-    runs, on the card: the four ranks' mask rows of ``blocks/w_up``
-    summed to exactly zero in f32, rank 3's row on 2**24 elements equal
-    to the host's and its LDP noise within 8 ulps, each timed.  Then the
-    smoke variant in f32, (a)-(d) and (f)-(i), two sgd steps on the card
-    and on the host (gloo) from the same params and keys (within 1e-4),
-    and a host-made leaf through the fused payload and host-made trees
-    through two adam updates on both, bit for bit.
+    the default bf16 wire.  Then, at full width and 2 of the 24 layers
+    (at all 24 the host's step took 83 s): (a) two steps, whose step 1
+    the host's plain path (gloo, no kernels) takes again from the card's
+    params and must land on the card's loss, grad_norm and loss after the
+    update (within 5e-2), so the card path's step is the configuration's;
+    and each configuration at adam lr 1e-5 ((d) two steps), where the
+    loss must fall at every step (at lr 1e-2 the full-width loss rises: a
+    first step of ~1e-2 a weight is half the init's std).  Asserts
+    finite loss and grad_norm every step, f32 params after each adam step (the
+    reference's promotion), peak memory under 80 GB, and each kernel's
+    launches a step (the fused path: one ``dsc_quantize`` and one
+    ``dequantize`` a leaf; the int8 wire: one
+    ``quantize`` and one ``dequantize`` a leaf; n_layers of each flash
+    kernel, on the bf16 tensor-core kernels while the params are bf16, and
+    of the forward and dk/dv on the f32 ones once they are f32).  Prints
+    each step's ms split into gather, gradient, wire (with the Eq. 4
+    compensation) and optimizer, the peak, and ``mesh_wire_bytes`` at
+    n_client 1, 4 and 8 (computed). Then the scenario and async knobs at
+    full width, three sgd steps at lr 0.1 each (bf16 params stay bf16):
+    (f) the cell ``ldp_int8+agg_fail`` (LDP eps 8 on the int8 wire,
+    aggregator dropout 0.25, link failure 0.1), (g) the FedBuff buffer on
+    the int8 wire (cadence 2, client dropout 0.25, delay_max 2), (h)
+    ``dsc_int8+agg_fail`` (DSC p 0.5 on the fused int8 wire), (i)
+    ``secure_agg+none`` (the f32 wire); each step holds or moves as the
+    step's own draws say, asserted (a dead link leaves (f)'s params and
+    (h)'s s_agg as they were, bit for bit; (g) holds its params at the
+    rounds the cadence skips, with grad_norm 0; (i)'s mask row at n_client
+    1 is zero), with the launches (one ``quantize`` and one ``dequantize``
+    a leaf in (f) and (g), one ``dsc_quantize`` and one ``dequantize`` in
+    (h), none in (i)) and the split (with LDP's part).  Then the n_client
+    = 4 draws no single rank runs, on the card: the four ranks' mask rows
+    of ``blocks/w_up`` summed to exactly zero in f32, rank 3's row on
+    2**24 elements equal to the host's and its LDP noise within 8 ulps,
+    each timed.  Then the smoke variant in f32, (a)-(d) and (f)-(i), two
+    sgd steps on the card and on the host (gloo) from the same params and
+    keys (within 1e-4), and a host-made leaf through the fused payload and
+    host-made trees through two adam updates on both, bit for bit.
 12. the round matrix -- eris-gptneo-1.3b at full width as phase 7 runs
     it (bf16 params from ``--seed``, flash on, K = 4, A = 8, 4 x 64
     tokens a client): (a) ``eris`` on the int8 wire with aggregator
@@ -176,9 +177,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     wire over a population of 16 (client dropout 0.25, delay_max 2,
     buffer cadence 2), (c) the scenario cell ``ldp_int8+agg_fail``, two
     rounds each; (d) ``secure_agg``, (e) ``priprune``, (f) ``shatter``,
-    one round each.  Prints each round's split (client gradients,
-    compression by stage, aggregation and server) and peak, and the
-    threefry draws' ms a client (LDP noise, a pairwise mask row).
+    one round each; (c) and (d), whose threefry draws take ~11 s a round
+    and ~13 s a client at all 24 layers, at 2 of them.  Prints each
+    round's split (client gradients, compression by stage, aggregation
+    and server) and peak, and the
+    threefry draws' ms a client (LDP noise; a pairwise mask row, (d)'s
+    aggregation over K).
     Asserts finite x every round, peaks under 80 GB, K ``quantize`` and
     K ``dequantize`` launches a round on the int8 wire (none else) and
     n_layers x K of each flash kernel; in (a) and (c) x unchanged bit for
@@ -190,7 +194,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     chunk ids (they wrap there).  Then, at the smoke size in f32, every
     method and every feasible scenario cell (the ``dsc_int8`` cells once
     more through the fused kernel, whose launches are counted) two rounds
-    on the card and on the host from the same seeds, x within 1e-4.
+    on the card and on the host from the same seeds, x within 1e-4 (the
+    host's half in three processes of their own, started with the
+    phase).
 13. the privacy audit of the captured wire -- eris-gptneo-1.3b at full
     width (bf16 params from ``--seed``, sgd lr 0.1) on a one-rank
     ``cpu:gloo,cuda:nccl`` group, two steps with ``capture_views`` in (j)
@@ -245,9 +251,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``decode_step`` tokens from the same prefill, then two ERIS rounds on
     the int8 wire as phase 12 runs them (K = 4, A = 8, 4 x 64 tokens a
     client: x finite, K ``quantize`` and ``dequantize`` launches a round,
-    the split, the peak).  (b) hymba-1.5b at full width (32 layers,
-    d_model 1600, 25 query heads over 5 kv heads of 64, N 16;
-    1,474,769,600 params): the 1 x 2048 gradient flash on (n_layers
+    the split, the peak).  (b) hymba-1.5b at full width (d_model 1600, 25
+    query heads over 5 kv heads of 64, N 16; 1,474,769,600 params at its
+    32 layers) cut to 8 layers: the 1 x 2048 gradient flash on (n_layers
     launches of each flash kernel, on the bf16 tensor cores) and off, the
     losses within 1e-2 relative, ms and peaks; the selective scan's share
     of the gradient (one layer's ``ssm_scan`` forward and backward,
@@ -270,8 +276,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     gloo (NCCL refuses two ranks on one device): every collective of a
     CUDA tensor goes through host buffers (``dist/collectives.py``) and
     the phase says so on a line of its own; the compute stays on the
-    card.  (a) two ranks: eris-gptneo-1.3b at full width and depth in
-    f32, one 1 x 512 ``loss_fn`` value and gradient at tp = 2 (heads and
+    card.  (a) two ranks: eris-gptneo-1.3b at full width and 8 of its 24
+    layers in f32, one 1 x 512 ``loss_fn`` value and gradient at tp = 2 (heads and
     FFN sharded, the vocab of 50257 replicated; flash at 8 of the 16
     heads, on the f32 tensor cores) against the same model replicated
     on the card, computed first by each rank and freed before the TP
@@ -282,7 +288,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     the two differ in arithmetic only), and hymba-1.5b at 4 layers, 1 x
     256 (ring attention over its 25 heads, the channel-sharded mamba
     head), with the same gates; then three steps of the distributed
-    step at (data 1, model 2), phase 11's DSC fused int8 settings, adam
+    step at (data 1, model 2) (eris-gptneo-1.3b at full width and 8
+    layers), phase 11's DSC fused int8 settings, adam
     lr 1e-5, the first under an account (phase 19): losses finite and
     falling, one ``dsc_quantize`` and one
     ``dequantize`` a leaf a step, n_layers launches of each flash kernel
@@ -295,10 +302,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     launches of (a)'s TP gradients and steps join the kernels line.
 17. the pipe axis, as phase 16 runs the model axis (ranks are processes
     on cuda:0 over gloo groups; every boundary send is staged through
-    the host).  (a) two ranks: eris-gptneo-1.3b at full width and depth
-    in f32, 4 x 512 in 4 microbatches at pp = 2 (12 layers a stage),
-    its pipelined gradient against the same model replicated on the
-    card (loss 1e-5 relative, each merged leaf 1e-3 of its max; 12
+    the host).  (a) two ranks: eris-gptneo-1.3b at full width and 8 of
+    its 24 layers in f32, 4 x 512 in 4 microbatches at pp = 2 (4 layers
+    a stage), its pipelined gradient against the same model replicated
+    on the card (loss 1e-5 relative, each merged leaf 1e-3 of its max; 4
     layers x 5 ticks of flash launches a rank: every tick runs, masked);
     then three steps at (data 1, pipe 2) with phase 11's (b) settings,
     bf16 params, adam lr 1e-5, 8 x 64 in 4 microbatches (the loss falls;
@@ -330,9 +337,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     model 2): eris-gptneo-1.3b in bf16, the meshless engine's first
     decode step replayed through the TP step (logits within phase 4's
     3e-2), then the requests served: decode step ms by CUDA events and
-    the collectives each step issues, every logit finite.  (e) ``from_checkpoint(...,
-    mesh=)`` at (1, 2) from phase 17's checkpoint (its 4 greedy
-    requests; tokens equal to phase 17's meshless ``from_checkpoint``),
+    the collectives each step issues, every logit finite.  (e)
+    ``from_checkpoint(..., mesh=)`` at (1, 2) from phase 17's checkpoint
+    (8 layers; its 4 greedy requests; tokens equal to phase 17's meshless
+    ``from_checkpoint``),
     or, under ``--only 18``, from a smoke checkpoint saved there.  Every
     rank's paged launches join the kernels line.
 19. the account (``launch/accounting.py``): (a) on a one-rank NCCL
@@ -349,7 +357,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     axis, kind and dtype in bytes and counts, the flops equal, the
     card's host staging reported apart.  Prints both records' flops,
     per-axis bytes, peak and the card's step ms.
-20. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
+20. the serving account: on a one-rank group, after the allocator's cache
+    is emptied, the programs that the serving shapes' dry run accounts
+    (``launch/serve.serve_program`` at the shape's global batch, params
+    from ``--seed`` and caches, pools and tokens drawn from it): (a)
+    qwen2-0.5b ``decode_32k`` at full width and depth (128 slots x 32,768
+    positions, 51.5 GB of bf16 pools, the paged kernel), (b)
+    eris-gptneo-1.3b ``long_500k`` (1 slot, window 8,192 over a
+    524,288-position table, the pages before the window on the scratch
+    block), (c) hymba-1.5b ``long_500k`` (the dense ``decode_step`` on its
+    ring of 8,192, written in place), (d) qwen2-0.5b ``prefill_32k`` (32 x
+    32,768 tokens) cut to ``n_layers=1,vocab=4096,attn_chunk=128``. Each
+    decode: a warm-up step (in (a) and (b) the first layer's kernel call
+    held to its plain version within phase 3's tolerance); then every case
+    one step under an ``Account`` on the card (finite logits) and one on
+    meta twins of its inputs: flops, each kernel's launches and declared
+    work and the argument bytes equal, n_layers paged launches in (a) and
+    (b), none in (c) and (d), traffic within ``ACCOUNT_TRAFFIC_TOL``, the
+    meta peak over the arguments within ``ACCOUNT_PEAK_TOL`` of the card's
+    ``max_memory_allocated`` rise.  Prints each step's ms (by events,
+    without the account but (d)'s), and the paged kernel alone at (a)'s
+    and (b)'s shapes (24 launches over the layers' pools) beside its
+    bound.  The accounted steps' paged launches join the kernels line.
+21. prints each phase's seconds, the ``{"kernels": [...]}`` line, then,
     last, the ``{"ok": true, "device": ...}`` line.
 
 Builds go to ``build/kernels/`` (listed in .gitignore).
@@ -389,7 +419,6 @@ from repro_torch.convert import (tree_leaves, tree_map,  # noqa: E402
 from repro_torch.core import baselines as bl  # noqa: E402
 from repro_torch.core import dsc as dsc_lib  # noqa: E402
 from repro_torch.core import fl  # noqa: E402
-from repro_torch.core import secure_agg as sa  # noqa: E402
 from repro_torch.core.compressors import QSGD, RandK, RandP, TopK  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core.pipeline import (DSCCompress, Int8Wire,  # noqa: E402
@@ -453,6 +482,14 @@ TENSOR_CORE = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
 # product while the kernel keeps them in f32
 TOL_F32 = 1e-4
 TOL_BF16 = 2e-2
+# the paged kernel at a long context: the softmax spreads over thousands
+# of keys, so an output is ~1/sqrt(keys) of V's scale (0.0055 at 32,768
+# keys of N(0, 1) values under a flat softmax), below the bounds above;
+# each (row, head)'s output vector is also held to its norm relative to
+# the plain version's (bf16's output rounding is ~0.2% of it).  A lost
+# or doubled chunk of 64 keys moves it by ~sqrt(64 / keys) under a flat
+# softmax: 4.4% at 32,768 keys, 8.8% at a window of 8,192.
+PAGED_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 # one full-width decode step, kernel vs plain version, bf16 end to end:
 # the attention outputs differ by the weights' bf16 rounding in every
 # layer, so the logits are held to a relative norm (their argmax may flip
@@ -464,6 +501,22 @@ PROMPT_MIN, PROMPT_MAX, GEN, REQUESTS = 32, 256, 32, 8
 
 class PhaseError(RuntimeError):
     pass
+
+
+_DRAWN: dict = {}         # (config, seed) -> its init_params draw, on the host
+
+
+def _init_params(cfg, seed, dev) -> dict:
+    """``tr.init_params(cfg, seed)`` on ``dev``: drawn on the card the first
+    time a (config, seed) asks, and from then on copied from a pinned host
+    copy of that draw, the same bits (a full-width draw takes seconds,
+    the copy a fraction of one)."""
+    key = (cfg, seed)
+    if key not in _DRAWN:
+        params = tr.init_params(cfg, seed=seed, device=dev)
+        _DRAWN[key] = tree_map(lambda t: t.cpu().pin_memory(), params)
+        return params
+    return tree_map(lambda t: t.to(dev), _DRAWN[key])
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1567,7 +1620,7 @@ def _run_config(dev, seed, cfg, toks, name, fields, path, totals,
     torch.cuda.reset_peak_memory_stats()
     fcfg = fl.FLConfig(method="eris", K=K_CLIENTS, A=A_AGGS, lr=LR,
                        seed=seed, **fields)
-    params = tr.init_params(cfg, seed=seed, device=dev)
+    params = _init_params(cfg, seed, dev)
     run = fl.FLRun(fcfg, params, lambda p, b: tr.loss_fn(
         p, cfg, {"tokens": b}), device=dev)
     del params
@@ -1772,7 +1825,7 @@ def context_phase(dev, seed) -> None:
     on = fl_train.model_config("eris-gptneo-1.3b", full=True)
     off = dataclasses.replace(on, flash_attention=False)
     check(tr.uses_flash_kernel(on, CONTEXT), "S = 2048 does not take flash")
-    params = tr.init_params(on, seed=seed, device=dev)
+    params = _init_params(on, seed, dev)
     toks = lm_token_batches(random.fold_in(random.PRNGKey(seed), 3), 1, 1,
                             CONTEXT, on.vocab, device=dev)[0]
     short = toks[:, :128]
@@ -2131,17 +2184,21 @@ TRAIN_CONFIGS = (
 # NVIDIA H100 80GB HBM3, 700.00 W).  At the smoke width the same lr is a
 # smaller share of the init std and the reference's first step lowers
 # the loss (FSA f32: 6.793, 4.989, 6.926; jax 0.9.0 on the CPU), so the
-# smoke size says nothing of the full width.  Two witnesses instead: the
-# host's plain path (gloo, no kernels, the CPU's bf16) takes step 1 of (a)
-# from the card's params and must land on the card's step-1 loss and
-# grad_norm and on the card's raised step-2 loss (TRAIN_WITNESS_TOL,
-# chosen before the first run: bf16 sums in other orders, and adam's
-# sign-like step flips coordinates whose gradients are near zero); and
-# every configuration runs again at lr 1e-5, where the loss must fall at
-# every step on the repeated batch.
+# smoke size says nothing of the full width.  Two witnesses instead, at
+# full width and TRAIN_CUT_LAYERS of the 24 layers (at all 24 the host's
+# step alone took 83 s): the host's plain path (gloo, no kernels, the
+# CPU's bf16) takes step 1 of (a) from the card's params and must land on
+# the card's step-1 loss and grad_norm and on the card's step-2 loss
+# (TRAIN_WITNESS_TOL, chosen before the first run: bf16 sums in other
+# orders, and adam's sign-like step flips coordinates whose gradients are
+# near zero); and every configuration runs again at lr 1e-5, where the
+# loss must fall at every step on the repeated batch; (d) takes two steps
+# there (one fall) and the others three.
 TRAIN_FALL_LR = 1e-5
 TRAIN_FALL_CONFIGS = tuple(name for name, _, _ in TRAIN_CONFIGS)
+TRAIN_FALL_STEPS = {"d dsc jnp": 2}
 TRAIN_WITNESS_TOL = 5e-2
+TRAIN_CUT_LAYERS = 2
 # The scenario and async knobs (the rounds.scenarios cells on the mesh
 # wire) at full width, bf16 params from --seed, three steps of sgd at
 # phase 12's lr: sgd keeps the params bf16 and leaves a segment that
@@ -2216,10 +2273,10 @@ def _knob_plan(settings, steps: int) -> list:
 
 def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
                   totals, lr=TRAIN_LR, witness=False,
-                  optimizer="adam") -> dict:
-    """TRAIN_STEPS steps of one configuration at full width; adds its
-    launches to ``totals``.  At ``TRAIN_FALL_LR`` the loss must fall at
-    every step.  With ``witness``, step 1 again on the host
+                  optimizer="adam", n_steps=TRAIN_STEPS) -> dict:
+    """``n_steps`` steps of one configuration at full width and ``cfg``'s
+    depth; adds its launches to ``totals``.  At ``TRAIN_FALL_LR`` the loss
+    must fall at every step.  With ``witness``, step 1 again on the host
     (:func:`_train_witness`).  With sgd (the knob configurations) each
     step holds or moves as :func:`_knob_plan` says."""
     from repro_torch.launch import train
@@ -2236,17 +2293,17 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
 
     step = train.make_train_step(cfg, mesh, opt, settings, device=dev,
                                  mark=mark)
-    params = train.store_params(tr.init_params(cfg, seed=seed, device=dev),
-                                cfg, mesh, settings)
+    params = train.store_params(_init_params(cfg, seed, dev), cfg, mesh,
+                                settings)
     params0 = tree_map(lambda t: t.cpu(), params) if witness else None
     state = opt.init(params)
     dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=dev)
     n_leaves = len(tree_leaves(params))
     flash = cfg.n_layers if tr.uses_flash_kernel(cfg, TRAIN_SEQ) else 0
-    plan = (_knob_plan(settings, TRAIN_STEPS) if optimizer == "sgd"
-            else [("", "")] * TRAIN_STEPS)
+    plan = (_knob_plan(settings, n_steps) if optimizer == "sgd"
+            else [("", "")] * n_steps)
     steps = []
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         bf16 = {t.dtype for t in tree_leaves(params)} == {torch.bfloat16}
         what = plan[i][0]
         before = ([t.clone() for t in tree_leaves(params)]
@@ -2332,9 +2389,9 @@ def _train_config(dev, seed, cfg, mesh, toks, name, fields, path,
 
 
 def _train_witness(cfg, mesh, toks, fields, lr, params0, card) -> None:
-    """Step 1 of a full-width configuration on the host's plain path
-    (gloo, the kernels' plain versions, the CPU's bf16) from the card's
-    params and tokens, then the loss at the updated params: each within
+    """Step 1 of a full-width configuration at ``cfg``'s depth on the
+    host's plain path (gloo, the kernels' plain versions, the CPU's bf16)
+    from the card's params and tokens, then the loss at the updated params: each within
     TRAIN_WITNESS_TOL of the card's step-1 loss and grad_norm and of its
     step-2 loss, which is the loss after update 1."""
     from repro_torch.launch import train
@@ -2455,7 +2512,9 @@ def mesh_draws(dev, cfg) -> dict:
     in rank order exactly zero in f32; rank 3's row on the leaf's last
     2**24 elements equal to the host's, bit for bit, and its LDP noise
     there within MESH_NORMAL_ULPS of the host's.  Each row and the noise
-    are timed over the whole leaf (device events)."""
+    are timed over the whole leaf (device events); the host's window is
+    drawn on a thread of its own meanwhile."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.dist import sharding as sh
     from repro_torch.launch import train
     items = list(sh.spec_items(cfg))
@@ -2463,6 +2522,55 @@ def mesh_draws(dev, cfg) -> dict:
     shape = items[i][1]
     n = math.prod(shape)
     key = random.PRNGKey(0)
+    window = ((n - 1) // random.CHUNK * random.CHUNK, n)
+
+    def on_host():
+        t0 = time.monotonic()
+        row = train.mask_row(key, i, MESH_CLIENTS - 1, MESH_CLIENTS, n,
+                             window=window)
+        host_s = time.monotonic() - t0
+        return row, host_s, train.ldp_noise(key, i, MESH_CLIENTS - 1, shape,
+                                            window=window)
+
+    with ThreadPoolExecutor(1) as pool:
+        host_job = pool.submit(on_host)
+        out = _mesh_draws_card(dev, train, key, i, shape, n)
+        host, host_s, host_noise = host_job.result()
+    lo, hi, row, noise, noise_ms, row_ms = out
+    check((lo, hi) == window, f"the last window {(lo, hi)}, the host's "
+          f"{window}")
+    _same(f"rank {MESH_CLIENTS - 1}'s mask row on [{lo}, {hi}), card vs "
+          f"host", row.cpu(), host)
+    card = noise.cpu()
+    ulps = (card.view(torch.int32).long()
+            - host_noise.view(torch.int32).long()).abs().max()
+    check(torch.equal(card.sign(), host_noise.sign())
+          and int(ulps) <= MESH_NORMAL_ULPS,
+          f"rank {MESH_CLIENTS - 1}'s LDP noise on [{lo}, {hi}): card vs "
+          f"host {int(ulps)} ulps (tol {MESH_NORMAL_ULPS})")
+    out = dict(leaf="/".join(MESH_LEAF), n=n, n_client=MESH_CLIENTS,
+               mask_row_ms=row_ms,
+               pair_draw_ms=[ms / (MESH_CLIENTS - 1) for ms in row_ms],
+               ldp_noise_ms=noise_ms, noise_ulps=int(ulps),
+               host_mask_window_s=host_s)
+    print(f"  n_client {MESH_CLIENTS} on {out['leaf']} ({n} elements), "
+          f"round key PRNGKey(0): the four mask rows sum to exactly zero "
+          f"in f32; rows {' / '.join(f'{ms:.1f}' for ms in row_ms)} ms "
+          f"({MESH_CLIENTS - 1} pair draws each: "
+          f"{row_ms[0] / (MESH_CLIENTS - 1):.1f} ms a pair draw; phase 12 "
+          f"times a row over (d)'s n); rank "
+          f"{MESH_CLIENTS - 1}'s row on [{lo}, {hi}) card == host bit for "
+          f"bit (host {host_s:.1f} s); its LDP noise {noise_ms:.1f} ms over "
+          f"the leaf, card vs host {int(ulps)} ulps on that window",
+          flush=True)
+    return out
+
+
+def _mesh_draws_card(dev, train, key, i, shape, n) -> tuple:
+    """:func:`mesh_draws`' card half: every rank's mask row, window by
+    window, summed, and rank 3's LDP noise over the leaf.  Returns rank
+    3's last window (lo, hi, its row, its noise there), the noise's ms and
+    each row's ms."""
     events = [[] for _ in range(MESH_CLIENTS)]
     nonzero_sum = nonzero_row = 0
     last = None
@@ -2491,12 +2599,6 @@ def mesh_draws(dev, cfg) -> dict:
     check(nonzero_row > n // 2, f"rank 0's mask row is mostly zero "
           f"({nonzero_row} of {n} nonzero)")
     lo, hi, row = last
-    t0 = time.monotonic()
-    host = train.mask_row(key, i, MESH_CLIENTS - 1, MESH_CLIENTS, n,
-                          window=(lo, hi))
-    host_s = time.monotonic() - t0
-    _same(f"rank {MESH_CLIENTS - 1}'s mask row on [{lo}, {hi}), card vs "
-          f"host", row.cpu(), host)
     # rank 3's noise: the whole leaf timed, the last window vs the host
     start, end = _event_pair()
     total = torch.zeros((), device=dev)
@@ -2509,31 +2611,7 @@ def mesh_draws(dev, cfg) -> dict:
     end.synchronize()
     noise_ms = start.elapsed_time(end)
     check(bool(total.isfinite()), "LDP noise: not finite")
-    host_noise = train.ldp_noise(key, i, MESH_CLIENTS - 1, shape,
-                                 window=(lo, hi))
-    card = noise.cpu()
-    ulps = (card.view(torch.int32).long()
-            - host_noise.view(torch.int32).long()).abs().max()
-    check(torch.equal(card.sign(), host_noise.sign())
-          and int(ulps) <= MESH_NORMAL_ULPS,
-          f"rank {MESH_CLIENTS - 1}'s LDP noise on [{lo}, {hi}): card vs "
-          f"host {int(ulps)} ulps (tol {MESH_NORMAL_ULPS})")
-    out = dict(leaf="/".join(MESH_LEAF), n=n, n_client=MESH_CLIENTS,
-               mask_row_ms=row_ms,
-               pair_draw_ms=[ms / (MESH_CLIENTS - 1) for ms in row_ms],
-               ldp_noise_ms=noise_ms, noise_ulps=int(ulps),
-               host_mask_window_s=host_s)
-    print(f"  n_client {MESH_CLIENTS} on {out['leaf']} ({n} elements), "
-          f"round key PRNGKey(0): the four mask rows sum to exactly zero "
-          f"in f32; rows {' / '.join(f'{ms:.1f}' for ms in row_ms)} ms "
-          f"({MESH_CLIENTS - 1} pair draws each: "
-          f"{row_ms[0] / (MESH_CLIENTS - 1):.1f} ms a pair draw; phase 12 "
-          f"times one over n = 1,816,565,760); rank "
-          f"{MESH_CLIENTS - 1}'s row on [{lo}, {hi}) card == host bit for "
-          f"bit (host {host_s:.1f} s); its LDP noise {noise_ms:.1f} ms over "
-          f"the leaf, card vs host {int(ulps)} ulps on that window",
-          flush=True)
-    return out
+    return lo, hi, row, noise, noise_ms, row_ms
 
 
 def train_phase(dev, seed) -> dict:
@@ -2573,13 +2651,20 @@ def train_phase(dev, seed) -> dict:
         results = {}
         for name, fields, path in TRAIN_CONFIGS:
             results[name] = _train_config(dev, seed, cfg, mesh, toks, name,
-                                          fields, path, totals,
-                                          witness=name == TRAIN_CONFIGS[0][0])
+                                          fields, path, totals)
+        cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+        name, fields, path = TRAIN_CONFIGS[0]
+        name = f"{name} at {TRAIN_CUT_LAYERS} layers"
+        results[name] = _train_config(dev, seed, cut, mesh, toks, name,
+                                      fields, path, totals, witness=True,
+                                      n_steps=2)
         for name, fields, path in TRAIN_CONFIGS:
             if name in TRAIN_FALL_CONFIGS:
                 results[f"{name} lr {TRAIN_FALL_LR}"] = _train_config(
-                    dev, seed, cfg, mesh, toks, name, fields, path, totals,
-                    lr=TRAIN_FALL_LR)
+                    dev, seed, cut, mesh, toks,
+                    f"{name} at {TRAIN_CUT_LAYERS} layers", fields, path,
+                    totals, lr=TRAIN_FALL_LR,
+                    n_steps=TRAIN_FALL_STEPS.get(name, TRAIN_STEPS))
         for name, fields, path in TRAIN_KNOB_CONFIGS:
             results[name] = _train_config(dev, seed, cfg, mesh, toks, name,
                                           fields, path, totals,
@@ -2596,20 +2681,27 @@ def train_phase(dev, seed) -> dict:
 # --------------------------------------------------------------- phase 12
 # The round matrix at full width, as phase 7 runs eris-gptneo-1.3b (bf16
 # params from --seed, flash on, K = 4, A = 8, 4 x 64 tokens a client):
-# (name, FLConfig fields, rounds).  (c) is the scenario pack's cell.
+# (name, FLConfig fields, rounds, layers (None: all 24)).  (c) is the
+# scenario pack's cell.  (c)'s LDP noise and (d)'s pairwise masks draw
+# threefry normals and integers per coordinate (~11 s a round and ~13 s a
+# client at n = 1,816,565,760 on an NVIDIA H100 80GB HBM3, 700.00 W):
+# they run at MATRIX_CUT_LAYERS, whose n the line of threefry ms names.
 MATRIX_POPULATION = 16
+MATRIX_CUT_LAYERS = 2
 MATRIX_CONFIGS = (
     ("a eris int8 agg_fail", dict(method="eris", int8_wire=True,
-                                  agg_dropout=0.25, link_failure=0.1), 2),
+                                  agg_dropout=0.25, link_failure=0.1), 2,
+     None),
     ("b eris_async int8", dict(method="eris_async", int8_wire=True,
                                population=MATRIX_POPULATION,
                                client_dropout=0.25, delay_max=2,
-                               buffer_cadence=2), 2),
+                               buffer_cadence=2), 2, None),
     ("c ldp_int8+agg_fail", dict(method="eris",
-                                 **sc.get("ldp_int8+agg_fail").knobs), 2),
-    ("d secure_agg", dict(method="secure_agg"), 1),
-    ("e priprune", dict(method="priprune"), 1),
-    ("f shatter", dict(method="shatter"), 1),
+                                 **sc.get("ldp_int8+agg_fail").knobs), 2,
+     MATRIX_CUT_LAYERS),
+    ("d secure_agg", dict(method="secure_agg"), 1, MATRIX_CUT_LAYERS),
+    ("e priprune", dict(method="priprune"), 1, None),
+    ("f shatter", dict(method="shatter"), 1, None),
 )
 # (f)'s replayed window straddles 2**31 / 8, where the reference's int32
 # chunk ids wrap
@@ -2701,7 +2793,7 @@ def _matrix_config(dev, seed, cfg, name, fields, rounds, totals,
     else:
         toks = batches
         loss = lambda p, b: tr.loss_fn(p, cfg, b)  # noqa: E731
-    params = tr.init_params(cfg, seed=seed, device=dev)
+    params = _init_params(cfg, seed, dev)
     run = fl.FLRun(fcfg, params, loss, device=dev)
     del params
     n = run.n
@@ -2805,17 +2897,14 @@ def _matrix_config(dev, seed, cfg, name, fields, rounds, totals,
 
 
 def _threefry_ms(dev, n: int) -> dict:
-    """Device ms of the threefry draws inside the two stages that draw
-    per coordinate: one client's LDP noise (``random.normal`` over its
-    window of the (K, n) draw) and one client's pairwise mask (K - 1
-    ``random.randint`` pair draws), each 2**24 coordinates at a time and
-    consumed (summed) as drawn."""
+    """Device ms of one client's LDP noise (``random.normal`` over its
+    window of the (K, n) draw), 2**24 coordinates at a time and consumed
+    (summed) as drawn.  (The other stage that draws per coordinate, the
+    pairwise mask, is timed by (d)'s round: :func:`matrix_phase`.)"""
     key = random.PRNGKey(2)
     draws = {
         "ldp_noise_a_client": lambda lo, hi: random.normal(
             key, (K_CLIENTS, n), device=dev, window=(lo, hi)),
-        "pairwise_mask_a_client": lambda lo, hi: sa.pairwise_mask_row(
-            key, 0, K_CLIENTS, n, device=dev, window=(lo, hi)),
     }
     out = {}
     for name, draw in draws.items():
@@ -2835,22 +2924,67 @@ def _threefry_ms(dev, n: int) -> dict:
 
 def matrix_phase(dev, seed) -> dict:
     """(a)-(f) at full width, the threefry draws' ms, then the smoke-size
-    matrix card vs host.  Returns the kernels' launches over the
-    full-width rounds (the main path's count)."""
+    matrix card vs host, whose host half runs in SMOKE_HOST_PROCS
+    processes of its own beside the full-width rounds.  Returns the
+    kernels' launches over the full-width rounds (the main path's
+    count)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        procs = []
+        try:
+            for part in range(SMOKE_HOST_PROCS):
+                with open(pathlib.Path(out, f"host{part}.log"), "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", _SMOKE_HOST, str(ROOT),
+                         str(seed), str(pathlib.Path(out, f"host{part}.pt")),
+                         str(part), str(SMOKE_HOST_PROCS)],
+                        stdout=subprocess.DEVNULL, stderr=f))
+            totals = _matrix_full(dev, seed)
+            host_x = {}
+            for part, proc in enumerate(procs):
+                try:
+                    proc.wait(timeout=600)
+                except subprocess.TimeoutExpired:
+                    raise PhaseError("the smoke matrix's host half took "
+                                     "over 600 s")
+                log = pathlib.Path(out, f"host{part}.log")
+                check(proc.returncode == 0, f"the smoke matrix's host half "
+                      f"{part} failed: {log.read_text()[-2000:]}")
+                host_x.update(torch.load(pathlib.Path(out, f"host{part}.pt")))
+            matrix_small_input_phase(dev, seed, host_x)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return totals
+
+
+def _matrix_full(dev, seed) -> dict:
+    """(a)-(f) at full width and the threefry draws' ms."""
     totals = {name: 0 for name in ROUND}
     cfg = fl_train.model_config("eris-gptneo-1.3b", full=True)
     check(cfg.flash_attention, "eris-gptneo-1.3b: flash attention is off")
     results = {}
-    for name, fields, rounds in MATRIX_CONFIGS:
-        results[name] = _matrix_config(dev, seed, cfg, name, fields, rounds,
+    for name, fields, rounds, layers in MATRIX_CONFIGS:
+        at = cfg if layers is None else dataclasses.replace(
+            cfg, n_layers=layers)
+        results[name] = _matrix_config(dev, seed, at, name, fields, rounds,
                                        totals)
     _expect_free_card("after the round matrix")
-    n = results[MATRIX_CONFIGS[0][0]]["n"]
+    n = results["d secure_agg"]["n"]
     results["threefry_ms"] = _threefry_ms(dev, n)
-    print(f"  threefry draws at n = {n}: " + ", ".join(
-        f"{k} {v:.1f} ms" for k, v in results["threefry_ms"].items()))
+    # (d)'s aggregation draws each client's pairwise-mask row (K - 1
+    # ``random.randint`` pair draws over n) and sums the masked updates:
+    # a row is that span over K (the sum and the server step are ~0.1 s
+    # of ~52 s at n = 1,816,565,760 on an NVIDIA H100 80GB HBM3)
+    agg = results["d secure_agg"]["rounds"][0]["aggregate_server_ms"]
+    results["threefry_ms"]["pairwise_mask_a_client"] = agg / K_CLIENTS
+    results["threefry_ms"]["n"] = n
+    print(f"  threefry draws at n = {n} ({MATRIX_CUT_LAYERS} layers): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                      results["threefry_ms"].items() if k != "n"))
     print("round_matrix " + json.dumps(results))
-    matrix_small_input_phase(dev, seed)
     return totals
 
 
@@ -2886,34 +3020,65 @@ def _smoke_cases(seed) -> list:
     return cases
 
 
-def matrix_small_input_phase(dev, seed) -> None:
-    """Every method and every feasible scenario cell, eris-gptneo-1.3b's
-    smoke variant in f32, flash on: two rounds on the card (kernels) and
-    on the host (plain versions) from the same seeds, x within 1e-4
-    relative norm."""
+# the smoke matrix's host half, in processes of their own: ``python -c
+# _SMOKE_HOST <repo root> <seed> <output file> <part> <parts>``
+_SMOKE_HOST = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.matrix_small_input_host(int(sys.argv[2]), sys.argv[3],
+                                   int(sys.argv[4]), int(sys.argv[5]))
+"""
+SMOKE_HOST_PROCS, SMOKE_HOST_THREADS = 3, 2
+
+
+def _smoke_matrix_run(cfg, seed, fcfg, device):
+    """One smoke case's FLRun and its clients' tokens."""
+    toks = fl_train.client_tokens(seed, fcfg.population or K_CLIENTS,
+                                  BATCH, SEQ, cfg.vocab)
+    run = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"),
+                   lambda p, b: tr.loss_fn(p, cfg, {"tokens": b}),
+                   device=device)
+    return run, toks
+
+
+def matrix_small_input_host(seed, out: str, part: int = 0,
+                            parts: int = 1) -> None:
+    """The host half of :func:`matrix_small_input_phase` (plain versions,
+    SMOKE_HOST_THREADS threads), cases ``part``, ``part + parts``, ...:
+    each case's x after two rounds, saved to ``out`` by case name."""
+    torch.set_num_threads(SMOKE_HOST_THREADS)
     cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
-
-    def loss(p, b):
-        return tr.loss_fn(p, cfg, {"tokens": b})
-
-    worst, cases = 0.0, _smoke_cases(seed)
-    for name, fcfg in cases:
-        toks = fl_train.client_tokens(seed, fcfg.population or K_CLIENTS,
-                                      BATCH, SEQ, cfg.vocab)
-        host = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"),
-                        loss, device="cpu")
-        card = fl.FLRun(fcfg, tr.init_params(cfg, seed=seed, device="cpu"),
-                        loss, device=dev)
-        _set_round_launches(0)
+    xs = {}
+    for name, fcfg in _smoke_cases(seed)[part::parts]:
+        host, toks = _smoke_matrix_run(cfg, seed, fcfg, "cpu")
         for _ in range(2):
             host.step(toks)
+        xs[name] = host.x
+    torch.save(xs, out)
+
+
+def matrix_small_input_phase(dev, seed, host_x: dict) -> None:
+    """Every method and every feasible scenario cell, eris-gptneo-1.3b's
+    smoke variant in f32, flash on: two rounds on the card (kernels)
+    against ``host_x``, the host's (plain versions) from the same seeds
+    (:func:`matrix_small_input_host`), x within 1e-4 relative norm."""
+    cfg = fl_train.model_config("eris-gptneo-1.3b", full=False)
+    worst, cases = 0.0, _smoke_cases(seed)
+    check(sorted(host_x) == sorted(name for name, _ in cases),
+          f"the host half's cases {sorted(host_x)}")
+    for name, fcfg in cases:
+        card, toks = _smoke_matrix_run(cfg, seed, fcfg, dev)
+        host_xn = host_x[name]
+        _set_round_launches(0)
+        for _ in range(2):
             card.step(toks.to(dev))
         if fcfg.compress_impl == "fused":
             check(dq.dsc_quantize.launches == 2 * K_CLIENTS,
                   f"{name}: dsc_quantize launched {dq.dsc_quantize.launches} "
                   f"times, want {2 * K_CLIENTS}")
         check(bool(card.x.isfinite().all()), f"{name}: x is not finite")
-        rel = float((card.x.cpu() - host.x).norm() / host.x.norm())
+        rel = float((card.x.cpu() - host_xn).norm() / host_xn.norm())
         check(rel <= 1e-4, f"smoke {name}: x card vs host relative error "
               f"{rel:.3e} after 2 rounds")
         worst = max(worst, rel)
@@ -2966,8 +3131,8 @@ def _audit_capture(dev, seed, cfg, mesh, toks, name, fields, path,
     settings = train.TrainSettings(capture_views=True, **fields)
     opt = sgd(AUDIT_LR)
     step = train.make_train_step(cfg, mesh, opt, settings, device=dev)
-    params = train.store_params(tr.init_params(cfg, seed=seed, device=dev),
-                                cfg, mesh, settings)
+    params = train.store_params(_init_params(cfg, seed, dev), cfg, mesh,
+                                settings)
     state = opt.init(params)
     dsc_ref = train.init_dsc_state(cfg, mesh, settings, device=dev)
     _, unravel = ravel_params(tree_map(lambda t: t.to("meta"), params))
@@ -3471,13 +3636,16 @@ def moe_phase(dev, seed) -> tuple:
 
 
 # --------------------------------------------------------------- phase 15
-# the recurrent families at full width, bf16 params from --seed, flash on
+# the recurrent families at full width, bf16 params from --seed, flash on;
+# hymba-1.5b at FAMILY_LAYERS of its 32 (its selective scan took ~80% of a
+# 12.5 s gradient at all 32 on an NVIDIA H100 80GB HBM3, 700.00 W)
 FAMILY_ARCHS = ("xlstm-350m", "hymba-1.5b")
+FAMILY_LAYERS = {"hymba-1.5b": 8}
 VLM_ARCH = "internvl2-26b"
 FAMILY_CONTEXT = 2048
 # the loss on 1 x 2048 tokens, flash vs the plain chunked attention (as
-# phase 14(d)): 32 layers of random bf16 weights, the plain path's softmax
-# weights rounded to bf16 before the PV product
+# phase 14(d)): hymba's 8 layers of random bf16 weights, the plain
+# path's softmax weights rounded to bf16 before the PV product
 FAMILY_LOSS_REL_TOL = 1e-2
 BEAM_PROMPT, BEAM_NEW, BEAM_WIDTH = 64, 16, 4
 # internvl2-26b has 19,867,551,744 params (39.7 GB in bf16; its gradient
@@ -3679,10 +3847,12 @@ def _family_beam(dev, seed, cfg, params) -> dict:
 
 
 def _recurrent_part(dev, seed, arch, totals) -> dict:
-    """(a) xlstm-350m, (b) hymba-1.5b at full width: init, the 1 x 2048
-    gradient (hymba: flash on and off, the scan's share), beam_search,
-    two int8 rounds."""
+    """(a) xlstm-350m, (b) hymba-1.5b at full width (hymba at
+    FAMILY_LAYERS): init, the 1 x 2048 gradient (hymba: flash on and off,
+    the scan's share), beam_search, two int8 rounds."""
     cfg = get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
     check(cfg.dtype == "bfloat16" and cfg.flash_attention,
           f"{arch}: {cfg.dtype}, flash {cfg.flash_attention}")
     attn = 0 if cfg.family == "ssm" else cfg.n_layers
@@ -3879,7 +4049,13 @@ def family_phase(dev, seed) -> dict:
 # compute (matmuls, the flash and wire kernels) stays on the card.
 # (a) 2 ranks: (arch, layers (None = all), tokens, tp) gradient parity,
 # TP against the same model replicated on the card, f32; then the step.
-TP_PARITY_A = (("eris-gptneo-1.3b", None, 512, 2),
+# eris-gptneo-1.3b runs at full width and AXIS_LAYERS of its 24 layers
+# here, in phase 17 (4 a stage) and in the checkpoint phase 18 serves: the
+# axes' collectives, plans and gates are the same at every depth, and at
+# 24 the ranks' gradients, steps and checkpoint took ~150 s of the script
+# (NVIDIA H100 80GB HBM3, 700.00 W).
+AXIS_LAYERS = 8
+TP_PARITY_A = (("eris-gptneo-1.3b", AXIS_LAYERS, 512, 2),
                ("olmoe-1b-7b", 4, 128, 2),
                ("hymba-1.5b", 4, 256, 2))
 # (b) 4 ranks
@@ -4023,15 +4199,16 @@ def _tp_parity(dev, seed, rank, arch, layers, tokens, tp, group) -> dict:
 
 
 def _tp_step(dev, seed, rank) -> dict:
-    """Three steps of eris-gptneo-1.3b at full width at (data 1, model 2),
-    phase 11's DSC fused int8 settings, adam lr 1e-5: the loss finite and
-    falling, the wire kernels once a leaf a step, the flash kernels
-    n_layers a step at the TP-local head counts."""
+    """Three steps of eris-gptneo-1.3b at full width and AXIS_LAYERS at
+    (data 1, model 2), phase 11's DSC fused int8 settings, adam lr 1e-5:
+    the loss finite and falling, the wire kernels once a leaf a step, the
+    flash kernels n_layers a step at the TP-local head counts."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train
     from repro_torch.optim import adam
-    cfg = get_config("eris-gptneo-1.3b")
+    cfg = dataclasses.replace(get_config("eris-gptneo-1.3b"),
+                              n_layers=AXIS_LAYERS)
     mesh = mesh_lib.make_host_mesh(data=1, model=2, device=dev)
     name, fields, wire = TP_STEP_CONFIG
     settings = train.TrainSettings(**fields)
@@ -4243,7 +4420,7 @@ def _tp_step_account(dev, seed) -> dict:
 # gradient parity, the pipelined gradient against the same model
 # replicated on the card, f32; then the step, its composite checkpoint,
 # and serving from it in this process.  (b) four ranks.
-PIPE_PARITY_A = ("eris-gptneo-1.3b", None, 4, 512, 2, 1, 4)
+PIPE_PARITY_A = ("eris-gptneo-1.3b", AXIS_LAYERS, 4, 512, 2, 1, 4)
 PIPE_PARITY_B = ("qwen2-0.5b", None, 2, 512, 2, 2, 2)
 PIPE_STEP_LR, PIPE_STEPS, PIPE_STEP_MB = 1e-5, 3, 4
 PIPE_STEP_CONFIG = TRAIN_CONFIGS[1]         # (b) dsc int8 fused
@@ -4251,6 +4428,13 @@ PIPE_SERVE_REQUESTS, PIPE_SERVE_GEN = 4, 16
 # the smoke int8 step at (data 2, pipe 2), card vs host: params and
 # losses within this relative error
 PIPE_SMOKE_TOL = 1e-6
+
+
+def _axis_gptneo():
+    """eris-gptneo-1.3b at full width and AXIS_LAYERS: phase 17's step,
+    its checkpoint and the engines phases 17 and 18 serve from it."""
+    return dataclasses.replace(get_config("eris-gptneo-1.3b"),
+                               n_layers=AXIS_LAYERS)
 
 
 def _pipe_mesh(dev, data: int, pipe: int, model: int):
@@ -4350,17 +4534,18 @@ def _pipe_parity(dev, seed, rank, case, mesh) -> dict:
 
 
 def _pipe_step(dev, seed, rank, mesh, out_dir) -> dict:
-    """Three steps of eris-gptneo-1.3b at full width at (data 1, pipe 2),
-    phase 11's DSC fused int8 settings, bf16 params, adam lr 1e-5, 8 x 64
-    in 4 microbatches: the loss finite and falling, the wire kernels once
-    a leaf a step, the flash kernels 12 layers x 5 ticks a step; then the
-    composite checkpoint under ``out_dir`` and this rank's pieces beside
-    it (for the merged engine)."""
+    """Three steps of eris-gptneo-1.3b at full width and AXIS_LAYERS at
+    (data 1, pipe 2), phase 11's DSC fused int8 settings, bf16 params,
+    adam lr 1e-5, 8 x 64 in 4 microbatches: the loss finite and falling,
+    the wire kernels once a leaf a step, the flash kernels (a stage's
+    layers) x 5 ticks a step; then the composite checkpoint under
+    ``out_dir`` and this rank's pieces beside it (for the merged
+    engine)."""
     from repro_torch.checkpoint import msgpack_ckpt as ck
     from repro_torch.dist import sharding as sh
     from repro_torch.launch import train
     from repro_torch.optim import adam
-    cfg = get_config("eris-gptneo-1.3b")
+    cfg = _axis_gptneo()
     name, fields, wire = PIPE_STEP_CONFIG
     settings = train.TrainSettings(microbatches=PIPE_STEP_MB, **fields)
     opt = adam(PIPE_STEP_LR)
@@ -4475,8 +4660,7 @@ def _pipe_serve(dev, seed, out_dir) -> tuple:
     tokens must be equal.  Returns (the paged kernel's launches of the
     checkpoint's engine, its tokens)."""
     from repro_torch.dist import sharding as sh
-    cfg = dataclasses.replace(get_config("eris-gptneo-1.3b"),
-                              dtype="float32")
+    cfg = dataclasses.replace(_axis_gptneo(), dtype="float32")
     requests = [(p, SamplingParams()) for p, _ in serve_lib.random_requests(
         cfg.vocab, PIPE_SERVE_REQUESTS, 32, 64, seed)]
     settings = serve_lib.settings_for(requests, PIPE_SERVE_GEN,
@@ -4586,15 +4770,29 @@ SERVE_MESH_SMOKE = "olmoe-1b-7b"
 SERVE_MESH_SMOKE_PROMPT, SERVE_MESH_SMOKE_GEN = (8, 24), 8
 
 
+def _paged_rel(out, ref) -> torch.Tensor:
+    """Each (row, head)'s ||out - ref|| / ||ref|| over the head dim (0
+    where both are 0: an inactive row)."""
+    diff = (out.float() - ref.float()).norm(dim=-1)
+    return diff / ref.float().norm(dim=-1).clamp_min(1e-30)
+
+
 class PagedCheck:
     """Inside: the model's paged kernel calls go through a wrapper that
     holds the first call with a live row to the plain version on the same
-    inputs (phase 3's tolerance).  The wrapper is put in the transformer's
-    view of the kernel module only, so the kernel's own launch counter
-    counts as always; the plain version launches nothing."""
+    inputs: phase 3's elementwise tolerance and, per (row, head),
+    ``PAGED_REL_TOL`` of the output's norm.  With ``plant`` the plain
+    version also runs with the window's (or the context's) oldest 64 keys
+    dropped, a chunk partial lost, and ``fault_rel`` is that fault's
+    least relative error over the live (row, head)s, which must exceed the
+    tolerance.  The wrapper is put in the transformer's view of the kernel
+    module only, so the kernel's own launch counter counts as always; the
+    plain version launches nothing."""
 
-    def __init__(self):
+    def __init__(self, plant: bool = False):
         self.err, self.shape, self.tol, self.ok = None, None, None, False
+        self.rel = self.rel_tol = self.ref_rms = self.fault_rel = None
+        self.plant = plant
 
     def __enter__(self):
         import types
@@ -4607,11 +4805,21 @@ class PagedCheck:
                                              **kw)
                 self.tol = (TOL_F32 if k_pool.dtype == torch.float32
                             else TOL_BF16)
+                self.rel_tol = PAGED_REL_TOL[k_pool.dtype]
                 err = (out.float() - ref.float()).abs()
-                self.ok = bool((err <= self.tol + self.tol * ref.float()
-                                .abs()).all())
                 self.err = float(err.max())
+                self.rel = float(_paged_rel(out, ref).max())
+                self.ref_rms = float(ref.float().square().mean().sqrt())
+                self.ok = bool((err <= self.tol + self.tol * ref.float()
+                                .abs()).all()) and self.rel <= self.rel_tol
                 self.shape = (q.shape[1], k_pool.shape[1], q.shape[2])
+                if self.plant:
+                    keys = kw.get("window") or int(ctx.max())
+                    drop = pa.paged_attention_ref(
+                        q, k_pool, v_pool, tables, ctx,
+                        window=keys - pa.chunk_positions(k_pool.shape[2]))
+                    self.fault_rel = float(_paged_rel(drop, ref)[ctx > 0]
+                                           .min())
             return out
 
         tr.pa = types.SimpleNamespace(paged_attention=run,
@@ -4735,14 +4943,16 @@ def _serve_mesh_full(dev, seed, rank, mesh, arch, local) -> dict:
           f", {steps} decode steps in {wall:.2f} s, paged launches "
           f"{launches}; the first live call at (H, KV, hd) {kernel.shape} "
           f"vs the plain version: max abs err {kernel.err:.3e} (tol "
-          f"{kernel.tol:g})", flush=True)
+          f"{kernel.tol:g}), relative a (row, head) {kernel.rel:.3e} (tol "
+          f"{kernel.rel_tol:g})", flush=True)
     check(engine._manual, f"{arch} at (2, 2): not the manual path")
     check(launches == cfg.n_layers * steps and steps > 0,
           f"{arch} at (2, 2): paged kernel launched {launches} times over "
           f"{steps} decode steps of {cfg.n_layers} layers")
     check(kernel.shape == tuple(local) and kernel.ok,
           f"{arch} at (2, 2): kernel at {kernel.shape} (want {local}) "
-          f"disagrees with the plain version: {kernel.err}")
+          f"disagrees with the plain version: {kernel.err}, relative "
+          f"{kernel.rel}")
     return dict(tokens=[o.tokens for o in outs], want=want,
                 launches=launches, steps=steps, wall_s=wall,
                 max_abs_err=kernel.err, shape=kernel.shape,
@@ -4886,8 +5096,7 @@ def _serve_mesh_ckpt(dev, seed, rank, mesh, out_dir, served) -> dict:
     from repro_torch.launch import train
     path = pathlib.Path(out_dir, "ckpt")
     if served is not None:
-        cfg = dataclasses.replace(get_config("eris-gptneo-1.3b"),
-                                  dtype="float32")
+        cfg = dataclasses.replace(_axis_gptneo(), dtype="float32")
         requests = [(p, SamplingParams()) for p, _ in
                     serve_lib.random_requests(cfg.vocab, PIPE_SERVE_REQUESTS,
                                               32, 64, seed)]
@@ -5084,7 +5293,7 @@ ACCOUNT_TRAFFIC_TOL = 1e-3
 ACCOUNT_PEAK_TOL = 0.2
 
 _TP_DRYRUN = """
-import json, sys
+import dataclasses, json, sys
 import torch
 sys.path.insert(0, sys.argv[1])
 from repro_torch import random
@@ -5095,7 +5304,8 @@ from repro_torch.optim import adam
 spec = json.loads(sys.argv[2])
 mesh_lib.init_dryrun_group(2)
 mesh = mesh_lib.make_host_mesh(data=1, model=2, device="cpu")
-cfg = get_config(spec["arch"])
+cfg = dataclasses.replace(get_config(spec["arch"]),
+                          n_layers=spec["n_layers"])
 settings = train.TrainSettings(**spec["fields"])
 opt = adam(spec["lr"])
 step = train.make_train_step(cfg, mesh, opt, settings, device="meta")
@@ -5126,6 +5336,27 @@ def _headline(rec: dict) -> str:
             f"{json.dumps(rec['kernels'])}")
 
 
+def _account_gates(what: str, c: dict, m: dict, rise: int) -> tuple:
+    """The card's account ``c`` against the meta one ``m``: flops, each
+    kernel's launches and declared work and the argument bytes equal, the
+    traffic within ``ACCOUNT_TRAFFIC_TOL``, the meta peak over the
+    arguments within ``ACCOUNT_PEAK_TOL`` of the card's rise.  Returns
+    (the traffic gap, the meta peak over the arguments)."""
+    check(c["flops"] == m["flops"], f"{what}: flops card {c['flops']} vs "
+          f"meta {m['flops']}")
+    check(c["kernels"] == m["kernels"], f"{what}: kernels card "
+          f"{c['kernels']} vs meta {m['kernels']}")
+    check(c["argument_bytes"] == m["argument_bytes"], f"{what}: arguments "
+          f"card {c['argument_bytes']} vs meta {m['argument_bytes']}")
+    gap = abs(c["traffic_bytes"] - m["traffic_bytes"]) / c["traffic_bytes"]
+    check(gap <= ACCOUNT_TRAFFIC_TOL, f"{what}: traffic card "
+          f"{c['traffic_bytes']} vs meta {m['traffic_bytes']}")
+    temp = m["peak_bytes"] - m["argument_bytes"]
+    check(abs(temp - rise) <= ACCOUNT_PEAK_TOL * rise, f"{what}: meta peak "
+          f"over the arguments {temp} B vs the card's rise {rise} B")
+    return gap, temp
+
+
 def _account_card(dev, seed, cfg, mesh, toks, name, fields) -> dict:
     """One step of a phase 11 configuration on the card under an account,
     then the same step on meta twins of its inputs; the gates."""
@@ -5135,8 +5366,8 @@ def _account_card(dev, seed, cfg, mesh, toks, name, fields) -> dict:
     settings = train.TrainSettings(**fields)
     opt = adam(TRAIN_LR)
     step = train.make_train_step(cfg, mesh, opt, settings, device=dev)
-    params = train.store_params(tr.init_params(cfg, seed=seed, device=dev),
-                                cfg, mesh, settings)
+    params = train.store_params(_init_params(cfg, seed, dev), cfg, mesh,
+                                settings)
     inputs = [params, opt.init(params),
               train.init_dsc_state(cfg, mesh, settings, device=dev),
               {"tokens": toks}]
@@ -5164,70 +5395,84 @@ def _account_card(dev, seed, cfg, mesh, toks, name, fields) -> dict:
     with Account(mesh, "meta", inputs=twins) as meta:
         meta_step(*twins, random.PRNGKey(0))
     c, m = card.record(), meta.record()
-    temp = m["peak_bytes"] - m["argument_bytes"]
     print(f"  {name}: card step {ms:.1f} ms (the account's own cost "
           f"included), loss {loss:.4f}, max_memory_allocated rise {rise} B"
           f"\n    card: {_headline(c)}\n    meta: {_headline(m)}",
           flush=True)
-    check(c["flops"] == m["flops"], f"account {name}: flops card "
-          f"{c['flops']} vs meta {m['flops']}")
-    check(c["kernels"] == m["kernels"], f"account {name}: kernels card "
-          f"{c['kernels']} vs meta {m['kernels']}")
+    gap, temp = _account_gates(f"account {name}", c, m, rise)
     check(all(launches[k] == v["launches"] for k, v in c["kernels"].items())
           and sum(launches.values()) == sum(v["launches"] for v in
                                             c["kernels"].values()),
           f"account {name}: launches {launches} vs declarations "
           f"{c['kernels']}")
-    check(c["argument_bytes"] == m["argument_bytes"],
-          f"account {name}: arguments card {c['argument_bytes']} vs meta "
-          f"{m['argument_bytes']}")
-    gap = abs(c["traffic_bytes"] - m["traffic_bytes"]) / c["traffic_bytes"]
-    check(gap <= ACCOUNT_TRAFFIC_TOL, f"account {name}: traffic card "
-          f"{c['traffic_bytes']} vs meta {m['traffic_bytes']}")
-    check(abs(temp - rise) <= ACCOUNT_PEAK_TOL * rise,
-          f"account {name}: meta peak over the arguments {temp} B vs the "
-          f"card's rise {rise} B")
     check(c["staging_bytes"] == m["staging_bytes"] == 0,
           f"account {name}: staging on one NCCL rank")
     return dict(card=c, meta=m, ms=ms, rise=rise, launches=launches,
                 traffic_gap=gap, peak_ratio=temp / rise)
 
 
-def account_phase(dev, seed, tp_account) -> dict:
+def _tp_dryrun_start() -> subprocess.Popen:
+    """Starts phase 19 (b)'s dry run of phase 16's step (a CPU process on
+    meta tensors, which needs nothing of the card's runs)."""
+    name, fields, _ = TP_STEP_CONFIG
+    spec = dict(arch="eris-gptneo-1.3b", n_layers=AXIS_LAYERS,
+                fields=fields, lr=TP_STEP_LR,
+                tokens=[TRAIN_BATCH, TRAIN_SEQ])
+    return subprocess.Popen([sys.executable, "-c", _TP_DRYRUN,
+                             str(ROOT / "src"), json.dumps(spec)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _tp_dryrun_record(proc: subprocess.Popen) -> dict:
+    """The dry run's account record, once its process has ended."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise PhaseError("the model-axis dry run took over 300 s")
+    check(proc.returncode == 0, f"the model-axis dry run failed: "
+          f"{err[-2000:]}")
+    return json.loads([ln for ln in out.splitlines()
+                       if ln.startswith("DRYRUN")][-1][len("DRYRUN"):])
+
+
+def account_phase(dev, seed, tp_account, dryrun=None) -> dict:
     """Phase 19: (a) phase 11's step, card against meta, (b) phase 16's
-    model-axis step, rank 0 against a fake world of 2.  Returns the main
-    path's launches ((a)'s steps)."""
+    model-axis step, rank 0 against a fake world of 2 (``dryrun``: its
+    process, when the caller started it early).  Returns the main path's
+    launches ((a)'s steps)."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
     totals = {name: 0 for name in ROUND}
     results = {}
-    mesh_lib.init_process_group(dev)
+    if dryrun is None:
+        dryrun = _tp_dryrun_start()
     try:
-        mesh = mesh_lib.make_host_mesh(device=dev)
-        cfg = get_config("eris-gptneo-1.3b")
-        toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH, TRAIN_SEQ,
-                                cfg.vocab, device=dev)[0]
-        for name, fields, _ in ACCOUNT_CONFIGS:
-            results[name] = _account_card(dev, seed, cfg, mesh, toks, name,
-                                          fields)
-            for k, n in results[name]["launches"].items():
-                totals[k] += n
-        del toks
+        mesh_lib.init_process_group(dev)
+        try:
+            mesh = mesh_lib.make_host_mesh(device=dev)
+            cfg = get_config("eris-gptneo-1.3b")
+            toks = lm_token_batches(random.PRNGKey(0), 1, TRAIN_BATCH,
+                                    TRAIN_SEQ, cfg.vocab, device=dev)[0]
+            for name, fields, _ in ACCOUNT_CONFIGS:
+                results[name] = _account_card(dev, seed, cfg, mesh, toks,
+                                              name, fields)
+                for k, n in results[name]["launches"].items():
+                    totals[k] += n
+            del toks
+        finally:
+            dist.destroy_process_group()
+        _expect_free_card("after the account's steps")
+        if tp_account is None:
+            tp_account = _tp_step_account(dev, seed)
+        meta = _tp_dryrun_record(dryrun)
     finally:
-        dist.destroy_process_group()
-    _expect_free_card("after the account's steps")
-    if tp_account is None:
-        tp_account = _tp_step_account(dev, seed)
-    name, fields, _ = TP_STEP_CONFIG
-    spec = dict(arch="eris-gptneo-1.3b", fields=fields, lr=TP_STEP_LR,
-                tokens=[TRAIN_BATCH, TRAIN_SEQ])
-    r = subprocess.run([sys.executable, "-c", _TP_DRYRUN,
-                        str(ROOT / "src"), json.dumps(spec)],
-                       capture_output=True, text=True, timeout=300)
-    check(r.returncode == 0, f"the model-axis dry run failed: "
-          f"{r.stderr[-2000:]}")
-    meta = json.loads([ln for ln in r.stdout.splitlines()
-                       if ln.startswith("DRYRUN")][-1][len("DRYRUN"):])
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.communicate()
+    name = TP_STEP_CONFIG[0]
     print(f"  (b) {name} at (data 1, model 2), rank 0 over gloo:\n"
           f"    card: {_headline(tp_account)}\n"
           f"    meta: {_headline(meta)}", flush=True)
@@ -5250,11 +5495,168 @@ def account_phase(dev, seed, tp_account) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------- phase 20
+# the serving account: each case's program as the dry run accounts it
+# (launch/serve.serve_program at the shape's global batch on one rank), on
+# the card under an account and then on meta twins of its inputs, with
+# phase 19's gates; (d) is cut (named here) so that its meta peak stays
+# under 60 GB
+SERVE_ACCOUNT_CASES = (
+    ("(a)", "qwen2-0.5b", "decode_32k", ""),
+    ("(b)", "eris-gptneo-1.3b", "long_500k", ""),
+    ("(c)", "hymba-1.5b", "long_500k", ""),
+    ("(d)", "qwen2-0.5b", "prefill_32k",
+     "n_layers=1,vocab=4096,attn_chunk=128"),
+)
+SERVE_KERNEL_REPS = 24
+
+
+def _paged_timing(dev, seed, cfg, inputs, window) -> dict:
+    """The paged kernel alone at a decode case's shapes (its tables, its
+    lengths + 1, one layer's pools a call in turn, a random bf16 q), by
+    CUDA events over repeated launches, beside its bound (each position
+    the call may read, cut at the window, once)."""
+    _, pools, tables, ctx, _ = inputs
+    L, _, KV, _, hd = pools["k"].shape
+    H = KV * (cfg.n_heads // cfg.n_kv_heads)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    q = torch.randn(tables.shape[0], H, hd, generator=gen, device=dev).to(
+        pools["k"].dtype)
+    lens = ctx + 1
+    turn = iter(range(1 << 30))
+
+    def call():
+        i = next(turn) % L
+        pa.paged_attention(q, pools["k"][i], pools["v"][i], tables, lens,
+                           window=window)
+    ms = _event_ms(call, SERVE_KERNEL_REPS)
+    flops, nbytes = pa.declared_work(q, pools["k"][0], tables, window)
+    bound = _bound(nbytes, int(flops))
+    print(f"    paged kernel at B={q.shape[0]} H={H} KV={KV} hd={hd} table "
+          f"{tables.shape[1]} pages window={window}: {ms * 1e3:.2f} us a "
+          f"launch, bound {bound['bound_ms'] * 1e3:.2f} us by "
+          f"{bound['bound_by']} ({nbytes} bytes), "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of its bound, "
+          f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s", flush=True)
+    return dict(ms=ms, bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"], bytes=nbytes)
+
+
+def _serve_account_case(dev, seed, mesh, label, arch, shape_name,
+                        opt) -> dict:
+    """One case: params from ``seed``, the inputs drawn from it, a warm-up
+    step (the paged kernel's first call with a live row held to its plain
+    version), then the step on the card under an account and on meta twins
+    of its inputs under another; the gates; the step's ms without the
+    account; at a paged case the kernel alone at its shapes."""
+    from repro_torch.launch import dryrun, shapes as shp
+    _expect_free_card(f"before the serving account {label}")
+    cfg = dataclasses.replace(get_config(arch), **dryrun._overrides(opt))
+    shape = shp.SHAPES[shape_name]
+    window = (shp.decode_window(cfg, shape) if shape.kind == "decode"
+              else None)
+    step, inputs = serve_lib.serve_program(
+        cfg, mesh, shape.kind, shape.global_batch, shape.seq_len, window,
+        device=dev, params=_init_params(cfg, seed, dev))
+    serve_lib.fill_inputs(inputs, cfg, seed)
+    paged = shape.kind == "decode" and cfg.family in tr.paged_families()
+    twins = _meta_twin(inputs)
+    decode = shape.kind == "decode"
+    if decode:
+        # a warm-up step (a prefill takes none: its ~12 s step allocates
+        # nothing the step after it would not, cuBLAS being warm by (c))
+        with PagedCheck(plant=True) as chk:
+            step(*inputs)
+        torch.cuda.synchronize()
+        if paged:
+            print(f"    the first layer's paged call vs its plain version: "
+                  f"max abs err {chk.err:.3e} (bound {chk.tol:g} + "
+                  f"{chk.tol:g} |ref|), |ref| rms {chk.ref_rms:.3e}, max "
+                  f"relative error a (row, head) {chk.rel:.3e} (tol "
+                  f"{chk.rel_tol:g}); planted fault (the oldest 64 keys "
+                  f"dropped): least relative error {chk.fault_rel:.3e}",
+                  flush=True)
+            check(chk.ok, f"serving account {label}: the first layer's "
+                  f"paged kernel call disagrees with its plain version: "
+                  f"max err {chk.err} (tol {chk.tol}), relative "
+                  f"{chk.rel} (tol {chk.rel_tol})")
+            check(chk.fault_rel > chk.rel_tol, f"serving account {label}: "
+                  f"a dropped chunk of 64 keys moves a (row, head) by only "
+                  f"{chk.fault_rel}, within the check's {chk.rel_tol}")
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention.launches = 0               # the main path starts
+    start, end = _event_pair()
+    with Account(mesh, dev, inputs=inputs) as card:
+        start.record()
+        out = step(*inputs)
+        end.record()
+    torch.cuda.synchronize()
+    launches = pa.paged_attention.launches        # it ended
+    rise = torch.cuda.max_memory_allocated() - base
+    acc_ms = start.elapsed_time(end)
+    check(bool(torch.isfinite(out[0]).all()), f"serving account {label}: "
+          f"non-finite logits")
+    del out
+    with Account(mesh, "meta", inputs=twins) as meta:
+        step(*twins)
+    c, m = card.record(), meta.record()
+    name = f"{label} {arch} {shape_name}" + (f" at {opt}" if opt else "")
+    # a decode step's ms without the account; the prefill's under it (its
+    # dispatch costs ~0.4 of ~12 s)
+    ms = _event_ms(lambda: step(*inputs), 3) if decode else acc_ms
+    print(f"  {name}: {shape.kind} step {ms:.3f} ms "
+          f"({'no account; ' if decode else ''}{acc_ms:.1f} ms under it), "
+          f"window {window}, max_memory_allocated rise {rise} B\n    card: "
+          f"{_headline(c)}\n    meta: {_headline(m)}", flush=True)
+    gap, temp = _account_gates(f"serving account {name}", c, m, rise)
+    want = cfg.n_layers if paged else 0
+    check(launches == c["kernels"].get("paged_attention", {}).get(
+        "launches", 0) == want, f"serving account {name}: {launches} paged "
+          f"launches, declared {c['kernels']}, want {want}")
+    timing = None
+    if paged:
+        timing = dict(_paged_timing(dev, seed, cfg, inputs, window),
+                      max_abs_err=chk.err, max_rel_err=chk.rel,
+                      ref_rms=chk.ref_rms, planted_fault_rel=chk.fault_rel)
+    del inputs, twins, step
+    return dict(ms=ms, accounted_ms=acc_ms, rise=rise, meta_temp=temp,
+                peak_ratio=temp / rise, traffic_gap=gap, launches=launches,
+                flops=c["flops"], traffic=c["traffic_bytes"],
+                arguments=c["argument_bytes"], kernel=timing)
+
+
+def serve_account_phase(dev, seed) -> tuple:
+    """Phase 20: cases (a)-(d) on a one-rank group.  Returns the paged
+    launches of the accounted steps and the kernel's timings at (a)'s and
+    (b)'s shapes."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = {}
+    mesh_lib.init_process_group(dev)
+    try:
+        mesh = mesh_lib.make_host_mesh(device=dev)
+        for label, arch, shape_name, opt in SERVE_ACCOUNT_CASES:
+            results[label] = _serve_account_case(dev, seed, mesh, label,
+                                                 arch, shape_name, opt)
+    finally:
+        dist.destroy_process_group()
+    _expect_free_card("after the serving account")
+    print("serving account " + json.dumps(results), flush=True)
+    launches = sum(r["launches"] for r in results.values())
+    return launches, {"qwen2_decode_32k": results["(a)"]["kernel"],
+                      "gptneo_long_500k": results["(b)"]["kernel"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", type=int, nargs="+",
-                    choices=(16, 17, 18, 19),
+                    choices=(16, 17, 18, 19, 20),
                     help="after the device and the build, run only these "
                          "multi-rank phases, and print no result (a "
                          "partial run: the kernels line needs every phase)")
@@ -5276,9 +5678,12 @@ def main() -> None:
                 elif n == 18:
                     phase("18 serving over a mesh")
                     serve_mesh_phase(dev, args.seed, out, served)
-                else:
+                elif n == 19:
                     phase("19 the account")
                     account_phase(dev, args.seed, tp_account)
+                else:
+                    phase("20 the serving account")
+                    serve_account_phase(dev, args.seed)
         phase(None)
         print(f"phase seconds {json.dumps(PHASE_SECONDS)}")
         print(f"partial run of phases {args.only}: no result line")
@@ -5389,16 +5794,29 @@ def main() -> None:
               "(data 2, model 2), olmoe-1b-7b's smoke config, "
               "eris-gptneo-1.3b in bf16 and from phase 17's checkpoint at "
               "(data 1, model 2), ranks on one card over gloo")
-        mesh_paged, mesh_timing = serve_mesh_phase(dev, args.seed, out,
-                                                   served)
+        # phase 19's dry run runs on the host's CPU beside phase 18
+        dryrun = _tp_dryrun_start()
+        try:
+            mesh_paged, mesh_timing = serve_mesh_phase(dev, args.seed, out,
+                                                       served)
+        except BaseException:
+            dryrun.kill()
+            dryrun.communicate()
+            raise
         launches += mesh_paged
 
     phase("19 the account: the card's step against its dry run on meta")
-    account_launches = account_phase(dev, args.seed, tp_account)
+    account_launches = account_phase(dev, args.seed, tp_account, dryrun)
     for name in round_launches:
         round_launches[name] += account_launches[name]
 
-    phase("20 result")
+    phase("20 the serving account: qwen2-0.5b decode_32k, "
+          "eris-gptneo-1.3b and hymba-1.5b long_500k, qwen2-0.5b "
+          "prefill_32k cut, card against meta")
+    serve_paged, serve_timing = serve_account_phase(dev, args.seed)
+    launches += serve_paged
+
+    phase("21 result")
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -5406,7 +5824,8 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max(worst, timing["max_abs_err"],
                            qwen_timing["max_abs_err"],
-                           *(t["max_abs_err"] for t in mesh_timing.values())),
+                           *(t["max_abs_err"] for t in mesh_timing.values()),
+                           *(t["max_abs_err"] for t in serve_timing.values())),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,
@@ -5416,7 +5835,11 @@ def main() -> None:
         "model_2_decode": {arch: {key: t[key] for key in
                                   ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "max_abs_err")}
-                           for arch, t in mesh_timing.items()}}]
+                           for arch, t in mesh_timing.items()},
+        "serving_account_decode": {case: {key: t[key] for key in
+                                          ("ms", "bound_ms", "bound_by",
+                                           "max_abs_err")}
+                                   for case, t in serve_timing.items()}}]
     for name, _, source, replaces in KERNELS[1:5]:
         t = wire_timing_[name]
         rows.append({

@@ -355,6 +355,15 @@ def shift_state_dtype(name: str) -> torch.dtype:
 # ``tp_param_in_specs``): each rank holds its model position's TP piece of
 # every leaf, its kv heads of the pools, and decodes its data position's
 # slots.
+def serve_plan(cfg, tp: int):
+    """The decode-safe TP plan that serving runs at model size ``tp``, in
+    the engine and in the dry run's serving programs alike: the config's
+    plan with no sequence, context or sequence-CE sharding (one token has
+    no sequence to shard)."""
+    return dataclasses.replace(build_plan(cfg, tp), seq=False,
+                               seq_ce=False, ctx=1)
+
+
 def paged_pool_heads(cfg, plan, tp: int, index: int) -> range:
     """The kv heads that model position ``index`` of ``tp`` holds in its
     paged pools (L, N, KV, bs, hd) under the decode ``plan``: its
@@ -370,13 +379,13 @@ def paged_pool_heads(cfg, plan, tp: int, index: int) -> range:
 
 def serve_slots(n_slots: int, mesh) -> range:
     """This rank's decode slots: ``n_slots / n_client`` contiguous slots
-    at its data position where the client count divides them (the
+    at its client position where the client count divides them (the
     reference's manual path), else every slot."""
     n_client = client_count(mesh)
     if n_slots % n_client:
         return range(n_slots)
     size = n_slots // n_client
-    lo = axis_rank(mesh, "data") * size
+    lo = (client_rank(mesh) if n_client > 1 else 0) * size
     return range(lo, lo + size)
 
 

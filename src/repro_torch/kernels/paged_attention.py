@@ -6,8 +6,12 @@
 of the context, merged by the last chunk to finish) and its bound are set
 out in that file.  On CPU tensors it computes :func:`paged_attention_ref`,
 the plain torch version, and only there: on a CUDA tensor it launches the
-kernel or raises, whatever the shape.  ``paged_attention.launches``
-counts the kernel's launches.
+kernel or raises, whatever the shape.  On meta tensors (the dry run) it
+checks what the card checks but the addresses, allocates its output and
+launches nothing.  On the card and on meta it declares its work to an
+active ``launch.accounting.Account``, counted by shapes
+(:func:`declared_work`).  ``paged_attention.launches`` counts the
+kernel's launches.
 
 The kernel's f32 workspace for the chunks' partials and its counters
 belong to this module, one of each per device, grown as a call needs and
@@ -23,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import accounting
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -127,6 +132,46 @@ def _workspace(device: torch.device, floats: int,
     return ws, counters
 
 
+def _workspace_sizes(B: int, H: int, KV: int, hd: int, P: int,
+                     block_size: int) -> Tuple[int, int]:
+    """(f32 floats, int32 counters) of the workspace a call at these
+    shapes needs: the chunks' partials (acc, m, l) of every (row, head,
+    chunk), chunks cut from the table's capacity P * bs, and a counter a
+    (row, kv head)."""
+    chunks = max(1, -(-P * block_size // chunk_positions(block_size)))
+    return B * H * chunks * (hd + 2), B * KV
+
+
+def workspace_bytes(B: int, H: int, KV: int, hd: int, P: int,
+                    block_size: int) -> int:
+    """Bytes of the per-device workspace and counters a call at these
+    shapes needs (:func:`_workspace_sizes`).  It persists between calls
+    (a warm card already holds it), so the dry run reports it apart from
+    a step's peak."""
+    return 4 * sum(_workspace_sizes(B, H, KV, hd, P, block_size))
+
+
+def declared_work(q, k_pool, block_tables, window) -> Tuple[float, int]:
+    """(flops, bytes) the wrapper declares for one call, counted by
+    shapes: the context lengths live on the device (meta has none, and
+    reading them on the card would sync every step), so each row counts
+    its table's capacity P * bs, cut at the window.  With full tables, as
+    the dry run builds them, that is the work done; in the engine it is an
+    upper bound.  4 H hd flops a key (q k and p v); the bytes are the
+    kernel's own bound (``csrc/paged_attention.cu``): those keys' K and V
+    rows, q, out, the tables and the lengths."""
+    B, H, hd = q.shape
+    _, KV, bs, _ = k_pool.shape
+    keys = block_tables.shape[1] * bs
+    if window is not None:
+        keys = min(keys, window)
+    flops = 4 * B * H * hd * keys
+    nbytes = (B * keys * KV * hd * 2 * k_pool.element_size()
+              + 2 * q.numel() * q.element_size()
+              + block_tables.numel() * 4 + B * 4)
+    return float(flops), nbytes
+
+
 def _check(q, k_pool, v_pool, block_tables, context_lens, window):
     tensors = dict(q=q, k_pool=k_pool, v_pool=v_pool,
                    block_tables=block_tables, context_lens=context_lens)
@@ -165,7 +210,7 @@ def _check(q, k_pool, v_pool, block_tables, context_lens, window):
         raise ValueError(f"paged_attention: batch {B} beyond the kernel's "
                          f"grid (65535)")
     for name in ("q", "k_pool", "v_pool"):
-        if tensors[name].data_ptr() % 16:
+        if q.device.type != "meta" and tensors[name].data_ptr() % 16:
             raise ValueError(f"paged_attention: {name} does not start on "
                              f"16 bytes (the kernel's 16-byte copies)")
     if window is not None and window < 0:
@@ -192,7 +237,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_tables,
                                    context_lens, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     _check(q, k_pool, v_pool, block_tables, context_lens, window)
     B, H, hd = q.shape
@@ -201,10 +246,14 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    if accounting.active() is not None:
+        flops, nbytes = declared_work(q, k_pool, block_tables, window)
+        accounting.declare("paged_attention", (), (), flops, nbytes=nbytes)
+    if q.device.type == "meta":
+        return out
     C = chunk_positions(bs)
-    n_chunks = max(1, -(-P * bs // C))
-    ws, counters = _workspace(q.device, B * H * n_chunks * (hd + 2),
-                              B * KV)
+    ws, counters = _workspace(q.device,
+                              *_workspace_sizes(B, H, KV, hd, P, bs))
     with torch.cuda.device(q.device):
         err = _build.bind("paged_attention", "paged_attention_launch",
                           _ARGS)(

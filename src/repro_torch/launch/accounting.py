@@ -17,7 +17,10 @@ the same quantities as the run makes them:
     the client axes and their flattened group, else "all");
   * the hand-written kernels, which declare their flops and their
     operand and result bytes (:func:`declare`) where they launch on the
-    card, and where they only allocate their outputs on the meta device.
+    card, and where they only allocate their outputs on the meta device:
+    the seven training kernels, and the paged decode kernel, which
+    declares the bytes it reads of its pools, counted by shapes, in place
+    of the pools' whole size.
 
 An eager run executes every layer, so no trip count is needed, and a
 collective knows its group, so no replica group is parsed.  A collective
@@ -30,12 +33,20 @@ the traffic the bytes of collectives that a gloo group stages through the
 host on the card (``staging_bytes``): copies and host-side work that
 exist only because several ranks share one card.
 
+A loop whose every trip runs the same ops on tensors of the same shapes
+(a recurrence replayed token by token, a scan's chunks) may iterate over
+:func:`trips`: on the meta device under an account, with grad disabled,
+it runs the first trip and a second one counted for all the rest, as the
+reference's analysis multiplies a while loop's body by its trip count
+(the second trip sees what the first left live, as every later trip
+does); anywhere else it runs them all.
+
 With no account active each hook costs one check.
 """
 from __future__ import annotations
 
 import weakref
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -62,13 +73,33 @@ def active() -> Optional["Account"]:
     return _ACTIVE
 
 
-def declare(name: str, inputs, outputs, flops: float = 0.0) -> None:
+def declare(name: str, inputs, outputs, flops: float = 0.0,
+            nbytes: Optional[int] = None) -> None:
     """A hand-written kernel's work, recorded by its wrapper where it
     launches (or, on the meta device, would launch): one launch of
     ``name`` with ``flops`` and the bytes of its operand and result
-    tensors.  Does nothing with no account active."""
+    tensors, or ``nbytes`` where the kernel reads only part of an operand.
+    Does nothing with no account active."""
     if _ACTIVE is not None:
-        _ACTIVE.kernel(name, inputs, outputs, flops)
+        _ACTIVE.kernel(name, inputs, outputs, flops, nbytes)
+
+
+def trips(seq: Sequence, device) -> Sequence:
+    """The items of a loop to run: all of ``seq``, but on the meta device
+    under an active account with grad disabled only its first two, and
+    while the second runs everything the account counts is counted
+    ``len(seq) - 1`` times (the live memory is not: each trip frees what
+    the one before it made).  For loops whose trips differ in values
+    only, never in shapes or ops.  With grad enabled every trip runs: a
+    graph of two trips would give a backward (and a checkpoint's
+    recompute) of two.  A loop that keeps each trip's output holds,
+    during its last trip on the card, all the earlier ones: the meta peak
+    lacks all but two of them (the caller allocates the rest after the
+    loop)."""
+    if _ACTIVE is None or torch.device(device).type != "meta" \
+            or len(seq) <= 2 or torch.is_grad_enabled():
+        return seq
+    return _ACTIVE._scaled(seq)
 
 
 def _nbytes(tensors) -> int:
@@ -114,6 +145,7 @@ class Account(TorchDispatchMode):
         self._axis_counts: dict = {}
         self._axis_dtypes: dict = {}
         self._staged = 0
+        self._scale = 1
         self._live: dict = {}
         self.live_bytes = self.peak_bytes = 0
         self._track([t for t in tree_leaves(inputs)
@@ -164,11 +196,11 @@ class Account(TorchDispatchMode):
         self._track(outs)
         packet = func.overloadpacket
         if packet in flop_registry:
-            self.flops += float(flop_registry[packet](*args, **kwargs,
-                                                      out_val=out))
+            self.flops += self._scale * float(flop_registry[packet](
+                *args, **kwargs, out_val=out))
         if func.is_view or packet.__name__ in _ALLOCATIONS:
             return out
-        moved = _nbytes(ins) + _nbytes(outs)
+        moved = self._scale * (_nbytes(ins) + _nbytes(outs))
         if self._staged:
             self.staging_bytes += moved
         else:
@@ -176,14 +208,17 @@ class Account(TorchDispatchMode):
         return out
 
     # ------------------------------------------------------ hooks
-    def kernel(self, name: str, inputs, outputs, flops: float) -> None:
-        moved = _nbytes(inputs) + _nbytes(outputs)
+    def kernel(self, name: str, inputs, outputs, flops: float,
+               nbytes: Optional[int] = None) -> None:
+        moved = self._scale * (_nbytes(inputs) + _nbytes(outputs)
+                               if nbytes is None else nbytes)
+        flops = self._scale * float(flops)
         k = self.kernels.setdefault(name, {"launches": 0, "flops": 0.0,
                                            "bytes": 0})
-        k["launches"] += 1
-        k["flops"] += float(flops)
+        k["launches"] += self._scale
+        k["flops"] += flops
         k["bytes"] += moved
-        self.flops += float(flops)
+        self.flops += flops
         self.traffic_bytes += moved
 
     def collective(self, kind: str, group, x, staged: bool, run):
@@ -207,15 +242,26 @@ class Account(TorchDispatchMode):
         return out
 
     def _add(self, kind: str, axis: str, dt: str, nbytes: float) -> None:
+        nbytes *= self._scale
         self._coll[kind] += nbytes
-        self._counts[kind] += 1
+        self._counts[kind] += self._scale
         self._dtypes[kind][dt] = self._dtypes[kind].get(dt, 0.0) + nbytes
         ax = self._axes.setdefault(axis, {})
         ax[kind] = ax.get(kind, 0.0) + nbytes
         axc = self._axis_counts.setdefault(axis, {})
-        axc[kind] = axc.get(kind, 0) + 1
+        axc[kind] = axc.get(kind, 0) + self._scale
         axd = self._axis_dtypes.setdefault(axis, {}).setdefault(kind, {})
         axd[dt] = axd.get(dt, 0.0) + nbytes
+
+    def _scaled(self, seq: Sequence):
+        """:func:`trips`' two trips, the second counted ``len(seq) - 1``
+        times."""
+        yield seq[0]
+        self._scale *= len(seq) - 1
+        try:
+            yield seq[1]
+        finally:
+            self._scale //= len(seq) - 1
 
     # ------------------------------------------------------ results
     def collective_bytes(self) -> dict:

@@ -1,30 +1,41 @@
 """Multi-pod dry run: one rank's step of a 256- or 512-rank mesh, run on
-the meta device under an account (``repro/launch/dryrun.py``).
+the meta device under an account (``repro/launch/dryrun.py``): the train
+step for the training shapes, the serving step for the serving ones.
 
 The reference lowers and compiles each (arch x shape x mesh) for 512
 forced host devices and reads memory, cost and collective bytes from the
 compiled HLO.  Here one process poses as rank 0 of a fake world of that
 many ranks (``launch.mesh.init_dryrun_group``), builds the production
 mesh over it, and runs :func:`~repro_torch.launch.train.lower_train_step`'s
-step eagerly on meta tensors inside a ``launch.accounting.Account``: every
+step (or :func:`~repro_torch.launch.serve.lower_step`'s prefill or decode
+step, which ``launch/serve.py`` says of) eagerly on meta tensors inside a
+``launch.accounting.Account``: every
 layer runs, every collective reports its group, and the kernels declare
 their work, so the per-device flops, traffic, collective payloads and
 peak memory come out without an HLO and without a trip count.  The
 record has the reference's keys and file name; XLA's own keys
 (``compile_s``, ``xla_cost_flops``, ``xla_cost_bytes``) are null.  The
-config's dtype is kept (the reference swaps bf16 for f16 to dodge an XLA
-CPU abort; the byte widths are equal).
+config's dtype is kept, for the caches and pools too (the reference swaps
+bf16 for f16 to dodge an XLA CPU abort; the byte widths are equal).  A
+serving record's ``"tp"`` is ``{"size": model}``, as the reference's, and
+``paged_workspace_bytes`` is the paged kernel's workspace, which persists
+on a card between steps and so is not in the step's peak.
 
 ``--device cuda`` is the measured counterpart: the same step for real on
 the card at a mesh the card holds (one rank under ``python``, or the
 ranks of ``torchrun``), random weights and tokens from seed 0, one
 warm-up step, then one step under the same account with the card's
-``max_memory_allocated`` rise and the step's ms from CUDA events.
+``max_memory_allocated`` rise and the step's ms from CUDA events.  A
+serving shape runs its program at the shape's global batch on the one
+rank, the caches or pools (and tokens) drawn from seed 0; ``--opt`` cuts
+a shape too large for the card (e.g. ``n_layers=1,vocab=4096``).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k \\
         [--multi-pod] [--dsc] [--int8-wire] [--pp 4 --microbatches 8] \\
         [--opt flash_attention=false] [--device cuda] [--out DIR]
+    python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
+        --shape decode_32k [--multi-pod] [--device cuda]
 """
 from __future__ import annotations
 
@@ -68,17 +79,14 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     from repro_torch.convert import tree_leaves
     from repro_torch.dist import sharding as sh
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as serve_lib
     from repro_torch.launch import train as train_lib
     from repro_torch.launch.accounting import Account
     from repro_torch.launch.shapes import SHAPES
     from repro_torch.models import shard_plan as sp
 
     shape = SHAPES[shape_name]
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"dry run of {shape_name}: the serving shapes (lower_step, the "
-            f"paged kernel's declaration) are ROADMAP queue 1.12's serving "
-            f"half, not ported yet")
+    serving = shape.kind != "train"
     if save_hlo:
         raise ValueError("--save-hlo: the port runs eagerly and has no HLO "
                          "text to save")
@@ -95,19 +103,28 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         if not dist.is_initialized():
             mesh_lib.init_dryrun_group(512 if multi_pod else 256)
         mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod, pipe=pp)
-        step, inputs = train_lib.lower_train_step(cfg, mesh, shape_name,
-                                                  settings)
-        with Account(mesh, "meta", inputs=inputs[:4]) as acc:
+        if serving:
+            step, inputs = serve_lib.lower_step(cfg, mesh, shape_name)
+        else:
+            step, inputs = train_lib.lower_train_step(cfg, mesh, shape_name,
+                                                      settings)
+        with Account(mesh, "meta", inputs=inputs) as acc:
             outputs = step(*inputs)
     else:
-        mesh, step, inputs = _card_step(cfg, shape, settings, multi_pod, pp)
+        if serving:
+            mesh, step, inputs = _card_serve_step(cfg, shape, multi_pod, pp)
+        else:
+            mesh, step, inputs = _card_step(cfg, shape, settings, multi_pod,
+                                            pp)
         outputs = step(*inputs)                 # warm-up: builds, cuBLAS
-        inputs = (*outputs[:3], *inputs[3:])
+        if not serving:
+            inputs = (*outputs[:3], *inputs[3:])
+        del outputs
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        with Account(mesh, "cuda", inputs=inputs[:4]) as acc:
+        with Account(mesh, "cuda", inputs=inputs) as acc:
             ev[0].record()
             outputs = step(*inputs)
             ev[1].record()
@@ -137,7 +154,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                "ffn": plan.ffn, "vocab": plan.vocab, "moe": plan.moe,
                "mixer": plan.mixer, "seq": plan.seq,
                "ctx": plan.ctx, "seq_ce": plan.seq_ce,
-               "sharded_leaves": int(n_tp_sharded)},
+               "sharded_leaves": int(n_tp_sharded)} if not serving
+        else {"size": int(model_size)},
         "pp": {"size": int(pipe_size),
                "microbatches": int(microbatches),
                "layers_per_stage": pipe_plan.layers_per_stage,
@@ -162,6 +180,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
             + arg_bytes,
         },
         "staging_bytes_per_device": rec["staging_bytes"],
+        "paged_workspace_bytes": _paged_workspace(cfg, shape, inputs),
         "kernels": rec["kernels"],
         "run_device": device,
         **measured,
@@ -173,6 +192,44 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     fname = out / f"{arch.replace('.', '_')}__{shape_name}{suffix}.json"
     fname.write_text(json.dumps(record, indent=1))
     return record
+
+
+def _paged_workspace(cfg, shape, inputs) -> int:
+    """The paged kernel's workspace at a paged decode's shapes (0 for any
+    other step): it stays on the card between steps, so the record keeps
+    it apart from the step's peak."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer as tr
+    if shape.kind != "decode" or cfg.family not in tr.paged_families():
+        return 0
+    _, pools, tables, _, _ = inputs
+    _, _, kv, bs, hd = pools["k"].shape
+    rows, pages = tables.shape
+    heads = kv * (cfg.n_heads // cfg.n_kv_heads)
+    return pa.workspace_bytes(rows, heads, kv, hd, pages, bs)
+
+
+def _card_serve_step(cfg, shape, multi_pod: bool, pp: int):
+    """The measured counterpart of a serving shape: the launcher's ranks
+    (one under ``python``) as the client axis, the program at the shape's
+    global batch, random params (seed 0, ``init_params``), caches or pools
+    and tokens (seed 0)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import shapes as shp
+    from repro_torch.models import transformer as tr
+    if multi_pod:
+        raise ValueError("--multi-pod needs 512 ranks; --device cuda runs "
+                         "at a mesh the card holds")
+    device = mesh_lib.init_process_group("cuda")
+    mesh = mesh_lib.make_host_mesh(pipe=pp, device=device)
+    window = (shp.decode_window(cfg, shape) if shape.kind == "decode"
+              else None)
+    step, inputs = serve_lib.serve_program(
+        cfg, mesh, shape.kind, shape.global_batch, shape.seq_len, window,
+        device=device, params=tr.init_params(cfg, seed=0, device=device))
+    serve_lib.fill_inputs(inputs, cfg, seed=0)
+    return mesh, step, inputs
 
 
 def _card_step(cfg, shape, settings, multi_pod: bool, pp: int):

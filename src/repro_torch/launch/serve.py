@@ -18,11 +18,28 @@ init_process_group`` and ``make_host_mesh(data, model)``, then
 ``ServeEngine(cfg, params, settings, mesh=mesh)`` or
 ``ServeEngine.from_checkpoint(path, cfg, settings, mesh=mesh)``.
 
-The reference's ``lower_step`` lowers the prefill and decode steps under
-GSPMD for the dry run's accounting; the port's dry run
-(``launch/dryrun.py``) accounts the training shapes, and :func:`lower_step`
-raises until the serving half of ROADMAP queue 1.12 decides which of the
-port's serving programs the serving shapes account.
+The dry run's serving programs (:func:`lower_step`, run by
+``launch/dryrun.py`` under ``launch.accounting.Account``) are the ones the
+port serves with.  The reference lowers its prefill and its dense decode
+under GSPMD, where XLA partitions them; the port has no GSPMD, so each
+serving shape accounts the program that one rank of a serving mesh runs:
+
+* ``prefill_32k``: the mesh engine's TP prefill, ``forward(mode=
+  "prefill", tp=...)`` under the decode-safe plan
+  (``dist/sharding.serve_plan``), on the rank's share of the batch,
+  returning the last position's logits (gathered over the model group
+  under a vocab-parallel plan) and the caches, as ``_prefill_fn`` does;
+* ``decode_32k`` and ``long_500k`` for the paged families: the mesh
+  engine's decode, ``paged_decode_step(..., tp=...)``, on the rank's
+  slots and kv heads, through full block tables at ``seq_len - 1``
+  cached positions.  Under a window only the pages the window touches
+  are pool blocks; the table's earlier entries point at the scratch
+  block, which neither the kernel nor its plain version reads, so a rank
+  holds window + one page of positions, as the reference's ring does;
+* the same shapes for ssm and hybrid, which neither engine serves: the
+  reference's own program, the dense ``decode_step`` on the rank's batch
+  with the params whole on every model position, writing the caller's
+  K/V rings in place (the reference donates them).
 """
 from __future__ import annotations
 
@@ -31,20 +48,166 @@ import json
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs import get_config
+from repro_torch.convert import tree_leaves, tree_unflatten
+from repro_torch.dist import collectives as cl
+from repro_torch.dist import sharding as sh
+from repro_torch.launch import shapes as shp
 from repro_torch.models import transformer as tr
+from repro_torch.models.config import ModelConfig
 from repro_torch.serve import (BlockAllocator, BlockBudgetExceeded,  # noqa: F401
                                Request, RequestOutput, SamplingParams,
                                ServeEngine, ServeSettings, pages_for)
+from repro_torch.serve.cache import SCRATCH_BLOCK
 
-def lower_step(cfg, mesh, shape_name: str,
-               settings: ServeSettings = ServeSettings()):
-    """The reference's prefill/decode lowering for the dry run: not ported
-    yet (ROADMAP queue 1.12, the serving half)."""
-    raise NotImplementedError(
-        f"lower_step({shape_name!r}): the serving shapes' dry run is the "
-        f"serving half of ROADMAP queue 1.12, not ported yet")
+
+def _rank_params(cfg: ModelConfig, tp: int, device: torch.device) -> dict:
+    """Zeros of one model position's TP pieces at ``tp`` (the whole leaves
+    at 1), in the config's dtype."""
+    dtype = sh.FLOAT_DTYPES[cfg.dtype]
+    shapes = [sh.tp_local_shape(shape, spec, tp) for (_, shape), spec in
+              zip(sh.spec_items(cfg), tree_leaves(sh.tp_specs(cfg, tp)))]
+    return tree_unflatten(sh.shape_tree(cfg, lambda shape: None),
+                          [torch.zeros(s, dtype=dtype, device=device)
+                           for s in shapes])
+
+
+def window_tables(rows: int, seq_len: int, block_size: int,
+                  window: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """Full block tables of ``rows`` requests at ``seq_len`` positions and
+    the pool blocks they need: each row's pages that the window touches
+    (all of them without one) on blocks of their own after the scratch
+    block, its earlier pages on the scratch block.  Returns ((rows, P)
+    int32 tables, blocks with the scratch block)."""
+    P = pages_for(seq_len, block_size)
+    first = max(seq_len - window, 0) // block_size if window else 0
+    live = P - first
+    tables = np.full((rows, P), SCRATCH_BLOCK, np.int32)
+    tables[:, first:] = 1 + np.arange(rows * live,
+                                      dtype=np.int32).reshape(rows, live)
+    return tables, 1 + rows * live
+
+
+def serve_program(cfg: ModelConfig, mesh, kind: str, batch: int,
+                  seq_len: int, window: Optional[int] = None,
+                  settings: Optional[ServeSettings] = None,
+                  device: DeviceLike = None, params: Optional[dict] = None):
+    """This rank's serving step of ``kind`` ("prefill" or "decode") for a
+    global batch of ``batch`` sequences of ``seq_len`` positions, and its
+    inputs on ``device``: ``(step, inputs)``, ``step(*inputs)`` one step
+    (the module docstring says which program).  ``mesh`` is a serving mesh
+    (its pipe axis, if any, replicates the program) or None for one rank.
+
+    ``params`` are whole leaves (cut here to the rank's TP pieces) or None
+    for zeros of the pieces' shapes; the caches, pools and tokens are
+    zeros for the caller to fill.  Prefill's inputs are ``(params,
+    batch)``, the paged decode's ``(params, pools, block_tables,
+    context_lens, tokens)``, the dense decode's ``(params, cache, token)``
+    at position ``seq_len - 1``.  Of ``settings``, ``block_size``,
+    ``cache_dtype`` (default: the config's dtype) and ``decode_kernel``
+    ("naive" takes the plain version) hold; ``window`` is the decode
+    window."""
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"serve_program: kind must be prefill or decode, "
+                         f"got {kind!r}")
+    settings = settings or ServeSettings(cache_dtype=cfg.dtype)
+    device = resolve_device(device)
+    rows = len(sh.serve_slots(batch, mesh))
+    paged = kind == "decode" and cfg.family in tr.paged_families()
+    # the recurrent families' decode runs whole on every model position
+    model = 1 if kind == "decode" and not paged else sh.model_size(mesh)
+    plan = sh.serve_plan(cfg, model)
+    rt = None
+    if plan.active:
+        rt = tr.TPRuntime(mesh.get_group("model"), model,
+                          sh.axis_rank(mesh, "model"), plan)
+    if params is None:
+        params = _rank_params(cfg, model if rt else 1, device)
+    elif rt is not None:
+        params = sh.tp_piece(params, cfg, model, rt.index)
+    cache_dtype = tr.DTYPES[settings.cache_dtype]
+
+    if kind == "prefill":
+        batch_in = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                    for k, v in shp.token_spec(cfg, rows, seq_len).items()}
+
+        @torch.no_grad()
+        def prefill_step(params, batch):
+            logits, caches, _ = tr.forward(
+                params, cfg, batch["tokens"], mode="prefill",
+                frontend_embeds=batch.get("frontend_embeds"), tp=rt)
+            last = logits[:, -1:]
+            if rt is not None and plan.vocab:
+                last = cl.all_gather(last, rt.group, 2)
+            return last, caches
+        return prefill_step, (params, batch_in)
+
+    token = torch.zeros((rows, 1), dtype=torch.int32, device=device)
+    if not paged:
+        pos = seq_len - 1
+        cache = tr.init_cache(cfg, rows, seq_len, window=window,
+                              dtype=cache_dtype, device=device)
+
+        def dense_step(params, cache, token):
+            return tr.decode_step(params, cfg, cache, token, pos,
+                                  window=window, donate=True)
+        return dense_step, (params, cache, token)
+
+    tables, blocks = window_tables(rows, seq_len, settings.block_size,
+                                   window)
+    kv_heads = len(sh.paged_pool_heads(cfg, plan, model,
+                                       rt.index if rt else 0))
+    pools = tr.init_paged_pools(cfg, blocks, settings.block_size,
+                                cache_dtype, device, kv_heads)
+    ctx = torch.full((rows,), seq_len - 1, dtype=torch.int32)
+    use_kernel = settings.decode_kernel != "naive"
+
+    def paged_step(params, pools, block_tables, context_lens, tokens):
+        return tr.paged_decode_step(params, cfg, pools, block_tables,
+                                    context_lens, tokens, window=window,
+                                    use_kernel=use_kernel, tp=rt)
+    return paged_step, (params, pools, torch.from_numpy(tables).to(device),
+                        ctx.to(device), token)
+
+
+def fill_inputs(inputs: tuple, cfg: ModelConfig, seed: int = 0) -> None:
+    """Random values, in place, in a :func:`serve_program`'s inputs but
+    its params: token ids uniform over the vocab, every float tensor (the
+    caches or pools, vlm's frontend embeds) a normal draw, from ``seed``
+    on the inputs' device; the block tables and lengths stay as built."""
+    *_, last = inputs
+    tokens = last["tokens"] if isinstance(last, dict) else last
+    gen = torch.Generator(device=tokens.device).manual_seed(seed)
+    tokens.random_(0, cfg.vocab, generator=gen)
+    for t in tree_leaves(list(inputs[1:])):
+        if t.is_floating_point():
+            t.normal_(generator=gen)
+
+
+def lower_step(cfg: ModelConfig, mesh, shape_name: str,
+               settings: Optional[ServeSettings] = None):
+    """This rank's prefill or decode step for (cfg, mesh, shape) on the
+    meta device, and its inputs: the port's counterpart of the reference's
+    ``jit(...).lower()`` (``launch/serve.py:54-86``), run under
+    ``launch.accounting.Account`` by the dry run.  Returns ``(step,
+    inputs)`` as :func:`serve_program`, at the shape's global batch and
+    length.  ``settings.window`` overrides the shape's decode window
+    (``shapes.decode_window``), as the reference's does; ``settings``
+    defaults to the engine's, the caches in the config's dtype."""
+    shape = shp.SHAPES[shape_name]
+    if shape.kind == "train":
+        raise ValueError(f"lower_step: {shape_name} is a training shape "
+                         f"(launch/train.lower_train_step)")
+    settings = settings or ServeSettings(cache_dtype=cfg.dtype)
+    window = None
+    if shape.kind == "decode":
+        window = (settings.window if settings.window is not None
+                  else shp.decode_window(cfg, shape))
+    return serve_program(cfg, mesh, shape.kind, shape.global_batch,
+                         shape.seq_len, window, settings, "meta")
 
 
 # every third request samples, the rest are greedy (examples/serve_batched.py)

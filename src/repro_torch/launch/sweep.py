@@ -4,8 +4,7 @@
 Each combo runs ``python -m repro_torch.launch.dryrun`` in a fresh process
 (its own fake world).  Records land in ``{out}/*.json``; a summary line a
 combo is appended to ``{out}/sweep.log``.  The default shapes are the
-training ones: the serving shapes' dry run is ROADMAP queue 1.12's
-serving half.
+reference's: ``train_4k`` and the three serving shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.sweep [--archs a,b] \\
         [--shapes s] [--meshes 16x16,2x16x16] [--extra "--dsc"] \\
@@ -24,7 +23,7 @@ ALL_ARCHS = [
     "starcoder2-3b", "internvl2-26b", "olmoe-1b-7b", "starcoder2-15b",
     "qwen3-32b", "qwen2-0.5b", "xlstm-350m", "eris-gptneo-1.3b",
 ]
-ALL_SHAPES = ["train_4k"]
+ALL_SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 
 
 def main(argv=None) -> int:

@@ -51,6 +51,7 @@ from repro_torch import DeviceLike, random, resolve_device
 from repro_torch.dist import collectives as cl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.launch import accounting
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -392,10 +393,13 @@ def _mamba(cfg: ModelConfig, lp: dict, x, mode: str, state=None,
     return (L.tp_pull(out, tp) if tp_mix else out), h_new
 
 
-def init_mlstm_state(cfg: ModelConfig, B: int, device: DeviceLike = None):
-    """The mLSTM's empty state (``:366``): C, n zeros and m = -1e30, f32."""
+def init_mlstm_state(cfg: ModelConfig, B: int, device: DeviceLike = None,
+                     heads: Optional[int] = None):
+    """The mLSTM's empty state (``:366``): C, n zeros and m = -1e30, f32,
+    of the config's heads or, under a head-sharded mixer, a rank's
+    ``heads``."""
     device = resolve_device(device)
-    H, hd = cfg.n_heads, cfg.hd
+    H, hd = heads or cfg.n_heads, cfg.hd
     return {"C": torch.zeros(B, H, hd, hd, device=device),
             "n": torch.zeros(B, H, hd, device=device),
             "m": torch.full((B, H), -1e30, device=device)}
@@ -429,8 +433,8 @@ def _mlstm(cfg: ModelConfig, lp: dict, x, mode: str, state=None,
                                      chunk=cfg.attn_chunk,
                                      scores_f32=cfg.attn_scores_f32)
         if mode == "prefill":
-            new_state = init_mlstm_state(cfg, B, x.device)
-            for t in range(S):
+            new_state = init_mlstm_state(cfg, B, x.device, H)
+            for t in accounting.trips(range(S), x.device):
                 new_state, _ = ssm_lib.mlstm_decode_step(
                     new_state, q[:, t], k[:, t], v[:, t], i_pre[:, t],
                     f_pre[:, t])
@@ -485,6 +489,23 @@ def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     (index + 1) V/tp): a token out of its range looks up zero, and the
     exit (or under ``seq`` the reduce-scatter into sequence shards)
     assembles the embedding."""
+    x = embed_tokens(params, cfg, tokens, tp)
+    if cfg.frontend == "vlm":
+        if frontend_embeds is None:
+            raise ValueError(
+                f"{cfg.name} (vlm) embeds an image before its text: pass "
+                f"frontend_embeds (B, {cfg.n_frontend_tokens}, "
+                f"{cfg.d_frontend}), the image's patch embeddings (the "
+                f"reference fails at this call too, and serves no vlm)")
+        img = frontend_embeds.to(x.dtype) @ params["proj_in"]
+        x = torch.cat([img, x], 1)
+    return x
+
+
+def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 tp: Optional[TPRuntime] = None):
+    """The token lookup of :func:`embed_inputs`, with no image: what a
+    decode step embeds (a vlm's image lives in the prefilled prefix)."""
     if tp is not None and tp.plan.vocab:
         v_loc = cfg.vocab // tp.size
         idx = tokens.long() - tp.index * v_loc
@@ -497,15 +518,6 @@ def embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             x = L.tp_exit(x, tp, _ring(cfg, tp))
     else:
         x = params["embed"][tokens.long()]
-    if cfg.frontend == "vlm":
-        if frontend_embeds is None:
-            raise ValueError(
-                f"{cfg.name} (vlm) embeds an image before its text: pass "
-                f"frontend_embeds (B, {cfg.n_frontend_tokens}, "
-                f"{cfg.d_frontend}), the image's patch embeddings (the "
-                f"reference fails at this call too, and serves no vlm)")
-        img = frontend_embeds.to(x.dtype) @ params["proj_in"]
-        x = torch.cat([img, x], 1)
     return x
 
 
@@ -805,13 +817,16 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, pos: int,
-                window: Optional[int] = None):
+                window: Optional[int] = None, donate: bool = False):
     """One new token per sequence against the dense cache (``:779-800``).
 
     token: (B, 1) int; pos: the new token's absolute position (a Python
     int, shared by the batch).  The caller's cache is left as it was:
     the K/V rings are copied once and written in place, the recurrent
-    states made anew.  Returns (logits (B, 1, V), new cache).
+    states made anew.  With ``donate`` the caller's K/V rings are written
+    in place and returned, as the reference's jit with ``donate_argnums``
+    reuses them (the serving dry run's step holds one cache, not two).
+    Returns (logits (B, 1, V), new cache).
 
     A K/V cache whose dtype would promote the residual stream (an f32
     cache under bf16 params) raises, where the reference's layer scan
@@ -827,7 +842,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             f"{x.dtype}")
     B = x.shape[0]
     positions = torch.full((B, 1), pos, device=x.device)
-    kv = ({n: t.clone() for n, t in cache["kv"].items()}
+    kv = ({n: t if donate else t.clone() for n, t in cache["kv"].items()}
           if "kv" in cache else None)
     states = []
     for i, lp in enumerate(_layers(params)):
@@ -949,8 +964,12 @@ def paged_decode_step(params: dict, cfg: ModelConfig, pools: dict,
     they come back FULL for the row-wise sampler.  The plan should be
     decode-safe (no ``seq``, ``seq_ce`` or ``ctx``): one token has no
     sequence to shard.
+
+    The new tokens are embedded without an image (:func:`embed_tokens`):
+    a vlm's image is in the prefilled prefix, where the reference's step
+    asks ``embed_inputs`` for one and fails.
     """
-    x = embed_inputs(params, cfg, tokens, None, tp)
+    x = embed_tokens(params, cfg, tokens, tp)
     positions = context_lens[:, None]
     for i in range(cfg.n_layers):
         lp = _layer(params, i)

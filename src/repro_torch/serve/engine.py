@@ -170,8 +170,7 @@ class ServeEngine:
                     "a pipe axis splits the layers, which a decode step "
                     "runs all of")
             model = sh.model_size(mesh)
-            self._tp_plan = dataclasses.replace(
-                tr.tp_plan(cfg, model), seq=False, seq_ce=False, ctx=1)
+            self._tp_plan = sh.serve_plan(cfg, model)
             n_client = sh.client_count(mesh)
             self._manual = C % n_client == 0
             self._slots = sh.serve_slots(C, mesh)

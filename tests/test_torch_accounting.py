@@ -9,7 +9,9 @@
 * A smoke ``loss_fn`` gradient counted on real CPU tensors against the
   same gradient counted on meta tensors: flops equal with the flash
   kernels (the plain versions counted on the CPU, the declarations on
-  meta), flops and traffic equal without them (but for one host scalar).
+  meta), flops and traffic equal without them (but for one host scalar);
+  hymba's, whose selective scan loops over ``accounting.trips``, with
+  flops and traffic equal.
 * The collective record of one step at (data 2, model 2): a real
   four-rank gloo launch's rank 0 against the same step on the meta device
   at a fake world of 4, in the same process after the gloo group is gone.
@@ -149,6 +151,10 @@ def test_loss_grad_counts_cpu_equal_meta(flash):
         loss = tr.loss_fn(tree, cfg, {"tokens": t})
         return torch.autograd.grad(loss, leaves)
 
+    # makes the host constants that are cached (the attention's rounded
+    # scale, an f32 ``.item()`` of 4 bytes that a CPU run cannot tell from
+    # its device), whichever test of this process made them first
+    grad(params, toks)
     with Account(device="cpu") as cpu:
         grad(params, toks)
     meta_params = torch.utils._pytree.tree_map(
@@ -162,10 +168,43 @@ def test_loss_grad_counts_cpu_equal_meta(flash):
                    for k in meta.kernels.values())
         assert not cpu.kernels
     else:
-        # one op apart: an f32 ``.item()`` of a host scalar the loss makes
-        # (4 bytes), which a CPU run cannot tell from its device
-        assert cpu.traffic_bytes - meta.traffic_bytes == 4
+        assert cpu.traffic_bytes == meta.traffic_bytes
         assert not meta.kernels
+
+
+def test_hybrid_grad_counts_cpu_equal_meta():
+    """hymba-1.5b's smoke gradient (f32, plain attention, 2 x 128 tokens:
+    8 chunks of the selective scan a layer) counted on the CPU and on
+    meta: the same flops and traffic.  A
+    recorded graph makes the backward and the checkpoints' recompute of
+    every chunk, so a loop over :func:`accounting.trips` runs all its
+    trips on meta with grad enabled."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("hymba-1.5b").smoke(),
+                              dtype="float32", flash_attention=False)
+    params = tr.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 128), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+
+    def grad(p, t):
+        leaves = [x.detach().requires_grad_() for x in
+                  torch.utils._pytree.tree_leaves(p)]
+        tree = torch.utils._pytree.tree_unflatten(
+            leaves, torch.utils._pytree.tree_structure(p))
+        loss = tr.loss_fn(tree, cfg, {"tokens": t})
+        return torch.autograd.grad(loss, leaves)
+
+    grad(params, toks)          # makes the host constants that are cached
+    with Account(device="cpu") as cpu:
+        grad(params, toks)
+    meta_params = torch.utils._pytree.tree_map(
+        lambda x: torch.empty_like(x, device="meta"), params)
+    with Account(device="meta") as meta:
+        grad(meta_params, torch.empty_like(toks, device="meta"))
+    assert 128 // cfg.scan_chunk > 2
+    assert cpu.flops == meta.flops > 0
+    assert cpu.traffic_bytes == meta.traffic_bytes
+    assert not meta.kernels and not cpu.kernels
 
 
 def test_peak_counts_storages_once():

@@ -47,10 +47,12 @@ def _inputs(B, H, KV, bs, P, hd, seed):
 
 
 def test_no_kernel_for_other_devices():
-    """Neither the CPU path nor the kernel: a meta tensor raises."""
-    q, kp, vp, tbl, ctx = (t.to("meta") for t in _inputs(2, 4, 2, 8, 2, 16,
-                                                         0))
-    with pytest.raises(ValueError, match="no kernel for meta"):
+    """Neither the CPU path nor the kernel nor the meta branch (the dry
+    run's): a tensor on another device raises."""
+    import types
+    _, kp, vp, tbl, ctx = _inputs(2, 4, 2, 8, 2, 16, 0)
+    q = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="no kernel for xpu"):
         pa.paged_attention(q, kp, vp, tbl, ctx)
 
 
@@ -509,6 +511,53 @@ def test_cuda_paged_kernel_long_contexts_batch_invariant(cuda, H, KV, hd,
         one = pa.paged_attention(q[b:b + 1], kp, vp, tbl[b:b + 1, :pages],
                                  ctx[b:b + 1], window=window)
         assert torch.equal(one[0], out[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_paged_kernel_long_window_pre_window_scratch(cuda, kvdt):
+    """The serving dry run's long_500k layout at a long context: 2 rows of
+    9,000 and 12,345 positions over 772-page tables, a window of 8,192,
+    every page before the window on scratch block 0 (filled with 1e4,
+    which no row may read), the window's pages on blocks of their own;
+    against the plain version within phase 3's bounds (1e-4 f32, 2e-2
+    bf16) and, since the outputs are ~1/sqrt(8192) of V's scale, each
+    (row, head) within a norm relative to the plain version's (1e-3 f32,
+    1e-2 bf16).  The window's oldest 64 keys dropped (a lost chunk
+    partial) must fail that check in every (row, head)."""
+    from repro_torch.launch.serve import window_tables
+    bs, W, ctx = 16, 8192, [9000, 12345]
+    tables, blocks = window_tables(1, max(ctx), bs, W)
+    P = tables.shape[1]
+    tbl = np.zeros((2, P), np.int32)
+    for b, c in enumerate(ctx):
+        row, n = window_tables(1, c, bs, W)
+        tbl[b, :row.shape[1]] = np.where(row[0] > 0, row[0] + b * n, 0)
+    g = torch.Generator().manual_seed(11)
+    N = int(tbl.max()) + 1
+    q = torch.randn(2, 14, 64, generator=g).to(kvdt)
+    kp = torch.randn(N, 2, bs, 64, generator=g)
+    vp = torch.randn(N, 2, bs, 64, generator=g)
+    kp[0], vp[0] = 1e4, 1e4
+    args = [t.to(cuda) for t in (q, kp.to(kvdt), vp.to(kvdt),
+                                 torch.from_numpy(tbl),
+                                 torch.tensor(ctx, dtype=torch.int32))]
+    out = pa.paged_attention(*args, window=W)
+    ref = pa.paged_attention_ref(*args, window=W)
+    tol = 1e-4 if kvdt == torch.float32 else 2e-2
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= tol + tol * ref.float().abs()).all()), \
+        float(err.max())
+    assert float(out.float().abs().max()) < 100     # scratch not read
+
+    def rel(a):
+        return ((a.float() - ref.float()).norm(dim=-1)
+                / ref.float().norm(dim=-1))
+    rel_tol = 1e-3 if kvdt == torch.float32 else 1e-2
+    assert float(rel(out).max()) <= rel_tol, float(rel(out).max())
+    dropped = pa.paged_attention_ref(*args, window=W - 64)
+    assert float(rel(dropped).min()) > rel_tol, float(rel(dropped).min())
 
 
 @pytest.mark.cuda

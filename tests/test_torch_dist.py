@@ -41,9 +41,7 @@ from repro_torch.convert import (params_from_jax, tree_leaves,  # noqa: E402
 from repro_torch.core.compressors import RandP  # noqa: E402
 from repro_torch.core.pipeline import DSCCompress  # noqa: E402
 from repro_torch.dist import sharding as sh  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
-from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.optim import optimizers as opt_lib  # noqa: E402
@@ -365,23 +363,6 @@ def test_production_mesh_needs_its_world(monkeypatch):
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 256)
     with pytest.raises(RuntimeError, match="512 ranks, not 256"):
         mesh_lib.make_production_mesh(multi_pod=True, pipe=4)
-
-
-UNPORTED_CALLS = [
-    ("serve_lower_step",
-     lambda: serve_lib.lower_step(None, None, "decode_32k"), "1.12"),
-    ("run_one_serving_shape",
-     lambda: dryrun.run_one("qwen2-0.5b", "prefill_32k", False), "1.12"),
-]
-
-
-@pytest.mark.parametrize("what,call,queue", UNPORTED_CALLS,
-                         ids=[n for n, _, _ in UNPORTED_CALLS])
-def test_unported_paths_name_their_queue(what, call, queue):
-    """Each knob and entry point the port does not run yet raises
-    NotImplementedError naming its ROADMAP queue."""
-    with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-        call()
 
 
 def test_capture_views_with_a_pipe_axis_is_the_references_error():
