@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -230,3 +231,21 @@ class TopK(Compressor):
     @property
     def unbiased(self) -> bool:
         return False
+
+
+def get_compressor(name: str, n: Optional[int] = None, **kw) -> Compressor:
+    """A compressor by name (``compressors.py:209-221``), with the
+    reference's defaults: RandP p = 0.1, RandK and TopK k = n // 10 (n
+    defaults to 1024, k at least 1), QSGD s = 16."""
+    name = name.lower()
+    if name in ("identity", "none"):
+        return Identity()
+    if name == "rand_p":
+        return RandP(p=kw.get("p", 0.1))
+    if name == "rand_k":
+        return RandK(k=kw.get("k", max(1, (n or 1024) // 10)))
+    if name == "qsgd":
+        return QSGD(s=kw.get("s", 16))
+    if name == "top_k":
+        return TopK(k=kw.get("k", max(1, (n or 1024) // 10)))
+    raise ValueError(f"unknown compressor {name!r}")

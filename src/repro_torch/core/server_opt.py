@@ -49,6 +49,13 @@ def fedyogi(lr: float, b1: float = 0.9, b2: float = 0.99,
     return ServerOpt(_moments, update, "fedyogi")
 
 
+def fednova_scale(local_steps: torch.Tensor) -> torch.Tensor:
+    """FedNova (Wang et al. 2020) normalization weights for heterogeneous
+    local-step counts tau_k (``server_opt.py:61-65``): the per-client
+    scale 1 / max(tau_k, 1), f32."""
+    return 1.0 / torch.clamp(local_steps.float(), min=1.0)
+
+
 def get_server_opt(name: str, lr: float) -> ServerOpt:
     return {"fedavg": fedavg_server, "fedadam": fedadam,
             "fedyogi": fedyogi}[name](lr)

@@ -33,6 +33,12 @@ the traffic the bytes of collectives that a gloo group stages through the
 host on the card (``staging_bytes``): copies and host-side work that
 exist only because several ranks share one card.
 
+A rematerialized region that keeps its products in host memory
+(``models/remat.py``, ``offload_dots``) records what it copies out
+(:func:`offload`): the device read is traffic, the copy is
+``offload_bytes`` and no part of the device's peak; the copy back in
+the recompute is an aten op like any other.
+
 A loop whose every trip runs the same ops on tensors of the same shapes
 (a recurrence replayed token by token, a scan's chunks) may iterate over
 :func:`trips`: on the meta device under an account, with grad disabled,
@@ -84,6 +90,15 @@ def declare(name: str, inputs, outputs, flops: float = 0.0,
         _ACTIVE.kernel(name, inputs, outputs, flops, nbytes)
 
 
+def offload(t: torch.Tensor) -> None:
+    """A tensor copied from the device to host memory, to come back in
+    the backward.  Does nothing with no account active."""
+    if _ACTIVE is not None and t.device.type == _ACTIVE.device_type:
+        n = _ACTIVE._scale * _nbytes([t])
+        _ACTIVE.offload_bytes += n
+        _ACTIVE.traffic_bytes += n
+
+
 def trips(seq: Sequence, device) -> Sequence:
     """The items of a loop to run: all of ``seq``, but on the meta device
     under an active account with grad disabled only its first two, and
@@ -127,7 +142,8 @@ class Account(TorchDispatchMode):
 
     After the run, :meth:`record` gives the reference's ``analyze()``
     keys (``flops``, ``traffic_bytes``, ``collective_bytes``) with the
-    peak, the arguments, the staging bytes and the kernels' declarations.
+    peak, the arguments, the staging and offloaded bytes and the kernels'
+    declarations.
     """
 
     def __init__(self, mesh=None, device: Any = "meta", inputs=None):
@@ -137,6 +153,7 @@ class Account(TorchDispatchMode):
         self.flops = 0.0
         self.traffic_bytes = 0.0
         self.staging_bytes = 0.0
+        self.offload_bytes = 0.0
         self.kernels: dict = {}
         self._coll = {k: 0.0 for k in COLLECTIVES}
         self._counts = {k: 0 for k in COLLECTIVES}
@@ -286,6 +303,7 @@ class Account(TorchDispatchMode):
         return {"flops": self.flops, "traffic_bytes": self.traffic_bytes,
                 "collective_bytes": self.collective_bytes(),
                 "staging_bytes": self.staging_bytes,
+                "offload_bytes": self.offload_bytes,
                 "argument_bytes": self.argument_bytes,
                 "peak_bytes": self.peak_bytes,
                 "kernels": {k: dict(v) for k, v in self.kernels.items()}}

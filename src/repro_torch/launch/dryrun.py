@@ -84,6 +84,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     from repro_torch.launch.accounting import Account
     from repro_torch.launch.shapes import SHAPES
     from repro_torch.models import shard_plan as sp
+    from repro_torch.models import transformer as tr
 
     shape = SHAPES[shape_name]
     serving = shape.kind != "train"
@@ -163,8 +164,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         "param_bytes_per_device": sh.param_bytes_per_device(cfg, mesh),
         "tag": tag,
         "lower_s": round(t_run, 2), "compile_s": None,
-        "params": cfg.param_count(),
-        "active_params": cfg.active_param_count(),
+        "params": tr.param_count(cfg),
+        "active_params": tr.active_param_count(cfg),
         # counted per device as the step ran (launch/accounting.py)
         "flops_per_device": rec["flops"],
         "bytes_accessed_per_device": rec["traffic_bytes"],
@@ -180,6 +181,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
             + arg_bytes,
         },
         "staging_bytes_per_device": rec["staging_bytes"],
+        # the products offload_dots keeps in pinned host memory
+        "offload_bytes_per_device": rec["offload_bytes"],
         "paged_workspace_bytes": _paged_workspace(cfg, shape, inputs),
         "kernels": rec["kernels"],
         "run_device": device,

@@ -142,7 +142,10 @@ class TrainSettings:
     microbatches: int = 1            # 1F1B microbatches on a pipe axis
                                      # (m + p - 1 wavefront ticks; the
                                      # bubble (p - 1) / (m + p - 1))
-    remat: bool = True
+    remat: bool = True               # read by nothing, as the reference's
+                                     # (its train.py:92): the step's loss
+                                     # rematerializes under
+                                     # cfg.remat_policy
     fsa: bool = True                 # False => FedAvg all-reduce baseline
     capture_views: bool = False      # adversary-view tap: per aggregator,
                                      # the observed wire payload (the

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.dist import collectives as cl
+from repro_torch.models.remat import checkpoint
 
 
 # ------------------------------------------------ tensor-parallel region
@@ -382,17 +383,25 @@ def causal_attention(q, k, v, *, q_offset: int = 0,
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); H = KV * G.
     Query i has absolute position q_offset + i; key j has position j.
     Each query row depends only on its own chunk's scores, so the
-    reference's zero-padding of the last chunk is a no-op here.
+    reference's zero-padding of the last chunk is a no-op here.  Past one
+    chunk, each chunk runs under a checkpoint where autograd records, as
+    the reference's (``layers.py:431``): the backward recomputes its
+    scores.
     """
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
     kpos = torch.arange(k.shape[1], device=q.device)
+    if Sq <= chunk:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        out = _attend_block(qg, k, v, qpos, kpos, window, scores_f32)
+        return out.reshape(B, Sq, H, hd)
     outs = []
     for c0 in range(0, Sq, chunk):
         qi = qg[:, c0:c0 + chunk]
         qpos = q_offset + c0 + torch.arange(qi.shape[1], device=q.device)
-        outs.append(_attend_block(qi, k, v, qpos, kpos, window, scores_f32))
+        outs.append(checkpoint(_attend_block, qi, k, v, qpos, kpos, window,
+                               scores_f32))
     return torch.cat(outs, 1).reshape(B, Sq, H, hd)
 
 

@@ -28,10 +28,10 @@ from typing import Callable, List
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random
 from repro_torch.launch import accounting
+from repro_torch.models.remat import checkpoint
 
 
 # ------------------------------------------------------ associative scan
@@ -107,7 +107,7 @@ def ssm_scan(u, dt, B, C, A_log, D_skip, *, chunk: int = 128,
     ys = []
     for c0 in accounting.trips(range(0, Tp, chunk), u.device):
         inp = [x[:, c0:c0 + chunk] for x in (u, dt, B, C)]
-        h, y = _maybe_checkpoint(_ssm_chunk, h, *inp, A, D_skip, el_dtype)
+        h, y = checkpoint(_ssm_chunk, h, *inp, A, D_skip, el_dtype)
         ys.append(y)
     # a dry run's second trip stands for the rest: their outputs
     ys += [torch.empty_like(y) for _ in range(n_chunks - len(ys))]
@@ -125,14 +125,6 @@ def _ssm_chunk(h, ui, dti, Bi, Ci, A, D_skip, el_dtype):
     y = torch.einsum("bcdn,bcn->bcd", hseq, Ci.float())
     y = y + D_skip.float() * ui.float()
     return hseq[:, -1], y.to(ui.dtype)
-
-
-def _maybe_checkpoint(fn, *args):
-    """``fn(*args)``, under ``torch.utils.checkpoint`` where autograd
-    records: the backward recomputes the chunk from its inputs."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
 
 
 def ssm_decode_step(h, u, dt, B, C, A_log, D_skip):
@@ -184,8 +176,8 @@ def mlstm_parallel(q, k, v, i_pre, f_pre, *, chunk: int = 512,
     chunk = min(chunk, T)
     outs = []
     for c0 in range(0, T, chunk):
-        outs.append(_maybe_checkpoint(_mlstm_chunk, q[:, c0:c0 + chunk], k,
-                                      v, b, m, c0, scores_f32))
+        outs.append(checkpoint(_mlstm_chunk, q[:, c0:c0 + chunk], k, v,
+                               b, m, c0, scores_f32))
     return torch.cat(outs, 1)
 
 

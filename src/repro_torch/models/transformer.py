@@ -13,7 +13,10 @@ vlm prepends projected image-patch embeddings), ``moe`` (the FFN swapped
 for the routed experts of ``models/moe.py``), ``ssm`` (the mLSTM mixer
 and a gated projection, ``models/ssm.py``) and ``hybrid`` (attention and
 a selective-SSM head in parallel, averaged).  Training (``mode="train"``,
-``loss_fn``) runs through PyTorch autograd.  Its attention is routed as
+``loss_fn``) runs through PyTorch autograd, each layer rematerialized
+under ``cfg.remat_policy`` as the reference's (``models/remat``; the
+default ``full`` keeps each layer's input and recomputes the layer in
+the backward).  Its attention is routed as
 the reference routes it: with ``cfg.flash_attention`` (the default)
 every shape that the 128-blocks tile goes through the flash-attention
 kernels (``kernels/flash_attention``, a ``torch.autograd.Function``
@@ -41,6 +44,7 @@ each tick.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import numpy as np
@@ -54,6 +58,7 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.launch import accounting
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import remat as remat_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.shard_plan import (PipeRuntime,  # noqa: F401
@@ -107,6 +112,26 @@ def param_spec(cfg: ModelConfig) -> dict:
     if cfg.frontend == "vlm":
         spec["proj_in"] = (cfg.d_frontend, D)
     return spec
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """The leaves of :func:`param_spec`, counted (``:84-93``): what the
+    dry run records.  ``ModelConfig.param_count`` estimates by formula,
+    and differs for hybrid and ssm."""
+    spec = param_spec(cfg)
+    shapes = [*spec["blocks"].values(),
+              *(v for k, v in spec.items() if k != "blocks")]
+    return sum(int(np.prod(s)) for s in shapes)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (``:96-102``): moe counts top_k of its
+    n_experts expert FFNs."""
+    total = param_count(cfg)
+    if cfg.family == "moe":
+        expert = 3 * cfg.d_model * cfg.d_ff
+        total -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * expert
+    return total
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -529,11 +554,32 @@ def uses_flash_kernel(cfg: ModelConfig, seq_len: int,
             and window != 0 and fa.supports(seq_len, cfg.hd))
 
 
+def _remat_policy(name: str) -> Optional[remat_lib.Policy]:
+    """The layer checkpoint's policy (``:481-498``): ``full`` (None) keeps
+    each layer's input, the carry, and recomputes the layer in the
+    backward; ``dots``, ``dots_batch`` and ``offload_dots`` also keep
+    products' outputs (``models/remat.py``).  ``none`` (no remat) is the
+    caller's test, not a name here."""
+    if name not in remat_lib.POLICIES:
+        raise ValueError(f"remat_policy {name!r}: want one of "
+                         f"{sorted(remat_lib.POLICIES)} | none")
+    return remat_lib.POLICIES[name]
+
+
+def _block_fn(cfg: ModelConfig, remat: bool):
+    """``_block``, rematerialized under the config's policy when
+    ``remat`` and ``cfg.remat_policy != "none"``."""
+    if not remat or cfg.remat_policy == "none":
+        return _block
+    policy = _remat_policy(cfg.remat_policy)
+    return functools.partial(remat_lib.checkpoint, _block, policy=policy)
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             mode: str = "prefill", window: Optional[int] = None,
             inputs_embeds: Optional[torch.Tensor] = None,
             frontend_embeds: Optional[torch.Tensor] = None,
-            tp: Optional[TPRuntime] = None):
+            tp: Optional[TPRuntime] = None, remat: bool = True):
     """Full-sequence forward.  Returns (logits, caches, aux).
 
     ``mode="prefill"`` runs without autograd and returns the reference's
@@ -552,6 +598,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     input that the DLG gradient inversion optimizes
     (``repro_torch.privacy``); ``tokens`` still gives the targets.
 
+    With ``remat`` (and ``cfg.remat_policy != "none"``) a train forward
+    runs each layer under the policy's checkpoint: the backward
+    recomputes the layer from its input, as the reference's
+    ``jax.checkpoint`` of its layer scan.
+
     With ``tp`` the params are this rank's shards under ``tp.plan``;
     under a vocab-parallel plan the logits come back vocab-sharded (B, S,
     V/tp), for ``loss_fn``'s sharded CE.  Under ``seq`` the residual
@@ -567,11 +618,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             return _forward(params, cfg, tokens, window, mode,
                             inputs_embeds, frontend_embeds, tp)
     return _forward(params, cfg, tokens, window, mode, inputs_embeds,
-                    frontend_embeds, tp)
+                    frontend_embeds, tp, remat)
 
 
 def _forward(params, cfg, tokens, window, mode: str, inputs_embeds,
-             frontend_embeds, tp=None):
+             frontend_embeds, tp=None, remat: bool = False):
     seq = tp is not None and tp.plan.seq
     if seq and tokens.shape[1] % tp.size != 0:
         raise ValueError(
@@ -588,8 +639,10 @@ def _forward(params, cfg, tokens, window, mode: str, inputs_embeds,
     S = x.shape[1] * (tp.size if seq else 1)    # the full sequence
     positions = torch.arange(S, device=x.device).expand(B, S)
     caches, lb = [], []
+    block = _block_fn(cfg, remat)
     for lp in _layers(params):
-        x, cache, aux = _block(cfg, lp, x, positions, window, mode, tp=tp)
+        x, cache, aux = block(cfg, lp, x, positions, window, mode, None,
+                              None, tp)
         lb.append(aux.get("load_balance",
                           torch.zeros((), device=x.device)))
         if mode == "prefill":
@@ -730,8 +783,9 @@ def pipeline_loss_fn(params: dict, cfg: ModelConfig, batch: dict,
     The carry is the embedding's dtype (the reference's is the config's:
     a bf16 config's f32 params after adam would change its scan's carry
     type) and (mb, (S + n_pre) / tp, D) under a sequence-parallel plan.
-    The reference remats its block body; recomputing changes no value, so
-    the port keeps the activations."""
+    Each layer of a tick runs under the config's remat policy, as the
+    reference's block body (``:700-702``): the backward recomputes it,
+    its collectives issued again in the same order on every rank."""
     if pipe is None or not pipe.plan.active:
         return loss_fn(params, cfg, batch, window, tp)
     p, m = pipe.plan.size, pipe.plan.microbatches
@@ -752,6 +806,7 @@ def pipeline_loss_fn(params: dict, cfg: ModelConfig, batch: dict,
     positions = torch.arange(S + n_pre, device=dev).expand(mb, S + n_pre)
     stage = pipe.index
     layers = _layers(params)
+    block = _block_fn(cfg, True)
 
     def flag(cond: bool) -> torch.Tensor:
         return torch.tensor(cond, device=dev)
@@ -769,7 +824,8 @@ def pipeline_loss_fn(params: dict, cfg: ModelConfig, batch: dict,
         x = torch.where(flag(stage == 0), inj, recv)
         lbs = []
         for lp in layers:
-            x, _, aux = _block(cfg, lp, x, positions, window, "train", tp=tp)
+            x, _, aux = block(cfg, lp, x, positions, window, "train", None,
+                              None, tp)
             lbs.append(aux.get("load_balance", zero))
         # stage s holds microbatch t - s at ticks s <= t < s + m
         valid_here = flag(stage <= t < stage + m)

@@ -82,6 +82,20 @@ def sample(keys: torch.Tensor, logits: torch.Tensor,
     return torch.where(temperature <= 0, greedy, drawn).to(torch.int32)
 
 
+def sample_one(key: torch.Tensor, logits: torch.Tensor,
+               params: SamplingParams) -> torch.Tensor:
+    """One row through :func:`sample` (``sampling.py:75-81``): key (2,),
+    logits (V,); returns a 0-d int32 token."""
+    dev = logits.device
+    return sample(key[None], logits[None],
+                  torch.tensor([params.temperature], dtype=torch.float32,
+                               device=dev),
+                  torch.tensor([params.top_k], dtype=torch.int32,
+                               device=dev),
+                  torch.tensor([params.top_p], dtype=torch.float32,
+                               device=dev))[0]
+
+
 # ============================================================ beam decode
 def prefill_cache(params: dict, cfg, prompt: torch.Tensor, n_beams: int,
                   cache_len: int, window: Optional[int] = None,

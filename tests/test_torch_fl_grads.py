@@ -113,8 +113,9 @@ def test_flash_attention_training_runs_the_flash_function_and_prefill_does_not(
         monkeypatch):
     """With cfg.flash_attention, the training shapes the reference sends
     through its Pallas flash kernels go through the port's flash Function:
-    on the CPU its forward and both backward plain versions run once per
-    layer, and the chunked attention never does.  Prefill and a shape the
+    on the CPU both backward plain versions run once per layer and its
+    forward twice (the config's full remat recomputes each layer in the
+    backward), and the chunked attention never does.  Prefill and a shape the
     128-blocks do not tile take the chunked attention, as the reference
     routes them."""
     from repro_torch.kernels import flash_attention as fa
@@ -139,7 +140,8 @@ def test_flash_attention_training_runs_the_flash_function_and_prefill_does_not(
     loss = tr.loss_fn(_unflat(leaves), cfg, {"tokens": toks})
     torch.autograd.grad(loss, list(leaves.values()))
     L = cfg.n_layers
-    assert calls == {"flash_fwd_ref": L, "flash_dq_ref": L,
+    assert cfg.remat_policy == "full"
+    assert calls == {"flash_fwd_ref": 2 * L, "flash_dq_ref": L,
                      "flash_dkv_ref": L, "causal_attention": 0}
     assert tr.uses_flash_kernel(cfg, 16) and not tr.uses_flash_kernel(cfg, 192)
     logits, caches, _ = tr.forward(pt, cfg, toks, "prefill")
@@ -147,4 +149,4 @@ def test_flash_attention_training_runs_the_flash_function_and_prefill_does_not(
     assert not logits.requires_grad
     tr.loss_fn(pt, cfg, {"tokens": torch.zeros(1, 192, dtype=torch.int32)})
     assert calls["causal_attention"] == 2 * L
-    assert calls["flash_fwd_ref"] == L
+    assert calls["flash_fwd_ref"] == 2 * L
